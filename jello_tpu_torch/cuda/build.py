@@ -1,5 +1,6 @@
 """Kernel loader: builds `jello_tpu_torch/csrc/*.cu` with nvcc into one
-shared library with a plain C interface and binds it with ctypes.
+shared library with a plain C interface and binds it with ctypes (one
+nvcc per source, all at once, then one link).
 
 The build runs at first use, never at import: it compiles for `sm_90a`
 with `-fmad=false` (no contraction of a*b+c into FMA, so the float
@@ -28,7 +29,7 @@ LIB_NAME = "libjello_kernels.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -42,6 +43,22 @@ SIGNATURES = {
     # tile_start [GRID] i32, tile_end [GRID] i32, base [4] f32,
     # out [PC, 4, 256] f32, GRID, NR, W, wit, stream
     "jello_fine_v2": [P, P, P, P, P, P, P, I, I, I, I, P],
+    # pos [R] i32, keep [R] bool, vals [K, R] f32, out [K, out_len] f32
+    # (zeroed), R, K, out_len, stream
+    "jello_monotone_land": [P, P, P, P, I, I, I, P],
+    # table [NW, 21] f32, valid [NW] bool, rec [3, IT, NW] f32 (zeroed),
+    # count [NW] f32, not_done [NW] bool, iters [] i32 (zeroed), NW, IT, stream
+    "jello_lockstep_walk": [P, P, P, P, P, P, I, I, P],
+    # table [NW, 21] f32, rec [3, IT, NW] f32, incl [NW] i32, counts [NW]
+    # i32, xy [4, EC] f32, path [EC] i32, valid [EC] bool, NW, IT, EC,
+    # sentinel path, stream
+    "jello_expand_euler": [P, P, P, P, P, P, P, I, I, I, I, P],
+    # P [L, 21] f64, incl [L] i32, counts [L] i32, seg [5, SC] f64,
+    # ints [3, SC] i32, L, SC, T, stream
+    "jello_expand_crossings": [P, P, P, P, P, I, I, I, P],
+    # PRT [L, 5] f64, incl [L] i32, counts [L] i32, ints [2, RC] i32, L,
+    # RC, T, stream
+    "jello_expand_rows": [P, P, P, P, I, I, I, P],
 }
 
 
@@ -55,9 +72,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(procs):
+    """Wait for every (name, Popen) and raise with the stderr of the
+    first that failed. Returns the stderr texts."""
+    errs = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        errs.append(err)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{err}")
+    return errs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the library is missing or older than a
-    source. Returns the library path."""
+    source: one nvcc per source, all started together, then one link.
+    Returns the library path."""
     srcs = sorted(CSRC.glob("*.cu"))
     heads = sorted(CSRC.glob("*.cuh"))
     lib = BUILD / LIB_NAME
@@ -65,15 +97,22 @@ def build(verbose: bool = False) -> Path:
     if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)] + [str(s) for s in srcs]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + (["-Xptxas=-v"] if verbose else [])
+    objs = [BUILD / f"{s.stem}.{tag}.o" for s in srcs]
+    errs = _run([(s.name, subprocess.Popen(
+        [nvcc, *flags, "-c", "-I", str(CSRC), "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for s, o in zip(srcs, objs)])
+    tmp = BUILD / f"{LIB_NAME}.{tag}.tmp"
+    _run([("link", subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp)] + [str(o) for o in objs],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+    for o in objs:
+        o.unlink()
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+        print("".join(errs))
     os.replace(tmp, lib)
     return lib
 

@@ -166,8 +166,11 @@ class Renderer:
         calibrated = self._calib_key == est_key
         flags = {}
         for _ in range(max_retries + 2):
+            # jello_tpu's routing on its accelerator (`tpu/render.py:352-357`):
+            # the streaming expansions (kernels C, D, E), set per frame and
+            # never kept in the class that calibrate_caps and grow_caps see.
             fine_out, flags_t, stats_t = render_frame(
-                scene_t, layout_t, ramps_t, self._caps, fine_v2)
+                scene_t, layout_t, ramps_t, dict(self._caps, _expand_pallas=True), fine_v2)
             fkeys, skeys = sorted(flags_t), sorted(stats_t)
             vals = torch.stack([flags_t[k].to(torch.int64).reshape(()) for k in fkeys]
                                + [stats_t[k].to(torch.int64).reshape(()) for k in skeys]).cpu()

@@ -102,7 +102,11 @@ def slot_rank_rows(cmds, counted, caps):
     nxt = torch.cat([slot[1:], torch.full((1,), -1, dtype=I32, device=dev)])
     first = (slot != prev) & valid
     last = (slot != nxt) & valid
-    c_first = torch.cumsum(first.to(I32), 0, dtype=I32)
+    # path_count's sorted-run branch has this prefix already (as in
+    # jello_tpu's coverage wrapper, `coverage_pallas.py:307`).
+    c_first = counted.get("first_cum")
+    if c_first is None:
+        c_first = torch.cumsum(first.to(I32), 0, dtype=I32)
     srank = torch.clamp(c_first - 1, 0, AR - 1)
     pos = ops.iota(SC, dev)
     zeros = torch.zeros(AR, dtype=I32, device=dev)

@@ -2,11 +2,13 @@
 
 Counterpart of `jello_tpu/pipeline/flatten.py::flatten_stage` and its
 helpers (`decode_tag_stream`, `slot_geometry`, `expand_by_counts`,
-`lockstep_euler_pass`, `euler_line_points`, `finalize_path_bbox`), on
-the route that `jello_tpu` takes without its streaming kernels: the
-adaptive subdivision walk runs as a fixed-length masked loop over all
-work items at once, and every expansion is count -> exclusive scan ->
-scatter of record ids -> cummax.
+`euler_line_points`, `finalize_path_bbox`) on both of its routes. With
+`_expand_pallas` in caps (what the renderer sets, as jello_tpu's does
+on its accelerator) the worklist marks land through kernel C, the
+adaptive subdivision walk is kernel D and the Euler lines come from
+kernel E. Without it, the walk runs as a fixed-length masked loop over
+all work items at once (`lockstep.lockstep_walk`) and every expansion
+is count -> exclusive scan -> scatter of record ids -> cummax.
 
 One slot per path tag byte. Fills are flattened in device space with
 zero offset; the stroke families (offsets, caps, joins, round arcs)
@@ -42,8 +44,8 @@ from jello_tpu.encoding.path import (
 from .. import flatten_math as fm
 from .. import pmath as pm
 from ..pmath import rdiv
-from . import ops
-from .ops import F32, I32, I64
+from . import lockstep, ops
+from .ops import F32, I32
 from .pathtag import tag_monoid_scan
 
 DRAW_INFO_FLAGS_FILL_RULE_BIT = 1
@@ -131,108 +133,21 @@ def _transform_read(scene, transform_base, trans_idx):
     return [ops.bitcast_u32_f32(ops.gather_guarded(scene, base + i)) for i in range(6)]
 
 
-def _apply_transform(t, x, y):
+def apply_transform(t, x, y):
     return t[0] * x + t[2] * y + t[4], t[1] * x + t[3] * y + t[5]
 
 
-def _pq_at(P, t):
-    """Point/derivative at t with the near-zero-derivative resampling."""
-    px, py, qx, qy = fm.eval_cubic_and_deriv(*P, t)
-    small = qx * qx + qy * qy < fm.DERIV_THRESH * fm.DERIV_THRESH
-    ts = torch.where(t == 0.0, torch.full_like(t, fm.DERIV_EPS), t - fm.DERIV_EPS)
-    px2, py2, qx2, qy2 = fm.eval_cubic_and_deriv(*P, ts)
-    qx = torch.where(small, qx2, qx)
-    qy = torch.where(small, qy2, qy)
-    interior = small & (t > 0.0) & (t < 1.0)
-    px = torch.where(interior, px2, px)
-    py = torch.where(interior, py2, py)
-    t_adj = torch.where(interior, t - fm.DERIV_EPS, t)
-    return px, py, qx, qy, t_adj
-
-
-def lockstep_euler_pass(P, offset, scale, active, max_iters):
-    """Adaptive subdivision walk for all work items in lockstep.
-
-    A fixed `max_iters`-long loop of masked updates: no host sync per
-    iteration. Once every item is done an iteration changes nothing but
-    a zero record row, which is what the oracle leaves there too.
-
-    Returns (rec_t0, rec_t1, rec_n [IT, N] f32, overflow (0-dim bool),
-    iters (0-dim int32): the iterations the oracle's while loop runs)."""
-    N = P[0].shape[0]
-    IT = max_iters
-    dev = P[0].device
-    degenerate = (
-        (P[0] == P[2]) & (P[1] == P[3]) & (P[0] == P[4]) & (P[1] == P[5])
-        & (P[0] == P[6]) & (P[1] == P[7])
-    )
-    done = ~(active & ~degenerate)
-
-    t0u = torch.zeros(N, dtype=I64, device=dev)
-    dt = torch.ones(N, dtype=F32, device=dev)
-    lpx, lpy = P[0], P[1]
-    lqx, lqy = P[2] - P[0], P[3] - P[1]
-    small = lqx * lqx + lqy * lqy < fm.DERIV_THRESH * fm.DERIV_THRESH
-    _, _, q2x, q2y = fm.eval_cubic_and_deriv(*P, torch.full_like(lpx, fm.DERIV_EPS))
-    lqx = torch.where(small, q2x, lqx)
-    lqy = torch.where(small, q2y, lqy)
-    last_t = torch.zeros(N, dtype=F32, device=dev)
-    rec_t0 = torch.zeros((IT, N), dtype=F32, device=dev)
-    rec_t1 = torch.zeros((IT, N), dtype=F32, device=dev)
-    rec_n = torch.zeros((IT, N), dtype=F32, device=dev)
-    iters = torch.zeros((), dtype=I32, device=dev)
-    zero = torch.zeros_like(dt)
-
-    for it in range(IT):
-        iters = iters + (~done.all()).to(I32)
-        t0 = t0u.to(F32) * dt
-        done = done | (t0 == 1.0)
-        t1 = t0 + dt
-        p1x, p1y, q1x, q1y, t1 = _pq_at(P, t1)
-        actual_dt = t1 - last_t
-        th0, th1, chord_len, err = fm.cubic_params_from_points_derivs(
-            lpx, lpy, p1x, p1y, lqx, lqy, q1x, q1y, actual_dt
-        )
-        emit = (err * scale <= fm.FLATTEN_TOL) | (dt <= fm.SUBDIV_LIMIT)
-        do_emit = emit & ~done
-
-        k0, k1, ch = fm.euler_params_from_angles(th0, th1)
-        n = fm.espc_subdivision(k0, k1, ch, chord_len, offset, scale)[0]
-        n = torch.where(torch.isnan(n), torch.ones_like(n), n)
-
-        rec_t0[it] = torch.where(do_emit, last_t, zero)
-        rec_t1[it] = torch.where(do_emit, t1, zero)
-        rec_n[it] = torch.where(do_emit, n, zero)
-
-        lpx = torch.where(do_emit, p1x, lpx)
-        lpy = torch.where(do_emit, p1y, lpy)
-        lqx = torch.where(do_emit, q1x, lqx)
-        lqy = torch.where(do_emit, q1y, lqy)
-        last_t = torch.where(do_emit, t1, last_t)
-
-        # Advance: t0u + 1 with its trailing zeros shifted out (u32
-        # wrap-around kept); subdivide: clamped doubling.
-        t0u_e = (t0u + 1) & 0xFFFFFFFF
-        shift = ops.trailing_zeros32(t0u_e)
-        t0u_e = t0u_e >> shift
-        dt_e = dt * torch.exp2(shift.to(F32))
-        t0u_s = torch.where(t0u > 0x7FFFFFFF, 0xFFFFFFFF, t0u * 2)
-        dt_s = dt * 0.5
-
-        advance = emit & ~done
-        subdiv = ~emit & ~done
-        t0u = torch.where(advance, t0u_e, torch.where(subdiv, t0u_s, t0u))
-        dt = torch.where(advance, dt_e, torch.where(subdiv, dt_s, dt))
-    return rec_t0, rec_t1, rec_n, ~done.all(), iters
-
-
-def expand_by_counts(counts, out_cap, total=None):
+def expand_by_counts(counts, out_cap, total=None, land=False):
     """For counts[r] items per record, produce for each output slot
     j < out_cap its (record index, index within record, valid flag).
 
-    Every nonzero record scatters (its index, its exclusive offset) at
-    its exclusive offset (offsets of nonzero records are distinct), and
-    a cummax fills both forward across the record's run.
+    Every nonzero record marks (its index, its exclusive offset) at its
+    exclusive offset (offsets of nonzero records are distinct), and a
+    cummax fills both forward across the record's run. The marks are a
+    scatter, or with `land` (only for counts in {0, 1}, whose offsets
+    advance at most 1 per record) they land through kernel C, as on
+    jello_tpu's `_expand_pallas` route (`flatten.py:396-415`); both give
+    the same result.
     Returns (rec, within, valid, excl, total)."""
     dev = counts.device
     counts = counts.to(I32)
@@ -242,13 +157,19 @@ def expand_by_counts(counts, out_cap, total=None):
     if total is None:
         total = incl[-1] if R > 0 else torch.zeros((), dtype=I32, device=dev)
     r_ids = ops.iota(R, dev)
+    j = ops.iota(out_cap, dev)
+    if land:
+        from ..cuda.land import monotone_land
+
+        m0, m1 = monotone_land(excl, counts > 0, [r_ids, excl], out_cap)
+        rec = ops.cummax(m0.to(I32))
+        return rec, j - ops.cummax(m1.to(I32)), j < total, excl, total
     marks = ops.scatter_max(
         torch.zeros((out_cap, 2), dtype=I32, device=dev),
         torch.where(counts > 0, excl, out_cap),
         torch.stack([r_ids, excl], dim=1),
     )
     m = ops.cummax(marks, dim=0)
-    j = ops.iota(out_cap, dev)
     return m[:, 0], j - m[:, 1], j < total, excl, total
 
 
@@ -285,7 +206,7 @@ def slot_geometry(tags, tags_next, pts_raw, pts_next_raw, seg_type0,
 
     PD = []
     for k in range(4):
-        PD.extend(_apply_transform(T, P[2 * k], P[2 * k + 1]))
+        PD.extend(apply_transform(T, P[2 * k], P[2 * k + 1]))
 
     P_next, _, _, _ = _normalize_segment(
         pts_next_raw, seg_type0_next, tags_next, is_stroke_next)
@@ -434,8 +355,8 @@ def slot_geometry(tags, tags_next, pts_raw, pts_next_raw, seg_type0,
     arc_cx, arc_cy = by_join(p3x, cap_px), by_join(p3y, cap_py)
     arc_angle = by_join(torch.abs(pm.arctan2(cr, dd)), zero + math.pi)
     tol = fm.FLATTEN_TOL
-    ab_tx, ab_ty = _apply_transform(T, arc_bx, arc_by)
-    ac_tx, ac_ty = _apply_transform(T, arc_cx, arc_cy)
+    ab_tx, ab_ty = apply_transform(T, arc_bx, arc_by)
+    ac_tx, ac_ty = apply_transform(T, arc_cx, arc_cy)
     radius = torch.clamp(
         pm.sqrt((ab_tx - ac_tx) ** 2 + (ab_ty - ac_ty) ** 2), min=tol)
     arc_theta = torch.clamp(
@@ -445,8 +366,8 @@ def slot_geometry(tags, tags_next, pts_raw, pts_next_raw, seg_type0,
 
     s_lines = []
     for sv, sc_ in ((s0_valid, s0), (s1_valid, s1), (s2_valid, s2)):
-        x0t, y0t = _apply_transform(T, sc_[0], sc_[1])
-        x1t, y1t = _apply_transform(T, sc_[2], sc_[3])
+        x0t, y0t = apply_transform(T, sc_[0], sc_[1])
+        x1t, y1t = apply_transform(T, sc_[2], sc_[3])
         s_lines.append((sv, x0t, y0t, x1t, y1t))
 
     fpath = path_idx.to(F32)
@@ -521,45 +442,32 @@ def flatten_stage(scene, layout, caps):
     act_a32 = g["act_a"].to(I32)
     act_b32 = g["act_b"].to(I32)
     counts2 = torch.cat([act_a32, act_b32])
-    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB)
+    # jello_tpu's `_expand_pallas` route (`flatten.py:900-954`): the
+    # worklist marks land through kernel C, the walk is kernel D and
+    # the Euler lines come from kernel E.
+    expand_route = bool(caps.get("_expand_pallas"))
+    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB, land=expand_route)
     na = act_a32.sum()
     nb = act_b32.sum()
 
     tab2 = torch.cat([torch.stack(g["tabA"], dim=1), torch.stack(g["tabB"], dim=1)])
     rows = ops.gather_guarded(tab2, wl)
-    P_w = [rows[:, i] for i in range(8)]
-    rec_t0, rec_t1, rec_n, overflow_euler, lockstep_iters = lockstep_euler_pass(
-        P_w, rows[:, 8], rows[:, 9], wl_valid, IT)
-    overflow_euler = overflow_euler | (nab > NWAB)
-
-    # Euler lines: records flattened work-item-major so each item's
-    # records are contiguous in emission order.
     EC = caps["euler_line_cap"]
-    recs_n = rec_n.t().reshape(-1)
-    recs_t0 = rec_t0.t().reshape(-1)
-    recs_t1 = rec_t1.t().reshape(-1)
-    rec_idx, within, e_valid, excl, e_total = expand_by_counts(recs_n, EC)
-    e_work = rec_idx // IT
-    row = ops.gather_guarded(rows, e_work)
-    P8l = tuple(row[:, i] for i in range(8))
-    Tl = [row[:, 14 + i] for i in range(6)]
-    e_path = row[:, 20].to(I32)
-    recs_pack = torch.stack([recs_t0, recs_t1, recs_n, excl.to(F32)], dim=1)
-    rrow = ops.gather_guarded(recs_pack, rec_idx)
-    lp1x, lp1y = euler_line_points(
-        P8l, rrow[:, 0], rrow[:, 1], within, rrow[:, 2], row[:, 8], row[:, 9],
-        row[:, 12], row[:, 13])
-    group_start = ops.gather_guarded(recs_pack, e_work * IT)[:, 3].to(I32)
-    is_first = ops.iota(EC, dev) == group_start
-    prev1x = torch.cat([lp1x[:1] * 0, lp1x[:-1]])
-    prev1y = torch.cat([lp1y[:1] * 0, lp1y[:-1]])
-    lp0x = torch.where(is_first, row[:, 10], prev1x)
-    lp0y = torch.where(is_first, row[:, 11], prev1y)
-    swap = row[:, 8] < 0.0
-    e_x0, e_y0 = _apply_transform(Tl, torch.where(swap, lp1x, lp0x),
-                                  torch.where(swap, lp1y, lp0y))
-    e_x1, e_y1 = _apply_transform(Tl, torch.where(swap, lp0x, lp1x),
-                                  torch.where(swap, lp0y, lp1y))
+    if expand_route:
+        from ..cuda import expand as kx
+        from ..cuda.lockstep import lockstep_walk
+
+        rec, count, not_done, lockstep_iters = lockstep_walk(rows, wl_valid, IT)
+        # e_total counts one dead slot per zero-count work row (the
+        # expansion's clamp): it sizes the stream; e_real is the lines.
+        e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = kx.expand_euler(
+            rows, rec, count.to(I32), EC, n_paths_cap)
+        e_real = count.sum().to(I32)
+    else:
+        rec, _, not_done, lockstep_iters = lockstep.lockstep_walk(rows, wl_valid, IT)
+        e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = _euler_lines_xla(rows, rec, EC)
+        e_real = e_total
+    overflow_euler = not_done.any() | (nab > NWAB)
 
     # Simple lines + arc lines: one merged per-slot expansion over the
     # three simple-line families and the arcs, demuxed per output row.
@@ -597,17 +505,17 @@ def flatten_stage(scene, layout, caps):
         ang = i_f * a_theta
         c = pm.cos(ang)
         s = pm.sin(ang)
-        return _apply_transform(Ta, a_cx + (c * r0x + s * r0y),
+        return apply_transform(Ta, a_cx + (c * r0x + s * r0y),
                                 a_cy + (-s * r0x + c * r0y))
 
     a_if = (sa_w - orow[:, 2]).to(F32)
     al1x, al1y = arc_pt(a_if + 1.0)
-    endx, endy = _apply_transform(Ta, a_ex, a_ey)
+    endx, endy = apply_transform(Ta, a_ex, a_ey)
     last = a_if == a_n - 1.0
     al1x = torch.where(last, endx, al1x)
     al1y = torch.where(last, endy, al1y)
     al0x, al0y = arc_pt(a_if)
-    beginx, beginy = _apply_transform(Ta, a_bx, a_by)
+    beginx, beginy = apply_transform(Ta, a_bx, a_by)
     al0x = torch.where(a_if == 0.0, beginx, al0x)
     al0y = torch.where(a_if == 0.0, beginy, al0y)
     sa_x0 = torch.where(is_arc, al0x, a_bx)
@@ -647,7 +555,7 @@ def flatten_stage(scene, layout, caps):
         "line_path": lpath, "line_valid": line_valid,
         "n_lines": e_total + sa_total,
         "n_work_a": na, "n_work_b": nb,
-        "e_total": e_total,
+        "e_total": e_total, "e_real": e_real,
         "s_total": s_counts.sum(), "a_total": arc_n.to(I32).sum(),
         "lockstep_iters": lockstep_iters,
         "path_bbox": finalize_path_bbox(bb_acc),
@@ -655,6 +563,37 @@ def flatten_stage(scene, layout, caps):
         "path_trans_idx": path_trans_idx,
         "overflow": overflow,
     }
+
+
+def _euler_lines_xla(rows, rec, EC):
+    """Euler records -> lines by scatter/cummax over the records,
+    flattened work-item-major so each item's records are contiguous in
+    emission order; a line starts where the item's previous line ends.
+    Returns (x0, y0, x1, y1, path, valid, total)."""
+    IT = rec.shape[1]
+    rec_t0, rec_t1, rec_n = (r.t().reshape(-1) for r in rec)
+    rec_idx, within, e_valid, excl, e_total = expand_by_counts(rec_n, EC)
+    e_work = rec_idx // IT
+    row = ops.gather_guarded(rows, e_work)
+    P8l = tuple(row[:, i] for i in range(8))
+    Tl = [row[:, 14 + i] for i in range(6)]
+    recs_pack = torch.stack([rec_t0, rec_t1, rec_n, excl.to(F32)], dim=1)
+    rrow = ops.gather_guarded(recs_pack, rec_idx)
+    lp1x, lp1y = euler_line_points(
+        P8l, rrow[:, 0], rrow[:, 1], within, rrow[:, 2], row[:, 8], row[:, 9],
+        row[:, 12], row[:, 13])
+    group_start = ops.gather_guarded(recs_pack, e_work * IT)[:, 3].to(I32)
+    is_first = ops.iota(EC, rows.device) == group_start
+    prev1x = torch.cat([lp1x[:1] * 0, lp1x[:-1]])
+    prev1y = torch.cat([lp1y[:1] * 0, lp1y[:-1]])
+    lp0x = torch.where(is_first, row[:, 10], prev1x)
+    lp0y = torch.where(is_first, row[:, 11], prev1y)
+    swap = row[:, 8] < 0.0
+    e_x0, e_y0 = apply_transform(Tl, torch.where(swap, lp1x, lp0x),
+                                 torch.where(swap, lp1y, lp0y))
+    e_x1, e_y1 = apply_transform(Tl, torch.where(swap, lp0x, lp1x),
+                                 torch.where(swap, lp0y, lp1y))
+    return e_x0, e_y0, e_x1, e_y1, row[:, 20].to(I32), e_valid, e_total
 
 
 def finalize_path_bbox(bb_acc):
@@ -678,8 +617,8 @@ def finalize_path_bbox(bb_acc):
 def euler_line_points(P8, t0, t1, i, n, offset, scale, tend_x, tend_y):
     """End point of line i (of n) of the Euler segment over [t0, t1],
     recomputing the fit exactly as the lockstep walk did."""
-    p0x, p0y, q0x, q0y, _ = _pq_at(P8, t0)
-    p1x, p1y, q1x, q1y, _ = _pq_at(P8, t1)
+    p0x, p0y, q0x, q0y, _ = lockstep.pq_at(P8, t0)
+    p1x, p1y, q1x, q1y, _ = lockstep.pq_at(P8, t1)
     th0, th1, chord_len, _ = fm.cubic_params_from_points_derivs(
         p0x, p0y, p1x, p1y, q0x, q0y, q1x, q1y, t1 - t0)
     k0, k1, ch = fm.euler_params_from_angles(th0, th1)

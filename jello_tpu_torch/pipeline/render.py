@@ -68,7 +68,7 @@ def geometry(scene, layout, caps):
     stats = {
         "work_a": fl["n_work_a"],
         "work_b": fl["n_work_b"],
-        "euler_lines": fl["e_total"],
+        "euler_lines": fl["e_real"],
         "simple_lines": fl["s_total"],
         "arc_lines": fl["a_total"],
         "tiles": paths["n_tiles"],

@@ -2,13 +2,16 @@
 clipping, backdrop propagation.
 
 Counterpart of `jello_tpu/pipeline/tiling.py`: `tile_alloc`,
-`path_count` on its plain-array branch (`tiling.py:491-570`: the row
-and crossing expansions, top-edge bumps and tile clipping), the
-non-`sorted_runs` route of `_sort_count_tail` (stable slot sort,
-per-tile counts by scatter-add, the backdrop row prefix) and
-`path_tiling`. Every line is rasterized across tiles by the reference's
-closed-form DDA; a stable sort of crossings by tile slot replaces the
-atomic slice allocation. All integer outputs match the oracle exactly.
+`path_count` on both of its branches and `path_tiling`. The plain-array
+branch (`tiling.py:491-570`) expands rows and crossings by
+scatter/cummax and counts per tile by scatter-add; the `_expand_pallas`
+branch (`tiling.py:389-490` and `_sort_count_tail`'s sorted runs)
+compacts nonzero lines through kernel C, expands through kernels E' and
+E'' and counts per tile from the sorted stream's run boundaries. Both
+share the per-output bodies (`crossings`, `backdrop_rows`). Every line
+is rasterized across tiles by the reference's closed-form DDA; a stable
+sort of crossings by tile slot replaces the atomic slice allocation.
+All integer outputs match the oracle exactly.
 """
 
 from __future__ import annotations
@@ -180,7 +183,8 @@ def line_dda_clip(x0, y0, x1, y1, lvalid, bb0, bb1, bb2, bb3):
 def path_count(lines, paths, caps):
     """Per-line crossings and backdrop rows -> slot-sorted segments,
     per-tile counts/starts and the backdrop prefix (cpu.go PathCount +
-    PathTiling)."""
+    PathTiling). With `_expand_pallas` in caps the expansions run on
+    jello_tpu's streaming route (`_path_count_expand`)."""
     dev = lines["line_x0"].device
     T = caps["tiles_cap"]
     SC = caps["seg_cap"]
@@ -193,7 +197,6 @@ def path_count(lines, paths, caps):
     d = line_dda_clip(lines["line_x0"], lines["line_y0"], lines["line_x1"],
                       lines["line_y1"], lines["line_valid"],
                       prow[:, 0], prow[:, 1], prow[:, 2], prow[:, 3])
-    # Packed per-line parameter table (columns as in jello_tpu).
     # Packed per-line parameter table (columns as in jello_tpu), float64
     # like the oracle's.
     P = torch.stack([c.to(F64) for c in (
@@ -204,22 +207,63 @@ def path_count(lines, paths, caps):
     n_rows_per_line = d["n_rows"].to(I32)
     n_cross = d["n_cross"].to(I32)
 
+    stats = {
+        "real_cross": n_cross.sum(),
+        "real_bd_rows": n_rows_per_line.sum(),
+        "real_cross_lines": (n_cross > 0).to(I32).sum(),
+        "real_bd_lines": (n_rows_per_line > 0).to(I32).sum(),
+    }
+    if caps.get("_expand_pallas"):
+        return _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats)
+    zeros_t1 = torch.zeros(T + 1, dtype=I32, device=dev)
+
     # Backdrop row deltas (column 0 of each path row).
     r_rec, r_within, r_valid, _, r_total = expand_by_counts(n_rows_per_line, RC)
-    PR = ops.gather_guarded(
-        torch.stack([c.to(F64) for c in (d["ymin"], prow[:, 4], prow[:, 1], d["stride"],
-                                         d["delta"])], dim=1),
-        r_rec)
-    r_y = PR[:, 0].to(I32) + r_within
-    r_slot = PR[:, 1].to(I32) + (r_y - PR[:, 2].to(I32)) * PR[:, 3].to(I32)
-    r_slot = torch.where(r_valid, r_slot, T)
-    backdrop = ops.scatter_add(torch.zeros(T + 1, dtype=I32, device=dev), r_slot,
-                               PR[:, 4].to(I32))
+    PR = ops.gather_guarded(P[:, ROW_COLS], r_rec)
+    r_slot, r_delta = backdrop_rows(PR, r_within, r_valid, T)
+    backdrop = ops.scatter_add(zeros_t1, r_slot, r_delta)
 
-    # Crossings.
+    # Crossings, with their top-edge bumps.
     c_rec, c_within, c_valid, _, c_total = expand_by_counts(n_cross, SC)
-    PC = ops.gather_guarded(P, c_rec)
-    ci = PC[:, 0] + c_within.to(F32)  # float64, as in the oracle
+    tile_slot, seg_pre, bump_slot, bump_delta = crossings(
+        ops.gather_guarded(P, c_rec), c_within, c_valid, T)
+    backdrop = ops.scatter_add(backdrop, bump_slot, bump_delta)
+
+    # Stable slot sort replaces the atomic slice allocation.
+    sorted_out = ops.sort_multi(tile_slot, tuple(seg_pre[k] for k in SEG_KEYS))
+    binc = ops.scatter_add(
+        zeros_t1, torch.where((tile_slot >= 0) & (tile_slot < T), tile_slot, T),
+        torch.ones(SC, dtype=I32, device=dev))
+    return _count_tail(sorted_out, binc, backdrop, paths, c_total, r_total,
+                       (c_total > SC) | (r_total > RC), stats)
+
+
+# Columns of the P table that the backdrop-row expansion reads: ymin,
+# tiles_base, bb1, stride, delta (jello_tpu's PRT table).
+ROW_COLS = [13, 10, 7, 9, 12]
+SEG_KEYS = ("seg_x0", "seg_y0", "seg_x1", "seg_y1", "seg_y_edge")
+
+
+def backdrop_rows(PR, within, valid, T):
+    """Backdrop row deltas: the row expansion's body
+    (`jello_tpu/tpu/expand_pallas.py::_row_compute`). PR: each output's
+    owning line's ROW_COLS row, float64. Returns (r_slot i32, T where
+    invalid; r_delta i32, 0 where invalid)."""
+    r_y = PR[:, 0].to(I32) + within
+    r_slot = PR[:, 1].to(I32) + (r_y - PR[:, 2].to(I32)) * PR[:, 3].to(I32)
+    return (torch.where(valid, r_slot, T).to(I32),
+            torch.where(valid, PR[:, 4].to(I32), 0).to(I32))
+
+
+def crossings(PC, within, valid, T):
+    """Tile crossings by the closed-form DDA, fused with tile-relative
+    segment clipping and top-edge bumps: the crossing expansion's body
+    (`jello_tpu/tpu/expand_pallas.py::_crossing_compute`). PC: each
+    output's owning line's P row, float64 as in the oracle. Returns
+    (tile_slot i32, T where invalid; segments, a dict of float64 columns
+    zeroed where invalid (y_edge 1e9); bump_slot i32; bump_delta i32, 0
+    where no bump)."""
+    ci = PC[:, 0] + within.to(F32)  # float64, as in the oracle
     ca, cb, csign = PC[:, 1], PC[:, 2], PC[:, 3]
     cy0, cx0 = PC[:, 4], PC[:, 5]
     z = torch.floor(ca * ci + cb)
@@ -232,10 +276,10 @@ def path_count(lines, paths, caps):
     cbase = PC[:, 10].to(I32) + (cy - cbb1) * cstride - cbb0
     last_z = torch.floor(ca * (ci - 1.0) + cb)
     top_edge = torch.where(ci == 0.0, cy0 == PC[:, 11], last_z == z)
-    bump_ok = top_edge & (cx + 1 < cbb2) & c_valid
-    bump_slot = torch.where(bump_ok, cbase + torch.maximum(cx + 1, cbb0), T)
-    backdrop = ops.scatter_add(backdrop, bump_slot, PC[:, 12].to(I32))
-    tile_slot = torch.where(c_valid, cbase + cx, T)
+    bump_ok = top_edge & (cx + 1 < cbb2) & valid
+    bump_slot = torch.where(bump_ok, cbase + torch.maximum(cx + 1, cbb0), T).to(I32)
+    bump_delta = torch.where(bump_ok, PC[:, 12].to(I32), 0).to(I32)
+    tile_slot = torch.where(valid, cbase + cx, T).to(I32)
 
     ls_c = {
         "a": ca, "b": cb, "sign": csign, "y0i": cy0, "x0f": cx0,
@@ -243,18 +287,122 @@ def path_count(lines, paths, caps):
         "is_down": PC[:, 18] > 0.5, "count": PC[:, 19].to(F32),
         "is_positive": PC[:, 20] > 0.5,
     }
-    seg_pre = _tile_clip_segments(ls_c, ci, z, last_z, cx, cy)
+    seg = _tile_clip_segments(ls_c, ci, z, last_z, cx, cy)
+    # Invalid slots read a clamped owner's row: keep what they compute
+    # (possibly NaN) out of the payloads.
+    seg = {k: torch.where(valid, v, 1e9 if k == "seg_y_edge" else 0.0)
+           for k, v in seg.items()}
+    return tile_slot, seg, bump_slot, bump_delta
 
-    # Stable slot sort replaces the atomic slice allocation.
-    keys = ("seg_x0", "seg_y0", "seg_x1", "seg_y1", "seg_y_edge")
-    sorted_out = ops.sort_multi(tile_slot.to(I32), tuple(seg_pre[k] for k in keys))
+
+def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
+    """path_count on jello_tpu's `_expand_pallas` route
+    (`jello_tpu/pipeline/tiling.py:389-490`): both nonzero-line
+    compactions land through kernel C, the crossing and row expansions
+    run as kernels E' and E'', and the top-edge bumps ride the slot sort
+    (`_sort_count_tail`'s sorted-run branch)."""
+    from ..cuda import expand as kx
+    from ..cuda.land import monotone_land
+
+    dev = P.device
+    L = P.shape[0]
+    T = caps["tiles_cap"]
+    SC = caps["seg_cap"]
+    RC = caps["row_cap"]
+    LCC = caps["cross_lines_cap"]
+    RLC = caps["row_lines_cap"]
+
+    # Compact to nonzero-count lines: the expansions then carry no dead
+    # slot per line, and seg_cap/row_cap size to real outputs.
+    nz_c = n_cross > 0
+    nz_r = n_rows_per_line > 0
+    cum_c = torch.cumsum(nz_c, 0, dtype=I32)
+    cum_r = torch.cumsum(nz_r, 0, dtype=I32)
+    n_nz_c, n_nz_r = cum_c[-1], cum_r[-1]
+    compact_overflow = (n_nz_c > LCC) | (n_nz_r > RLC)
+    l_ids = ops.iota(L, dev)
+    (idx_c,) = monotone_land(cum_c - nz_c.to(I32), nz_c, [l_ids], LCC)
+    (idx_r,) = monotone_land(cum_r - nz_r.to(I32), nz_r, [l_ids], RLC)
+    idx_c, idx_r = idx_c.to(I32), idx_r.to(I32)
+    # The P table goes to the crossing kernel as float64, which keeps
+    # its crossings and tile slots exact against the numpy oracle
+    # (ROADMAP queue 3 rule 5); jello_tpu's kernel reads it as float32.
+    Pc = ops.gather_guarded(P, idx_c)
+    ncc = torch.where(ops.iota(LCC, dev) < n_nz_c, ops.gather_guarded(n_cross, idx_c), 0)
+    PRTc = ops.gather_guarded(P[:, ROW_COLS], idx_r)
+    nrr = torch.where(ops.iota(RLC, dev) < n_nz_r,
+                      ops.gather_guarded(n_rows_per_line, idx_r), 0)
+
+    tile_slot, seg_pre, bump_slot, bump_delta, c_total = kx.expand_crossings(
+        Pc.contiguous(), ncc.to(I32), SC, T)
+    r_slot, r_delta, r_total = kx.expand_rows(PRTc.contiguous(), nrr.to(I32), RC, T)
+    backdrop = ops.scatter_add(torch.zeros(T + 1, dtype=I32, device=dev), r_slot, r_delta)
+
+    # Top-edge bumps ride the sort as a sixth payload where the bump
+    # lands on the crossing's right neighbour (the common case); the
+    # residual case (x_bump clamped off tile_slot + 1) takes the full
+    # bump scatter.
+    next_slot = bump_slot == tile_slot + 1
+    bump_inline = torch.where(next_slot, bump_delta, 0)
+    resid_any = ((bump_delta != 0) & ~next_slot).any()
+    if caps.get("_pc_force_resid"):
+        # Test knob: force the residual branch; with no actual residual
+        # both branches must agree exactly.
+        resid_any = torch.ones((), dtype=torch.bool, device=dev)
+    sorted_out = ops.sort_multi(tile_slot, tuple(seg_pre[k] for k in SEG_KEYS)
+                                + (bump_inline,))
+    sorted_slot, sbump = sorted_out[0], sorted_out[6]
+
+    # Per-tile counts and bump sums from the sorted stream's run
+    # boundaries: run starts land through kernel C (strictly increasing
+    # positions), counts are position differences and bump sums prefix
+    # differences; all exact integers in f32.
+    prev = torch.cat([torch.full((1,), -1, dtype=I32, device=dev), sorted_slot[:-1]])
+    is_new = sorted_slot != prev
+    first_v = is_new & (sorted_slot >= 0) & (sorted_slot < T)
+    # The one >= T (sentinel) run's start lands too: it ends the last
+    # valid run.
+    keep = first_v | (is_new & (sorted_slot >= T) & (prev < T))
+    cum_keep = torch.cumsum(keep, 0, dtype=I32)
+    first_cum = torch.cumsum(first_v, 0, dtype=I32)
+    cum_bump = torch.cumsum(sbump, 0, dtype=I32)
+    bd_excl = cum_bump - sbump
+    n_kept, n_ranks, bd_total = cum_keep[-1], first_cum[-1], cum_bump[-1]
+    ARL = caps["area_rows_cap"] + 8
+    sl_land, pos_land, bd_land = monotone_land(
+        cum_keep - keep.to(I32), keep, [sorted_slot, ops.iota(SC, dev), bd_excl], ARL)
+    r_i = ops.iota(ARL, dev)
+    valid_rank = r_i < n_ranks
+    in_kept = r_i < n_kept
+    pos_i = torch.where(in_kept, pos_land.to(I32), SC)
+    bd_i = torch.where(in_kept, bd_land.to(I32), bd_total)
+    nxt = torch.cat([pos_i[1:], torch.full((1,), SC, dtype=I32, device=dev)])
+    bd_nxt = torch.cat([bd_i[1:], bd_total[None]])
+    cnt = torch.where(valid_rank, nxt - pos_i, 0)
+    bsum = torch.where(valid_rank, bd_nxt - bd_i, 0)
+    slot_r = torch.where(valid_rank, torch.clamp(sl_land.to(I32), 0, T), T)
+    # Run r's bumps land at slot_r + 1 (bump_ok keeps a bump inside its
+    # tile row, so slot + 1 is its exact target).
+    bump_tgt = torch.where(valid_rank, torch.clamp(slot_r + 1, max=T), T)
+    zeros_t1 = torch.zeros(T + 1, dtype=I32, device=dev)
+    binc = ops.scatter_add(zeros_t1, slot_r, cnt)
+    # jello_tpu picks one branch with lax.cond; both are computed here and
+    # one is selected on the device, with no host sync.
+    bump = torch.where(resid_any, ops.scatter_add(zeros_t1, bump_slot, bump_delta),
+                       ops.scatter_add(zeros_t1, bump_tgt, bsum))
+    overflow = (c_total > SC) | (r_total > RC) | compact_overflow | (n_kept > ARL)
+    out = _count_tail(sorted_out[:6], binc, backdrop + bump, paths, c_total, r_total,
+                      overflow, stats)
+    out["first_cum"] = first_cum
+    return out
+
+
+def _count_tail(sorted_out, binc, backdrop, paths, c_total, r_total, overflow, stats):
+    """Per-tile segment starts, the backdrop row prefix and the compact
+    area-row ids, from the sorted stream, the per-slot counts and the
+    per-slot backdrop deltas ([T + 1], the last the dump bin)."""
     sorted_slot = sorted_out[0]
-    segs = dict(zip(keys, sorted_out[1:]))
-
-    binc = ops.scatter_add(
-        torch.zeros(T + 1, dtype=I32, device=dev),
-        torch.where((tile_slot >= 0) & (tile_slot < T), tile_slot, T),
-        torch.ones(SC, dtype=I32, device=dev))
+    T = binc.shape[0] - 1
     seg_count = binc[:T]
     bd = backdrop[:T]
     has = (seg_count > 0).to(I32)
@@ -265,7 +413,7 @@ def path_count(lines, paths, caps):
     bd_prefix = cume - ops.gather_guarded(cume, paths["tile_row_start"]) + bd
     return {
         "sorted_slot": sorted_slot,
-        "segs": segs,
+        "segs": dict(zip(SEG_KEYS, sorted_out[1:6])),
         "seg_start": c3[:, 0],
         "seg_count": seg_count,
         "backdrop": bd_prefix,
@@ -273,11 +421,8 @@ def path_count(lines, paths, caps):
         "n_rows": row_of_slot[-1] + has[-1],
         "n_segs": c_total,
         "r_total": r_total,
-        "overflow": (c_total > SC) | (r_total > RC),
-        "real_cross": n_cross.sum(),
-        "real_bd_rows": n_rows_per_line.sum(),
-        "real_cross_lines": (n_cross > 0).to(I32).sum(),
-        "real_bd_lines": (n_rows_per_line > 0).to(I32).sum(),
+        "overflow": overflow,
+        **stats,
     }
 
 

@@ -1,4 +1,4 @@
-"""The two CUDA kernels of jello_tpu_torch on the card vs their plain
+"""The CUDA kernels of jello_tpu_torch on the card vs their plain
 versions, and the renderer's main path through them.
 
 These need an NVIDIA GPU (marker `cuda`); each test skips itself where
@@ -14,6 +14,9 @@ import jello_tpu as jt
 from jello_tpu.cpu import render_numpy
 from jello_tpu.renderer.params import RenderParams
 
+from jello_tpu_torch.cuda import expand as kx
+from jello_tpu_torch.cuda import land as kland
+from jello_tpu_torch.cuda import lockstep as kwalk
 from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
 from jello_tpu_torch.cuda.fine_v2 import (
     assemble_compact,
@@ -24,6 +27,9 @@ from jello_tpu_torch.cuda.fine_v2 import (
 )
 from jello_tpu_torch.cuda.render import Renderer, upload
 from jello_tpu_torch.pipeline import coverage as plain_cov
+from jello_tpu_torch.pipeline import expand as plain_expand
+from jello_tpu_torch.pipeline import land as plain_land
+from jello_tpu_torch.pipeline import lockstep as plain_walk
 from jello_tpu_torch.pipeline.render import geometry
 
 from .torch_reference import prepare
@@ -78,6 +84,87 @@ def _inputs(cuda):
     return stages, layout_t, ramps_t, caps, ld
 
 
+WRAPPERS = ((kland, "monotone_land"), (kwalk, "lockstep_walk"), (kx, "expand_euler"),
+            (kx, "expand_crossings"), (kx, "expand_rows"))
+
+
+def _route_calls(cuda, monkeypatch):
+    """The arguments of every kernel-wrapper call of one geometry pass on
+    the expand route, on the card."""
+    scene, params = _gradient_scene()
+    s, ld, ramps, caps = prepare(scene, params)
+    scene_t, layout_t, _, caps = upload(s, ld, ramps, caps, cuda)
+    calls = {}
+    for mod, name in WRAPPERS:
+        fn = getattr(mod, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.setdefault(_name, []).append(args)
+            return _fn(*args)
+
+        spy.launches = 0
+        monkeypatch.setattr(mod, name, spy)
+    _, flags, _ = geometry(scene_t, layout_t, dict(caps, _expand_pallas=True))
+    assert not any(bool(v) for v in flags.values())
+    monkeypatch.undo()
+    return calls
+
+
+def test_torch_land_kernel_matches_plain(cuda, monkeypatch):
+    calls = _route_calls(cuda, monkeypatch)
+    assert len(calls["monotone_land"]) == 4  # worklist, two compactions, runs
+    for args in calls["monotone_land"]:
+        n0 = kland.monotone_land.launches
+        got = kland.monotone_land(*args)
+        assert kland.monotone_land.launches == n0 + 1
+        for g, w in zip(got, plain_land.monotone_land(*args)):
+            assert torch.equal(g, w)
+
+
+def test_torch_lockstep_kernel_matches_plain(cuda, monkeypatch):
+    (args,) = _route_calls(cuda, monkeypatch)["lockstep_walk"]
+    n0 = kwalk.lockstep_walk.launches
+    got = kwalk.lockstep_walk(*args)
+    assert kwalk.lockstep_walk.launches == n0 + 1
+    want = plain_walk.lockstep_walk(*args)
+    for g, w in zip(got, want):  # records, counts, not-done flags, iterations
+        assert torch.equal(g, w)
+    assert int(got[3]) > 0
+
+
+@pytest.mark.parametrize("body", ["expand_euler", "expand_crossings", "expand_rows"])
+def test_torch_expand_kernel_matches_plain(cuda, monkeypatch, body):
+    """Integer outputs equal, float outputs within 1e-5 (end points:
+    cbrt's expf/logf and powf may round otherwise than torch's)."""
+    (args,) = _route_calls(cuda, monkeypatch)[body]
+    fn = getattr(kx, body)
+    n0 = fn.launches
+    got = fn(*args)
+    assert fn.launches == n0 + 1
+    if body == "expand_euler":
+        table, rec, counts, EC, sentinel = args
+        incl, _ = plain_expand.expand_prefix(counts)
+        want = plain_expand.euler_lines(table, rec, incl, counts, EC, sentinel)
+        assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+        floats = [(g[want[5]], w[want[5]]) for g, w in zip(got[:4], want[:4])]
+    elif body == "expand_crossings":
+        P, counts, SC, T = args
+        incl, _ = plain_expand.expand_prefix(counts, assume_compact=True)
+        want = plain_expand.tile_crossings(P, incl, counts, SC, T)
+        for i in (0, 2, 3):
+            assert torch.equal(got[i], want[i])
+        floats = [(got[1][k], want[1][k]) for k in want[1]]
+    else:
+        PRT, counts, RC, T = args
+        incl, _ = plain_expand.expand_prefix(counts, assume_compact=True)
+        want = plain_expand.row_deltas(PRT, incl, counts, RC, T)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        floats = []
+    assert int(got[-1]) == int(incl[-1])
+    for g, w in floats:
+        assert (g.double() - w.double()).abs().max().item() <= 1e-5
+
+
 def test_torch_coverage_kernel_matches_plain(cuda):
     stages, _, _, caps, _ = _inputs(cuda)
     cmds, counted = stages["cmds"], stages["counted"]
@@ -117,11 +204,12 @@ def test_torch_fine_kernel_matches_plain(cuda):
 def test_torch_cuda_renderer_matches_oracle(cuda):
     scene, params = _gradient_scene()
     ref, _, _ = render_numpy(scene, params)
-    a0, b0 = coverage_rows.launches, composite_records.launches
+    fns = [coverage_rows, composite_records] + [getattr(m, n) for m, n in WRAPPERS]
+    before = [fn.launches for fn in fns]
     r = Renderer(device="cuda")
     img = r.render(scene, params)
     assert not any(r.last_flags.values())
-    assert coverage_rows.launches > a0 and composite_records.launches > b0
+    assert all(fn.launches > n for fn, n in zip(fns, before))
     assert np.abs(img - ref).max() <= 2e-3
 
 
@@ -132,3 +220,9 @@ def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
         coverage_rows(stream.double(), rs, re_, bd)
     with pytest.raises(ValueError):
         coverage_rows(stream, rs.cpu(), re_, bd)
+    table = torch.zeros((64, 21), dtype=torch.float32, device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        kwalk.lockstep_walk(table.double(), valid, 8)
+    with pytest.raises(ValueError):
+        kland.monotone_land(valid.to(torch.int64), valid, [valid], 64)

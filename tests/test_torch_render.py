@@ -57,6 +57,25 @@ def test_torch_renderer_config1_matches_oracle():
     _check(Renderer(device="cpu"), *config1())
 
 
+def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
+    """Every frame runs jello_tpu's accelerator routing: `_expand_pallas`
+    in the caps render_frame is given, never in the kept class."""
+    from jello_tpu_torch.cuda import render as render_mod
+
+    seen = []
+    frame = render_mod.render_frame
+
+    def spy(scene, layout, ramps, caps, fine_impl):
+        seen.append(caps)
+        return frame(scene, layout, ramps, caps, fine_impl)
+
+    monkeypatch.setattr(render_mod, "render_frame", spy)
+    r = Renderer(device="cpu")
+    _check(r, *_gradient_blobs(seed=9, n=6))
+    assert seen and all(c.get("_expand_pallas") is True for c in seen)
+    assert "_expand_pallas" not in r._caps
+
+
 def test_torch_renderer_gradient_blobs_match_oracle():
     _check(Renderer(device="cpu"), *_gradient_blobs())
 
