@@ -3,9 +3,15 @@
 
     python3 chip_smoke.py
 
+(--config5-cpu-reference is a one-off audit path, not part of the check:
+it also renders config 5 through Renderer(device="cpu"), which takes
+minutes, and prints how far the frame and the plain-on-CUDA reference lie
+from it.)
+
 Phases (any failure exits non-zero; no phase's failure is caught):
-  1. environment: nvidia-smi name and power limit, torch/CUDA versions;
-     exits non-zero when CUDA is not available;
+  1. environment: nvidia-smi name and power limit, torch/CUDA versions,
+     which path encoder runs (native or its Python twin); exits non-zero
+     when CUDA is not available;
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
@@ -21,39 +27,61 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (Euler lines: valid and path equal, end points within 1e-5), E'
      (tile crossings) and E'' (backdrop rows: integer outputs equal,
      segments within 1e-5) vs their plain versions on the recorded
-     inputs;
-  7. main path: Renderer(device="cuda").render() on config 1 (one cubic
-     fill, 256x256), then render() and render_surface() on config 3
-     (1,000 gradient blobs, 1024x1024), every launch count set to 0
-     before each config and read after it; flags must be clear, each of
-     the seven kernels must have launched for each config (the JSON line
-     gives the sum), and the images must be finite and within 2e-3
-     of the reference: the same scenes through Renderer(device="cpu"),
-     the plain PyTorch version of every stage and kernel, which the CPU
-     tests (tests/test_torch_*.py) hold to the JAX package's numpy
-     oracle; then steady-state ms/frame (median of 12 frames after 2
-     warm-ups) and the peak device memory those frames allocate.
-     Kernel times are CUDA-event means over repeated calls on the same
-     inputs, the kernel's wrapper beside its plain version;
-  8. one JSON line of kernel results, the nvidia-smi line, and the
-     device line.
+     inputs; C also beside the one PyTorch call that lands the same rows
+     (scatter_ into a zeroed tensor), as a yardstick only;
+  7. config 5 (10,000 paths at 1920x1080: long fills, thin round-capped
+     strokes, even-odd glyphs, gradients, image fills) at its calibrated
+     class: kernels C, D, E, E', E'' (now with stroke offsets) and A held
+     to their plain versions on this frame's recorded inputs as in 4 and
+     6, untimed; kernel F (image tap) vs its plain version on the frame's
+     real image records, recorded from the tap stage (max abs diff <= 1e-6:
+     the same products and sums, not contracted; region flag equal), and
+     kernel B with the tap's table vs its plain version on config 5's
+     records (<= 1e-4 on the assembled image);
+  8. main path: Renderer(device="cuda") on config 1 (one cubic fill,
+     256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
+     stroked and dashed paths, 512x512) and config 5, render() and, for
+     configs 3 and 5, render_surface(); every launch count is set to 0
+     before each config and read after it; flags must be clear, each
+     kernel of the config's path must have launched (all eight on config
+     5; the JSON line gives the sum), and the images must be finite and
+     within 2e-3 of the reference. The reference for configs 1, 2 and 3
+     is Renderer(device="cpu"), the plain PyTorch version of every stage
+     and kernel, which the CPU tests (tests/test_torch_*.py) hold to the
+     JAX package's numpy oracle. At config 5's size that costs minutes on
+     a CPU, so its reference is the same plain versions run on CUDA
+     tensors: this script's own reference call swaps the plain versions
+     in for the kernel wrappers (the main path has no such switch) and
+     checks that no kernel launched meanwhile; --config5-cpu-reference
+     also renders and times the CPU reference. Then steady-state ms/frame
+     (median after 2 warm-ups) and the peak device memory those frames
+     allocate. Kernel times are CUDA-event means over repeated calls on
+     the same inputs, the kernel's wrapper beside its plain version;
+  9. one JSON line of kernel results, the nvidia-smi line, and the
+     device line. bound_ms is the least time an H100 could take for the
+     call: the larger of its bytes (each input read once, each output
+     written once; for B only the rows this run's records touch) over
+     3.35 TB/s and its float operations, counted for
+     this run's data, over 67 TFLOP/s (float32 outside the tensor cores).
 
-Imports only the port, torch and numpy; importing JAX is made to fail.
-The port itself builds on the JAX-free host half of the JAX package
-(scene encoding, resolve, the capacity estimate, the gate scenes); the
-run fails if any module of the JAX renderer (jello_tpu.tpu) was loaded.
+Imports only the port, torch and numpy; importing JAX or the JAX package
+(jello_tpu) is made to fail, and the run fails if either was loaded.
 """
 
 import sys
 
 sys.modules["jax"] = None  # any import of JAX fails loudly
+sys.modules["jello_tpu"] = None  # and so does any import of the JAX package
 
 A_TOL = 1e-5
 B_TOL = 1e-4
 E_TOL = 1e-5  # E, E': end points and segments vs the plain version
+F_TOL = 1e-6
 IMG_TOL = 2e-3
-FRAMES = 12
+FRAMES = 8
 WARMUP = 2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def _fail(msg):
@@ -86,8 +114,8 @@ def _time_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def _frame_ms(fn):
-    """(median, min, max) host ms per frame over FRAMES frames after
+def _frame_ms(fn, frames=FRAMES):
+    """(median, min, max) host ms per frame over `frames` frames after
     WARMUP warm-ups, and the peak device MiB those frames allocated above
     what was already held."""
     import statistics
@@ -101,13 +129,50 @@ def _frame_ms(fn):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     times = []
-    for _ in range(FRAMES):
+    for _ in range(frames):
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**20
     return statistics.median(times), min(times), max(times), peak
+
+
+def _profile(fn, frames=3):
+    """torch.profiler over `frames` calls of fn: per frame, the kernels
+    launched, the copies and memsets, the device's busy ms (the union of
+    the kernels' intervals), and the five kernel names with the most
+    summed time as [(name, ms a frame, launches a frame)]. The pipeline's
+    record_function spans also come back as device-side events that cover
+    the frame; they carry the name of a host-side event and are left
+    out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in host_names]
+    copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = [(name, ms / frames, n / frames) for name, (ms, n) in top]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return len(spans) / frames, len(copies) / frames, busy_us / 1e3 / frames, top
 
 
 def _record_calls(wrappers, run):
@@ -134,6 +199,79 @@ def _record_calls(wrappers, run):
     return calls
 
 
+def _nbytes(*tensors):
+    """Bytes of the given tensors (nested lists, tuples and dicts of
+    tensors included; other values count nothing)."""
+    import torch
+
+    n = 0
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, dict):
+            n += _nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            n += _nbytes(*t)
+    return n
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by) of a call that must move `nbytes` and do
+    `flops` float operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+class _PlainKernels:
+    """While entered, every kernel wrapper is replaced by its plain
+    PyTorch version, whatever device the tensors lie on: the reference
+    call of this script for a frame too large for a CPU reference. The
+    pipeline looks the wrappers up at call time, so this takes effect."""
+
+    def __enter__(self):
+        from jello_tpu_torch.cuda import coverage as kcov
+        from jello_tpu_torch.cuda import expand as kx
+        from jello_tpu_torch.cuda import fine_v2 as kfine
+        from jello_tpu_torch.cuda import image_tap as ktap
+        from jello_tpu_torch.cuda import land as kland
+        from jello_tpu_torch.cuda import lockstep as kwalk
+        from jello_tpu_torch.pipeline import coverage as plain_cov
+        from jello_tpu_torch.pipeline import expand as px
+        from jello_tpu_torch.pipeline import image_tap as plain_tap
+        from jello_tpu_torch.pipeline import land as plain_land
+        from jello_tpu_torch.pipeline import lockstep as plain_walk
+
+        def euler(table, rec, counts, EC, sentinel):
+            incl, total = px.expand_prefix(counts)
+            return px.euler_lines(table, rec, incl, counts, EC, sentinel) + (total,)
+
+        def crossings(P, counts, SC, T):
+            incl, total = px.expand_prefix(counts, assume_compact=True)
+            return px.tile_crossings(P, incl, counts, SC, T) + (total,)
+
+        def rows(PRT, counts, RC, T):
+            incl, total = px.expand_prefix(counts, assume_compact=True)
+            return px.row_deltas(PRT, incl, counts, RC, T) + (total,)
+
+        swaps = [
+            (kcov, "coverage_rows", plain_cov.coverage_rows_plain),
+            (kfine, "composite_records", kfine.composite_records_plain),
+            (kland, "monotone_land", plain_land.monotone_land),
+            (kwalk, "lockstep_walk", plain_walk.lockstep_walk),
+            (kx, "expand_euler", euler), (kx, "expand_crossings", crossings),
+            (kx, "expand_rows", rows),
+            (ktap, "tap_records", plain_tap.tap_records_plain),
+        ]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
 def _max_diff(a, b, mask=None):
     d = (a.double() - b.double()).abs()
     if mask is not None:
@@ -142,11 +280,17 @@ def _max_diff(a, b, mask=None):
 
 
 def main():
+    import argparse
     import json
     import time
 
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config5-cpu-reference", action="store_true",
+                    help="also render config 5 through Renderer(device='cpu') and time it")
+    opts = ap.parse_args()
 
     # ---- 1. environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -156,8 +300,10 @@ def main():
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
 
+    from jello_tpu_torch import native
     from jello_tpu_torch.cuda import build
     from jello_tpu_torch.cuda import expand as kx
+    from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda import land as kland
     from jello_tpu_torch.cuda import lockstep as kwalk
     from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
@@ -171,12 +317,15 @@ def main():
     from jello_tpu_torch.cuda.render import Renderer, present
     from jello_tpu_torch.pipeline import coverage as plain_cov
     from jello_tpu_torch.pipeline import expand as plain_expand
+    from jello_tpu_torch.pipeline import image_tap as plain_tap
     from jello_tpu_torch.pipeline import land as plain_land
     from jello_tpu_torch.pipeline import lockstep as plain_walk
     from jello_tpu_torch.pipeline.render import geometry
     from jello_tpu_torch.scenes import GATE_SCENES
 
-    config1, config3 = GATE_SCENES[1], GATE_SCENES[3]
+    config1, config2, config3, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 5))
+    print("path encoder: " + ("native (g++)" if native.get_lib() is not None
+                              else "the Python twin (no native library)"))
     # ---- 2. build --------------------------------------------------------
     t = time.perf_counter()
     build.build(verbose=True)
@@ -189,7 +338,7 @@ def main():
     scene3, params3 = config3()
     warm = Renderer(device="cuda")
     warm.render(scene3, params3)
-    _, _, (scene_t, layout_t, ramps_t) = warm._prepare(scene3, params3)
+    _, _, (scene_t, layout_t, ramps_t, _) = warm._prepare(scene3, params3)
     caps = dict(warm._caps, _expand_pallas=True)
     out = {}
     calls = _record_calls(
@@ -226,11 +375,16 @@ def main():
     a_plain_ms = _time_ms(lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd), 5)
     as_ms = _time_ms(lambda: compute_area_rows(cmds, counted, caps), 20)
     as_plain_ms = _time_ms(lambda: plain_cov.compute_area_rows(cmds, counted, caps), 5)
-    print(f"kernel A: {a_ms:.3f} ms vs plain {a_plain_ms:.3f} ms; whole coverage "
-          f"stage: {as_ms:.3f} ms vs plain {as_plain_ms:.3f} ms")
+    # Bound: the stream, the run boundaries and backdrops read, 1 KB a row
+    # written; ~40 float operations per (segment of the row's run, pixel).
+    run_segs = int((re_ - rs).clamp(min=0).sum())
+    a_bound = _bound(_nbytes(stream, rs, re_, bd, rows_k), run_segs * 256 * 40)
+    print(f"kernel A: {a_ms:.3f} ms vs plain {a_plain_ms:.3f} ms (bound "
+          f"{a_bound[0]:.4f} ms by {a_bound[1]}, {run_segs} segments in runs); whole "
+          f"coverage stage: {as_ms:.3f} ms vs plain {as_plain_ms:.3f} ms")
 
     # ---- 5. kernel B vs plain --------------------------------------------
-    rec = build_records(dict(cmds, area_row=ids_k))
+    rec = build_records(dict(cmds, area_row=ids_k), caps)
     b_args = (rec, area_k, ramps_t, layout_t["base_color"], cmds["tile_start"],
               cmds["tile_end"], layout_t["width_in_tiles"])
     out_k = composite_records(*b_args)
@@ -247,71 +401,137 @@ def main():
         _fail("kernel B disagrees with its plain version")
     b_ms = _time_ms(lambda: composite_records(*b_args), 20)
     b_plain_ms = _time_ms(lambda: composite_records_plain(*b_args), 3)
-    print(f"kernel B: {b_ms:.3f} ms vs plain {b_plain_ms:.3f} ms")
+    print(f"kernel B, config 3: {b_ms:.3f} ms vs plain {b_plain_ms:.3f} ms")
     del (stages, cmds, counted, stream, rs, re_, bd, rows_k, rows_p, area_k, ids_k,
          area_p, ids_p, rec, b_args, out_k, out_p, t2r, img_k, img_p)
 
     # ---- 6. kernels C, D, E, E', E'' vs plain ------------------------------
+    def hold_geometry_kernels(calls, tag):
+        """Every recorded call of C, D, E, E' and E'' against its plain
+        version. Returns {kernel: (max abs diff, got, want)} of the last
+        call of each."""
+        held = {}
+        err_land = 0.0
+        for args in calls["monotone_land"]:
+            got = kland.monotone_land(*args)
+            want = plain_land.monotone_land(*args)
+            err_land = max([err_land] + [_max_diff(g, w) for g, w in zip(got, want)])
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                _fail(f"{tag}: kernel C differs from its plain version (K={len(args[2])}, "
+                      f"rows {args[0].shape[0]}, out {args[3]})")
+        held["C"] = (err_land, None, None)
+        for args in calls["lockstep_walk"]:
+            got = kwalk.lockstep_walk(*args)
+            want = plain_walk.lockstep_walk(*args)
+            for name, g, w in zip(("rec (t0, t1, n)", "count", "not_done", "iters"), got, want):
+                if not torch.equal(g, w):
+                    _fail(f"{tag}: kernel D: {name} differs from the plain version "
+                          f"(max diff {_max_diff(g, w):.3e})")
+            held["D"] = (max(_max_diff(g, w) for g, w in zip(got, want)), got, want)
+        for args in calls["expand_euler"]:
+            table, recs, counts, EC, sentinel = args
+            incl, _ = plain_expand.expand_prefix(counts)
+            got = kx.expand_euler(*args)
+            want = plain_expand.euler_lines(table, recs, incl, counts, EC, sentinel)
+            if not (torch.equal(got[5], want[5]) and torch.equal(got[4], want[4])):
+                _fail(f"{tag}: kernel E: valid or path differs from the plain version")
+            err = max(_max_diff(g, w, want[5]) for g, w in zip(got[:4], want[:4]))
+            if not err <= E_TOL:
+                _fail(f"{tag}: kernel E: end points {err:.3e} from the plain version")
+            held["E"] = (err, got, want)
+        for args in calls["expand_crossings"]:
+            Pc, ncc, SC, T = args
+            incl, _ = plain_expand.expand_prefix(ncc, assume_compact=True)
+            got = kx.expand_crossings(*args)
+            want = plain_expand.tile_crossings(Pc, incl, ncc, SC, T)
+            for name, i in (("tile_slot", 0), ("bump_slot", 2), ("bump_delta", 3)):
+                if not torch.equal(got[i], want[i]):
+                    _fail(f"{tag}: kernel E': {name} differs from the plain version")
+            err = max(_max_diff(got[1][k], want[1][k]) for k in want[1])
+            if not err <= E_TOL:
+                _fail(f"{tag}: kernel E': segments {err:.3e} from the plain version")
+            held["E'"] = (err, got, want)
+        for args in calls["expand_rows"]:
+            PRTc, nrr, RC, T = args
+            incl, _ = plain_expand.expand_prefix(nrr, assume_compact=True)
+            got = kx.expand_rows(*args)
+            want = plain_expand.row_deltas(PRTc, incl, nrr, RC, T)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                _fail(f"{tag}: kernel E'': row slots or deltas differ from the plain version")
+            held["E''"] = (max(_max_diff(got[i], want[i]) for i in (0, 1)), got, want)
+        return held
+
+    geometry_wrappers = [(kland, "monotone_land"), (kwalk, "lockstep_walk"),
+                         (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows")]
+    held3 = hold_geometry_kernels(calls, "config 3")
     res = {}
     # C, at all three call sites; timed at the sorted-run landing (K = 3).
-    err_land = 0.0
-    for args in calls["monotone_land"]:
-        got = kland.monotone_land(*args)
-        want = plain_land.monotone_land(*args)
-        err_land = max([err_land] + [_max_diff(g, w) for g, w in zip(got, want)])
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            _fail(f"kernel C differs from its plain version (K={len(args[2])}, "
-                  f"rows {args[0].shape[0]}, out {args[3]})")
     land_runs = [a for a in calls["monotone_land"] if len(a[2]) == 3][0]
-    res["C"] = (err_land, _time_ms(lambda: kland.monotone_land(*land_runs), 20),
-                _time_ms(lambda: plain_land.monotone_land(*land_runs), 20))
+    # The yardstick: one scatter_ into a zeroed tensor, its index and
+    # stacked values made outside the timed call. The port never calls it.
+    l_pos, l_keep, l_vals, l_len = land_runs
+    l_v = torch.stack([v.to(torch.float32) for v in l_vals])
+    l_idx = torch.where(l_keep & (l_pos >= 0) & (l_pos < l_len), l_pos, l_len).long()
+    l_idx = l_idx.expand(l_v.shape[0], -1).contiguous()
+
+    def land_library():
+        out = torch.zeros((l_v.shape[0], l_len + 1), dtype=torch.float32, device=l_v.device)
+        return out.scatter_(1, l_idx, l_v)
+
+    got = kland.monotone_land(*land_runs)
+    if not torch.equal(torch.stack(got), land_library()[:, :l_len]):
+        _fail("kernel C differs from the library scatter")
+    # Bound: positions, keep flags and K value rows read, K output rows
+    # written; one comparison a row.
+    res["C"] = (held3["C"][0], _time_ms(lambda: kland.monotone_land(*land_runs), 20),
+                _time_ms(lambda: plain_land.monotone_land(*land_runs), 20),
+                _bound(_nbytes(l_pos, l_keep, l_v, got), l_pos.shape[0]),
+                _time_ms(land_library, 20))
     print(f"kernel C: {len(calls['monotone_land'])} calls equal; sorted-run landing "
           f"{land_runs[0].shape[0]} rows -> {land_runs[3]}: {res['C'][1]:.3f} ms vs plain "
-          f"{res['C'][2]:.3f} ms")
+          f"{res['C'][2]:.3f} ms, library scatter_ {res['C'][4]:.3f} ms, bound "
+          f"{res['C'][3][0]:.5f} ms")
 
     (w_args,) = calls["lockstep_walk"]
-    got = kwalk.lockstep_walk(*w_args)
-    want = plain_walk.lockstep_walk(*w_args)
-    names = ("rec (t0, t1, n)", "count", "not_done", "iters")
-    for name, g, w in zip(names, got, want):
-        if not torch.equal(g, w):
-            _fail(f"kernel D: {name} differs from the plain version "
-                  f"(max diff {_max_diff(g, w):.3e})")
-    res["D"] = (max(_max_diff(g, w) for g, w in zip(got, want)), _time_ms(lambda: kwalk.lockstep_walk(*w_args), 20),
-                _time_ms(lambda: plain_walk.lockstep_walk(*w_args), 3))
+    err_d, got, want = held3["D"]
+    # Bound: the work table read, the records, counts and flags written.
+    # An item that emits L segments walks a binary subdivision tree of L
+    # leaves, 2L - 1 iterations, plus the one that finds it done; ~400
+    # float operations an iteration.
+    emits = int((got[0][2] != 0).sum())
+    walk_iters = 2 * emits + int(w_args[1].sum())
+    res["D"] = (err_d, _time_ms(lambda: kwalk.lockstep_walk(*w_args), 20),
+                _time_ms(lambda: plain_walk.lockstep_walk(*w_args), 3),
+                _bound(_nbytes(w_args[0], w_args[1], got), walk_iters * 400), None)
     print(f"kernel D: {w_args[0].shape[0]} work rows, IT {w_args[2]}, iters "
-          f"{int(got[3])}, lines {int(got[1].sum())}, all equal; {res['D'][1]:.3f} ms vs "
-          f"plain {res['D'][2]:.3f} ms")
+          f"{int(got[3])}, lines {int(got[1].sum())}, segments {emits}, all equal; "
+          f"{res['D'][1]:.3f} ms vs plain {res['D'][2]:.3f} ms, bound "
+          f"{res['D'][3][0]:.4f} ms by {res['D'][3][1]}")
 
     (e_args,) = calls["expand_euler"]
     table, recs, counts, EC, sentinel = e_args
     incl, _ = plain_expand.expand_prefix(counts)
-    got = kx.expand_euler(*e_args)
-    want = plain_expand.euler_lines(table, recs, incl, counts, EC, sentinel)
-    if not (torch.equal(got[5], want[5]) and torch.equal(got[4], want[4])):
-        _fail("kernel E: valid or path differs from the plain version")
-    err_e = max(_max_diff(g, w, want[5]) for g, w in zip(got[:4], want[:4]))
-    if not err_e <= E_TOL:
-        _fail(f"kernel E: end points {err_e:.3e} from the plain version")
+    err_e, got, want = held3["E"]
+    # Bound: table, records and counts read, six outputs a slot written;
+    # two line evaluations of ~120 float operations for each live line.
     res["E"] = (err_e, _time_ms(lambda: kx.expand_euler(*e_args), 20),
                 _time_ms(lambda: plain_expand.euler_lines(table, recs, incl, counts, EC,
-                                                          sentinel), 3))
+                                                          sentinel), 3),
+                _bound(_nbytes(table, recs, counts, got[:6]), int(want[5].sum()) * 240),
+                None)
     print(f"kernel E: {EC} slots, {int(want[5].sum())} lines, max|end point diff| "
           f"{err_e:.3e}; {res['E'][1]:.3f} ms vs plain {res['E'][2]:.3f} ms")
 
     (c_args,) = calls["expand_crossings"]
     Pc, ncc, SC, T = c_args
     incl_c, _ = plain_expand.expand_prefix(ncc, assume_compact=True)
-    got = kx.expand_crossings(*c_args)
-    want = plain_expand.tile_crossings(Pc, incl_c, ncc, SC, T)
-    for name, i in (("tile_slot", 0), ("bump_slot", 2), ("bump_delta", 3)):
-        if not torch.equal(got[i], want[i]):
-            _fail(f"kernel E': {name} differs from the plain version")
-    err_c = max(_max_diff(got[1][k], want[1][k]) for k in want[1])
-    if not err_c <= E_TOL:
-        _fail(f"kernel E': segments {err_c:.3e} from the plain version")
+    err_c, got, want = held3["E'"]
+    # Bound: the line table and counts read, five float64 and three
+    # int32 a slot written; ~60 operations a crossing (float64 here,
+    # held to the float32 rate, so the bound errs low).
     res["E'"] = (err_c, _time_ms(lambda: kx.expand_crossings(*c_args), 20),
-                 _time_ms(lambda: plain_expand.tile_crossings(Pc, incl_c, ncc, SC, T), 5))
+                 _time_ms(lambda: plain_expand.tile_crossings(Pc, incl_c, ncc, SC, T), 5),
+                 _bound(_nbytes(Pc, ncc, got[:4]), int(ncc.sum()) * 60), None)
     print(f"kernel E': {Pc.shape[0]} lines -> {SC} slots ({int(ncc.sum())} crossings), "
           f"max|segment diff| {err_c:.3e}; {res["E'"][1]:.3f} ms vs plain "
           f"{res["E'"][2]:.3f} ms")
@@ -319,110 +539,264 @@ def main():
     (r_args,) = calls["expand_rows"]
     PRTc, nrr, RC, T = r_args
     incl_r, _ = plain_expand.expand_prefix(nrr, assume_compact=True)
-    got = kx.expand_rows(*r_args)
-    want = plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        _fail("kernel E'': row slots or deltas differ from the plain version")
-    res["E''"] = (max(_max_diff(got[i], want[i]) for i in (0, 1)), _time_ms(lambda: kx.expand_rows(*r_args), 20),
-                  _time_ms(lambda: plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T), 5))
+    err_r, got, want = held3["E''"]
+    # Bound: the line table and counts read, two int32 a slot written; ~10
+    # operations a row.
+    res["E''"] = (err_r, _time_ms(lambda: kx.expand_rows(*r_args), 20),
+                  _time_ms(lambda: plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T), 5),
+                  _bound(_nbytes(PRTc, nrr, got[:2]), int(nrr.sum()) * 10), None)
     print(f"kernel E'': {PRTc.shape[0]} lines -> {RC} slots ({int(nrr.sum())} rows), "
           f"equal; {res["E''"][1]:.3f} ms vs plain {res["E''"][2]:.3f} ms")
-    del calls, w_args, e_args, c_args, r_args, got, want, warm
+    del calls, held3, w_args, e_args, c_args, r_args, got, want, warm
 
-    # ---- 7. main path ----------------------------------------------------
+    # ---- 7. config 5: kernel F, and kernel B with the tap's table --------
+    t = time.perf_counter()
+    scene5, params5 = config5()
+    print(f"config 5 scene built in {time.perf_counter() - t:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    warm = Renderer(device="cuda")
+    t = time.perf_counter()
+    warm.render(scene5, params5)
+    print(f"config 5: first render (estimate, grow, calibrate) {time.perf_counter() - t:.1f} s, "
+          f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
+    print(f"config 5 calibrated caps: {warm._caps}")
+    _, ld5, (scene_t, layout_t, ramps_t, atlas_t) = warm._prepare(scene5, params5)
+    if atlas_t is None:
+        _fail("config 5 resolved to no image atlas")
+    caps = dict(warm._caps, _expand_pallas=True, _image_tap=True)
+    out = {}
+    calls5 = _record_calls(
+        geometry_wrappers,
+        lambda: out.update(stages=geometry(scene_t, layout_t, caps)[0]))
+    stages = out["stages"]
+    cmds, counted = stages["cmds"], stages["counted"]
+    # The geometry kernels and A at this frame's shapes, the first with
+    # stroke offsets: held to their plain versions, not timed.
+    held5 = hold_geometry_kernels(calls5, "config 5")
+    stream, rs, re_, bd, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
+    err_a5 = _max_diff(coverage_rows(stream, rs, re_, bd),
+                       plain_cov.coverage_rows_plain(stream, rs, re_, bd))
+    print("config 5 recorded calls: "
+          + ", ".join(f"{k} x{len(v)}" for k, v in sorted(calls5.items()))
+          + "; max|diff| vs plain: "
+          + ", ".join(f"{k} {v[0]:.3e}" for k, v in held5.items())
+          + f", A {err_a5:.3e} over {int((re_ - rs).clamp(min=0).sum())} segments in "
+          f"{int((re_ > rs).sum())} rows")
+    if not err_a5 <= A_TOL:
+        _fail("config 5: kernel A disagrees with its plain version")
+    for k, v in held5.items():
+        res[k] = (max(res[k][0], v[0]),) + res[k][1:]
+    del calls5, held5, stream, rs, re_, bd
+    area5, ids5, _ = compute_area_rows(cmds, counted, caps)
+    rec5 = build_records(dict(cmds, area_row=ids5), caps)
+    out = {}
+    tap_calls = _record_calls(
+        [(ktap, "tap_records")],
+        lambda: out.update(tap=plain_tap.image_tap(rec5, cmds, atlas_t, layout_t, caps)))
+    (f_args,) = tap_calls["tap_records"]
+    fg_tab, region_ovf, recs_ovf = out["tap"]
+    if bool(region_ovf) or bool(recs_ovf):
+        _fail("config 5's tap stage raised a flag at the calibrated class")
+    got_f, flag_f = ktap.tap_records(*f_args)
+    want_f, flag_p = plain_tap.tap_records_plain(*f_args)
+    torch.cuda.synchronize()
+    n_img = int((f_args[0][:, 0] == 5).sum())
+    err_f = _max_diff(got_f, want_f)
+    print(f"kernel F: {f_args[0].shape[0]} rows, {n_img} image records, atlas "
+          f"{tuple(f_args[1].shape)}, max|fg diff| {err_f:.3e}, region flag "
+          f"{bool(flag_f)} (plain {bool(flag_p)}), rows past the count zero: "
+          f"{not bool(got_f[n_img:].any())}")
+    if (not err_f <= F_TOL or bool(flag_f) != bool(flag_p) or n_img < 1
+            or bool(got_f[n_img:].any()) or not bool(got_f[:n_img].any())
+            or not torch.equal(got_f, fg_tab)):
+        _fail("kernel F disagrees with its plain version")
+    # Bound: the records and the atlas read once, 4 KB a row written; ~60
+    # float operations a pixel of a live record.
+    res["F"] = (err_f, _time_ms(lambda: ktap.tap_records(*f_args), 20),
+                _time_ms(lambda: plain_tap.tap_records_plain(*f_args), 5),
+                _bound(_nbytes(f_args[0], f_args[1], got_f), n_img * 256 * 60), None)
+    print(f"kernel F: {res['F'][1]:.3f} ms vs plain {res['F'][2]:.3f} ms, bound "
+          f"{res['F'][3][0]:.4f} ms by {res['F'][3][1]}")
+
+    b_args = (rec5, area5, ramps_t, layout_t["base_color"], cmds["tile_start"],
+              cmds["tile_end"], layout_t["width_in_tiles"], fg_tab)
+    out_k = composite_records(*b_args)
+    out_p = composite_records_plain(*b_args)
+    t2r = tile_last_record(cmds["tile_start"], cmds["tile_end"])
+    img_k = assemble_compact(out_k, t2r, ld5)
+    img_p = assemble_compact(out_p, t2r, ld5)
+    bare = assemble_compact(composite_records(*b_args[:7]), t2r, ld5)
+    torch.cuda.synchronize()
+    err_b5 = (img_k - img_p).abs().max().item()
+    paints = (img_k - bare).abs().max().item()
+    kind5 = rec5[:, 0]
+    live5 = (rec5[:, 3] >= 0) & (rec5[:, 3] < caps["tile_grid_cap"]) & ((rec5[:, 4] & 2) == 0)
+    n_solid = int((live5 & (kind5 == 1)).sum())
+    n_grad = int((live5 & (kind5 >= 2) & (kind5 <= 4)).sum())
+    n_image = int((live5 & (kind5 == 5)).sum())
+    print(f"kernel B with images: records {rec5.shape[0]} (solid {n_solid}, gradient "
+          f"{n_grad}, image {n_image}) max|image diff| {err_b5:.3e} nan "
+          f"{bool(torch.isnan(img_k).any())}; the table moves the frame by {paints:.3f}")
+    if not err_b5 <= B_TOL or torch.isnan(img_k).any() or not paints > 1e-2:
+        _fail("kernel B with the image table disagrees with its plain version")
+    # Bound, from what this run's records make the kernel touch: 64 B read
+    # and 4 KB written for each record of a tile's run, 1 KB of coverage
+    # for each that paints, 4 KB of the image table for each image record
+    # among them, the stop table, run boundaries and base color once; ~14
+    # float operations a pixel of a solid or image record, ~120 of a
+    # gradient record. Capacity rows past the runs are never touched.
+    run_len = (cmds["tile_end"] - cmds["tile_start"]).clamp(min=0)
+    n_walked = int(run_len.sum())
+    edges = torch.zeros(rec5.shape[0] + 1, dtype=torch.int32, device=rec5.device)
+    nonempty = run_len > 0
+    edges.index_add_(0, cmds["tile_start"][nonempty].long(),
+                     torch.ones_like(run_len[nonempty]))
+    edges.index_add_(0, cmds["tile_end"][nonempty].long(),
+                     -torch.ones_like(run_len[nonempty]))
+    walked = torch.cumsum(edges, 0)[:-1] > 0
+    paints5 = walked & ((rec5[:, 4] & 2) == 0) & (kind5 >= 1) & (kind5 <= 5)
+    n_paint, n_paint_img = int(paints5.sum()), int((paints5 & (kind5 == 5)).sum())
+    b_bytes = (n_walked * (64 + 4096) + n_paint * 1024 + n_paint_img * 4096
+               + _nbytes(ramps_t, layout_t["base_color"], cmds["tile_start"],
+                         cmds["tile_end"]))
+    b_bound = _bound(b_bytes, 256 * (14 * (n_solid + n_image) + 120 * n_grad))
+    print(f"kernel B, config 5: {n_walked} records in tile runs, {n_paint} paint "
+          f"({n_paint_img} image), {b_bytes / 1e6:.1f} MB needed of "
+          f"{_nbytes(b_args, out_k) / 1e6:.1f} MB of capacity")
+    b5_ms = _time_ms(lambda: composite_records(*b_args), 20)
+    b5_plain_ms = _time_ms(lambda: composite_records_plain(*b_args), 2)
+    print(f"kernel B, config 5: {b5_ms:.3f} ms vs plain {b5_plain_ms:.3f} ms, bound "
+          f"{b_bound[0]:.4f} ms by {b_bound[1]}")
+    res["B"] = (max(err_b, err_b5), b5_ms, b5_plain_ms, b_bound, None)
+    del (stages, cmds, counted, area5, ids5, rec5, out, tap_calls, f_args, fg_tab, got_f,
+         want_f, b_args, out_k, out_p, t2r, img_k, img_p, bare, kind5, live5, warm,
+         run_len, edges, nonempty, walked, paints5)
+    torch.cuda.empty_cache()
+
+    # ---- 8. main path ----------------------------------------------------
     counters = {
         "coverage_area": coverage_rows, "fine_v2": composite_records,
         "monotone_land": kland.monotone_land, "lockstep_walk": kwalk.lockstep_walk,
         "expand_euler": kx.expand_euler, "expand_crossings": kx.expand_crossings,
-        "expand_rows": kx.expand_rows,
+        "expand_rows": kx.expand_rows, "image_tap": ktap.tap_records,
     }
 
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
 
-    def read_counts(name):
+    def read_counts(name, images):
         got = {k: fn.launches for k, fn in counters.items()}
         print(f"{name} main path launches: {got}")
-        if min(got.values()) < 1:
+        if min(v for k, v in got.items() if images or k != "image_tap") < 1:
             _fail(f"{name}: a kernel of the main path was never launched")
         return got
 
+    t = time.perf_counter()
+    scene2, params2 = config2()
+    print(f"config 2 scene built in {time.perf_counter() - t:.1f} s")
     scene1, params1 = config1()
+    scenes = {"config1": (scene1, params1), "config3": (scene3, params3),
+              "config2": (scene2, params2), "config5": (scene5, params5)}
     r = Renderer(device="cuda")
-    zero_counts()
-    img1 = r.render(scene1, params1)
-    flags1 = dict(r.last_flags)
-    launches1 = read_counts("config1")
-    zero_counts()
-    img3 = r.render(scene3, params3)
-    flags3 = dict(r.last_flags)
-    stats3 = dict(r.last_stats)
-    surf3 = r.render_surface(scene3, params3)
-    launches3 = read_counts("config3")
-    launches = {k: launches1[k] + launches3[k] for k in counters}
-    print(f"config 3 frame stats: {stats3}")
+    frames, surfaces, launches = {}, {}, {k: 0 for k in counters}
+    for name, (scene, params) in scenes.items():
+        zero_counts()
+        img = r.render(scene, params)
+        frames[name] = (img, dict(r.last_flags), dict(r.last_stats))
+        if name in ("config3", "config5"):
+            surfaces[name] = r.render_surface(scene, params)
+        got = read_counts(name, images=name == "config5")
+        launches = {k: launches[k] + got[k] for k in counters}
+        if name != "config1":
+            print(f"{name} frame stats: {frames[name][2]}")
 
-    results = {}
+    refs = {}
     cpu = Renderer(device="cpu")
-    for name, img, flags, scene, params in (
-            ("config1", img1, flags1, scene1, params1),
-            ("config3", img3, flags3, scene3, params3)):
+    for name, (scene, params) in scenes.items():
+        img, flags, _ = frames[name]
         t = time.perf_counter()
-        ref = cpu.render(scene, params)
+        if name == "config5":
+            # This script's own reference call: the plain version of every
+            # kernel, on CUDA tensors.
+            zero_counts()
+            with _PlainKernels():
+                plain_r = Renderer(device="cuda")
+                ref = plain_r.render(scene, params)
+            torch.cuda.synchronize()
+            if any(fn.launches for fn in counters.values()) or any(plain_r.last_flags.values()):
+                _fail("config5: the plain reference launched a kernel or raised a flag")
+            how = "the plain versions on CUDA tensors"
+        else:
+            ref = cpu.render(scene, params)
+            if any(cpu.last_flags.values()):
+                _fail(f"{name}: reference flags raised {cpu.last_flags}")
+            how = "the CPU reference"
         ref_s = time.perf_counter() - t
-        if any(cpu.last_flags.values()):
-            _fail(f"{name}: reference flags raised {cpu.last_flags}")
         err = float(np.abs(img - ref).max())
         finite = bool(np.isfinite(img).all())
         raised = [k for k, v in flags.items() if v]
         note = "  (above 1e-4: look into it)" if err > 1e-4 else ""
         print(f"{name}: shape {img.shape} finite {finite} flags raised {raised} "
-              f"max|err| vs the CPU reference {err:.3e}{note} "
-              f"(reference took {ref_s:.1f} s)")
+              f"max|err| vs {how} {err:.3e}{note} (reference took {ref_s:.1f} s)")
         if raised or not finite or not err <= IMG_TOL or img.shape != ref.shape:
             _fail(f"{name} output wrong")
-        results[name] = (scene, params, ref)
-    ref3 = results["config3"][2]
-    ref3_u8 = present(torch.from_numpy(ref3)).numpy()
-    du8 = int(np.abs(surf3.astype(np.int32) - ref3_u8.astype(np.int32)).max())
-    print(f"render_surface config3: {surf3.shape} {surf3.dtype}, max u8 diff vs "
-          f"the CPU reference {du8}")
-    if surf3.shape != ref3.shape or surf3.dtype != np.uint8 or du8 > 1:
-        _fail("render_surface output wrong")
+        refs[name] = ref
+    if opts.config5_cpu_reference:
+        t = time.perf_counter()
+        ref_cpu = cpu.render(scene5, params5)
+        print(f"config5: CPU reference took {time.perf_counter() - t:.1f} s; max|err| of the "
+              f"frame vs it {float(np.abs(frames['config5'][0] - ref_cpu).max()):.3e}, of "
+              f"the plain-on-CUDA reference vs it "
+              f"{float(np.abs(refs['config5'] - ref_cpu).max()):.3e}")
+    for name, surf in surfaces.items():
+        ref_u8 = present(torch.from_numpy(refs[name])).numpy()
+        du8 = int(np.abs(surf.astype(np.int32) - ref_u8.astype(np.int32)).max())
+        print(f"render_surface {name}: {surf.shape} {surf.dtype}, max u8 diff vs "
+              f"the reference {du8}")
+        if surf.shape != ref_u8.shape or surf.dtype != np.uint8 or du8 > 1:
+            _fail("render_surface output wrong")
 
-    for name, (scene, params, _) in results.items():
+    for name, (scene, params) in scenes.items():
         for what, fn in (("render_device", r.render_device),
                          ("render_surface", r.render_surface)):
+            if name == "config2" and what == "render_surface":
+                continue
             med, lo, hi, peak = _frame_ms(lambda: fn(scene, params))
             print(f"{name}: {what} {med:.3f} ms/frame median of {FRAMES} "
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
+            if what == "render_device":
+                n_k, n_c, busy, top = _profile(lambda: fn(scene, params))
+                print(f"{name}: profiled {what}: {n_k:.0f} kernels and {n_c:.0f} copies or "
+                      f"memsets a frame, kernel busy {busy:.3f} ms a frame, "
+                      f"{100 * busy / med:.0f}% of the unprofiled median frame; most time in: "
+                      + "; ".join(f"{k[:70]} {ms:.2f} ms x{n:.0f}" for k, ms, n in top))
 
-    loaded = [m for m in sys.modules if m.startswith("jello_tpu.tpu")]
+    loaded = [m for m, v in sys.modules.items() if v is not None
+              and m.split(".")[0] in ("jax", "jello_tpu")]
     if loaded:
-        _fail(f"modules of the JAX renderer were imported: {loaded}")
+        _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
-    # ---- 8. results ------------------------------------------------------
-    def entry(name, src, replaces, count, err, ms, plain_ms):
+    # ---- 9. results ------------------------------------------------------
+    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"jello_tpu_torch/csrc/{src}",
-                "replaces": f"jello_tpu/tpu/{replaces}", "launches": launches[count],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "replaces": f"jello_tpu/tpu/{replaces}", "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
 
     kernels = [
-        entry("coverage_area", "coverage.cu", "coverage_pallas.py:266", "coverage_area",
-              max(err_rows, err_a), a_ms, a_plain_ms),
-        entry("fine_v2", "fine_v2.cu", "fine_v2.py:564", "fine_v2", err_b, b_ms,
-              b_plain_ms),
-        entry("monotone_land", "land.cu", "land_pallas.py:171", "monotone_land", *res["C"]),
-        entry("lockstep_walk", "lockstep.cu", "lockstep_pallas.py:198", "lockstep_walk",
-              *res["D"]),
-        entry("expand_euler", "expand.cu", "expand_pallas.py:248", "expand_euler",
-              *res["E"]),
-        entry("expand_crossings", "expand.cu", "expand_pallas.py:248", "expand_crossings",
-              *res["E'"]),
-        entry("expand_rows", "expand.cu", "expand_pallas.py:248", "expand_rows",
-              *res["E''"]),
+        entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",
+              max(err_rows, err_a, err_a5), a_ms, a_plain_ms, a_bound, None),
+        entry("fine_v2", "fine_v2.cu", "fine_v2.py:564", *res["B"]),
+        entry("monotone_land", "land.cu", "land_pallas.py:171", *res["C"]),
+        entry("lockstep_walk", "lockstep.cu", "lockstep_pallas.py:198", *res["D"]),
+        entry("expand_euler", "expand.cu", "expand_pallas.py:248", *res["E"]),
+        entry("expand_crossings", "expand.cu", "expand_pallas.py:248", *res["E'"]),
+        entry("expand_rows", "expand.cu", "expand_pallas.py:248", *res["E''"]),
+        entry("image_tap", "image_tap.cu", "image_tap.py:248", *res["F"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,13 @@
 // in blocks of 256, every thread sums the analytic trapezoid winding of
 // its pixel over all of them, adds the row's backdrop and stores one
 // float. The arithmetic is coverage_pallas.py:139-158 term for term,
-// including the -1e-6 on xmin and the division by (xmax0 - xmin).
+// including the -1e-6 on xmin and the division by (xmax0 - xmin), but
+// for one regrouping: the numerator b + (d^2 - c^2)/2 - xmin is summed
+// as (b - xmin) + (d - c)(d + c)/2. Under a vertical edge the quotient
+// is ~1e-6 over ~1e-6, and in float32 the difference of squares loses
+// up to 6% of it (2.5e-2 of a pixel's coverage against the float64
+// numpy oracle on a rectangle at a fractional x); regrouped, both terms
+// are exact differences and the row stays within 2e-7 of the oracle.
 //
 // What bounds it on an H100: the segment stream is read once per row
 // and each row writes 1 KB, so bytes are small; the time is the per
@@ -80,7 +86,7 @@ coverage_area_kernel(const float* __restrict__ seg,
       const float b = fminf(xmax0, 1.0f);
       const float cc = fmaxf(b, 0.0f);
       const float d = fmaxf(xmin, 0.0f);
-      const float a = (b + 0.5f * (d * d - cc * cc) - xmin) / (xmax0 - xmin);
+      const float a = ((b - xmin) + 0.5f * ((d - cc) * (d + cc))) / (xmax0 - xmin);
       float contrib = dyc != 0.0f ? a * dyc : 0.0f;
       contrib = contrib + sign_f(dx) * clip01(py - sye + 1.0f);
       acc = acc + contrib * valid;

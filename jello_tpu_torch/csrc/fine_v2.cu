@@ -16,17 +16,22 @@
 //   - evaluates the paint: solid premultiplied color, or a linear,
 //     radial (strip / focal / cone, swapped post-flip) or sweep
 //     gradient from the stop table (fine_v2.py:216-339), with the sRGB
-//     EOTF as exp(2.4 log(...));
+//     EOTF as exp(2.4 log(...)); or an image paint, whose premultiplied
+//     foreground is the record's row of the image-tap table (kernel F,
+//     image_tap.cu; row = record word 14, the image rank in stream
+//     order; the in-bounds mask is already folded into the row);
 //   - composites v = v (1 - fa cov) + fg cov;
 //   - writes the un-premultiplied inclusive composite at the record's
 //     own index.
 // A record flagged legacy-tile (flag bit 1) is the identity, as in the
-// TPU kernel. The pass-1 clip-group composition (flag bits 4/5) and the
-// image fg table are not on the clip-free, image-free path.
+// TPU kernel. Without an fg table (a frame with no image atlas) an image
+// record is the identity too. The pass-1 clip-group composition (flag
+// bits 4/5) is not on the clip-free path.
 //
 // What bounds it on an H100: every record reads a 1 KB coverage row and
 // writes its 4 KB composite, so it is bound by device memory bandwidth
-// (5 KB per record); gradient records add ~100 flops per pixel. Rounding
+// (5 KB per record; an image record reads 4 KB more); gradient records
+// add ~100 flops per pixel. Rounding
 // follows the reference: rintf (half to even, as jnp.round), IEEE
 // division, no fast math, built with -fmad=false.
 
@@ -40,6 +45,7 @@ constexpr int CMD_COLOR = 1;
 constexpr int CMD_LIN_GRAD = 2;
 constexpr int CMD_RAD_GRAD = 3;
 constexpr int CMD_SWEEP_GRAD = 4;
+constexpr int CMD_IMAGE = 5;
 constexpr int RAD_KIND_CIRCULAR = 1;
 constexpr int RAD_KIND_STRIP = 2;
 constexpr int RAD_KIND_FOCAL_ON_CIRCLE = 3;
@@ -132,8 +138,9 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
                const float* __restrict__ stops,
                const int* __restrict__ tile_start,
                const int* __restrict__ tile_end,
-               const float* __restrict__ base, float* __restrict__ out,
-               int n_ramp_rows, int row_w, int wit) {
+               const float* __restrict__ base,
+               const float* __restrict__ fg_tab, float* __restrict__ out,
+               int n_ramp_rows, int row_w, int wit, int n_fg_rows) {
   __shared__ int w[16];
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -157,7 +164,8 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
     const bool is_color = kind == CMD_COLOR;
     const bool is_grad = kind == CMD_LIN_GRAD || kind == CMD_RAD_GRAD ||
                          kind == CMD_SWEEP_GRAD;
-    const bool live = (is_color || is_grad) && (flags & 2) == 0;
+    const bool is_img = kind == CMD_IMAGE && fg_tab != nullptr;
+    const bool live = (is_color || is_grad || is_img) && (flags & 2) == 0;
 
     if (live) {
       const float a = cov[(size_t)i * kPixels + p];
@@ -173,6 +181,19 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
       if (is_color) {
         const float* f = reinterpret_cast<const float*>(w);
         fg0 = f[5]; fg1 = f[6]; fg2 = f[7]; fg3 = f[8];
+      } else if (is_img) {
+        // A rank past the table (img_recs_overflow, the frame is
+        // retried) paints nothing.
+        const int rank = w[14];
+        if (rank >= 0 && rank < n_fg_rows) {
+          const float* row = fg_tab + (size_t)rank * 4 * kPixels + p;
+          fg0 = row[0];
+          fg1 = row[kPixels];
+          fg2 = row[2 * kPixels];
+          fg3 = row[3 * kPixels];
+        } else {
+          fg0 = fg1 = fg2 = fg3 = 0.0f;
+        }
       } else {
         float vmask;
         const float t = gradient_t(kind, w, gx, gy, &vmask);
@@ -220,13 +241,14 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
 
 extern "C" int jello_fine_v2(const void* rec, const void* cov, const void* stops,
                              const void* tile_start, const void* tile_end,
-                             const void* base, void* out, int n_tiles,
-                             int n_ramp_rows, int row_w, int wit, void* stream) {
+                             const void* base, const void* fg_tab, void* out,
+                             int n_tiles, int n_ramp_rows, int row_w, int wit,
+                             int n_fg_rows, void* stream) {
   if (n_tiles > 0) {
     fine_v2_kernel<<<n_tiles, kPixels, 0, (cudaStream_t)stream>>>(
         (const int*)rec, (const float*)cov, (const float*)stops,
         (const int*)tile_start, (const int*)tile_end, (const float*)base,
-        (float*)out, n_ramp_rows, row_w, wit);
+        (const float*)fg_tab, (float*)out, n_ramp_rows, row_w, wit, n_fg_rows);
   }
   return (int)cudaGetLastError();
 }

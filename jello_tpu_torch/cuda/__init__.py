@@ -1,10 +1,11 @@
 """The GPU half of the port: counterpart of `jello_tpu/tpu/`.
 
-`render.Renderer` is the entry point; `coverage` and `fine_v2` wrap the
-two hand-written CUDA kernels in `jello_tpu_torch/csrc/`, and `build`
-compiles and loads them at first use.
+`render.Renderer` is the entry point; `coverage`, `fine_v2`, `land`,
+`lockstep`, `expand` and `image_tap` wrap the hand-written CUDA kernels
+in `jello_tpu_torch/csrc/`, and `build` compiles and loads them at first
+use.
 """
 
-from .render import Renderer, upload
+from .render import Renderer, upload, upload_atlas
 
-__all__ = ["Renderer", "upload"]
+__all__ = ["Renderer", "upload", "upload_atlas"]

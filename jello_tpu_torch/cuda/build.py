@@ -41,8 +41,9 @@ SIGNATURES = {
     "jello_coverage_area": [P, P, P, P, P, I, P],
     # rec [PC, 16] i32, cov [>=PC, 256] f32, stops [NR, W] f32,
     # tile_start [GRID] i32, tile_end [GRID] i32, base [4] f32,
-    # out [PC, 4, 256] f32, GRID, NR, W, wit, stream
-    "jello_fine_v2": [P, P, P, P, P, P, P, I, I, I, I, P],
+    # fg_tab [IRC, 1024] f32 or null, out [PC, 4, 256] f32, GRID, NR, W,
+    # wit, IRC, stream
+    "jello_fine_v2": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # pos [R] i32, keep [R] bool, vals [K, R] f32, out [K, out_len] f32
     # (zeroed), R, K, out_len, stream
     "jello_monotone_land": [P, P, P, P, I, I, I, P],
@@ -59,6 +60,9 @@ SIGNATURES = {
     # PRT [L, 5] f64, incl [L] i32, counts [L] i32, ints [2, RC] i32, L,
     # RC, T, stream
     "jello_expand_rows": [P, P, P, P, I, I, I, P],
+    # tap_rec [IRC, 16] i32, atlas [4, AHp, AWp] f32, out [IRC, 1024] f32,
+    # region flag [1] i32 (zeroed), IRC, GRID, wit, AHp, AWp, stream
+    "jello_image_tap": [P, P, P, P, I, I, I, I, I, P],
 }
 
 

@@ -2,8 +2,9 @@
 
 Counterparts in `jello_tpu`:
   - `tpu/fine_pallas.py::build_records`: the 16-word record packing;
-  - `tpu/fine_v2.py::fine_v2`, standalone call (clip-free, no image
-    fg table): coverage, records, compositing;
+  - `tpu/fine_v2.py::fine_v2`, standalone call (clip-free; with the
+    image-tap stage inside when the frame has an atlas): coverage,
+    records, image foregrounds, compositing;
   - `tpu/fine_v2.py::assemble_compact`: tiles -> image.
 
 Painter's-order src-over compositing, v' = v (1 - fa cov) + fg cov, is
@@ -29,7 +30,8 @@ Record layout (int32-carried u32 words):
   rad:    5 extend, 6..11 xform, 12 focal_x, 13 radius, 14 kind|flags<<3,
           15 ramp row
   sweep:  5 extend, 6..11 xform, 12 t0, 13 t1, 15 ramp row
-  image:  6..11 xform, 12 atlas placement, 13 packed size
+  image:  6..11 xform, 12 atlas placement, 13 packed size, 14 image rank
+          in stream order (the fg table row), with `_image_tap` in caps
   end_clip: 5 blend word, 6 alpha f32 bits, 7 tile backdrop
 """
 
@@ -47,6 +49,7 @@ from ..pipeline.coarse import (
     CMD_RAD_GRAD,
     CMD_SWEEP_GRAD,
 )
+from ..pipeline.image_tap import image_tap
 from ..pipeline.drawobjs import (
     RAD_GRAD_KIND_CIRCULAR,
     RAD_GRAD_KIND_FOCAL_ON_CIRCLE,
@@ -59,9 +62,12 @@ from .build import check, check_tensor, kernels, stream_of
 from .coverage import compute_area_rows
 
 
-def build_records(cmds):
+def build_records(cmds, caps):
     """Pack the sorted command stream into dense 16-word records [PC, 16]
-    (int32 bit patterns), tile order preserved."""
+    (int32 bit patterns), tile order preserved. With `_image_tap` in caps
+    word 14 of an image record is its rank among the image records in
+    stream order (the predicate of `pipeline.image_tap.image_tap`'s
+    compaction)."""
     kind = cmds["kind"]
     drow = ops.gather_guarded(cmds["dtab"], cmds["draw"])
 
@@ -102,6 +108,10 @@ def build_records(cmds):
     w[12] = torch.where(is_xf, info_u(7), z)
     w[13] = torch.where(is_xf, info_u(8), z)
     w[14] = torch.where(is_rad, info_u(9), z)
+    if caps.get("_image_tap"):
+        tile = cmds["tile"]
+        P = is_img & (tile < caps["tile_grid_cap"]) & (tile >= 0)
+        w[14] = torch.where(P, torch.cumsum(P.to(I32), 0, dtype=I32) - 1, w[14])
     w[15] = torch.where(is_grad, ops.shr(index_mode, 2), z)
     return torch.stack([v.to(I32) for v in w], dim=1)
 
@@ -223,7 +233,7 @@ def _gradient_fg(rec, stops, wit, is_lin, is_rad, is_grad):
     return [_eotf(acc[0]) * ga, _eotf(acc[1]) * ga, _eotf(acc[2]) * ga, ga]
 
 
-def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit):
+def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None):
     """Plain version of kernel B (same inputs and output as
     `composite_records`). The scan is keyed on the records' tile column;
     tile_start/tile_end only bound which tiles are in range."""
@@ -238,7 +248,8 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit):
     is_lin = kind == CMD_LIN_GRAD
     is_rad = kind == CMD_RAD_GRAD
     is_grad = is_lin | is_rad | (kind == CMD_SWEEP_GRAD)
-    live = valid & (is_color | is_grad) & ((flags & 2) == 0)
+    is_img = (kind == CMD_IMAGE) if fg_tab is not None else torch.zeros_like(is_color)
+    live = valid & (is_color | is_grad | is_img) & ((flags & 2) == 0)
 
     a = cov[:PC]
     eo = torch.abs(a - 2.0 * torch.round(0.5 * a))
@@ -252,6 +263,14 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit):
     # Records that paint nothing are the identity, whatever their words.
     fg = [torch.where(live, torch.where(is_color, fr[:, 5 + ch:6 + ch], gfg[ch]), zero)
           for ch in range(4)]
+    if fg_tab is not None:
+        # Image paints: the record's row of the image-tap table; a rank
+        # past the table paints nothing.
+        rank = rec[:, 14]
+        rows = torch.where(((rank >= 0) & (rank < fg_tab.shape[0]))[:, None],
+                           ops.gather_guarded(fg_tab, rank), zero)
+        fg = [torch.where(live & is_img, rows[:, 256 * ch:256 * (ch + 1)], fg[ch])
+              for ch in range(4)]
 
     # (A, B) affine pairs; Hillis-Steele inclusive scan within tiles.
     A = 1.0 - fg[3] * c
@@ -267,13 +286,15 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit):
     return torch.cat([v[:, :3] * inv_a[:, None], v[:, 3:]], dim=1)
 
 
-def composite_records(rec, cov, stops, base, tile_start, tile_end, wit):
+def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None):
     """Kernel B for CUDA tensors, its plain version for CPU tensors.
 
     rec [PC, 16] i32 tile-sorted records; cov [>= PC, 256] f32
     per-record coverage; stops [NR, W] f32, W = 1 + 5 * stops; base [4] f32
     premultiplied base color; tile_start/tile_end [GRID] i32, each
-    tile's run [start, end) of records (coarse's run boundaries).
+    tile's run [start, end) of records (coarse's run boundaries); fg_tab
+    [IRC, 1024] f32 or None, the image-tap table read by image records
+    (without it an image record is the identity).
     Returns compact [PC, 4, 256] f32."""
     dev = rec.device
     PC = rec.shape[0]
@@ -285,13 +306,18 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit):
     check_tensor("base", base, F32, dev, (4,))
     check_tensor("tile_start", tile_start, I32, dev, (grid,))
     check_tensor("tile_end", tile_end, I32, dev, (grid,))
+    n_fg = 0 if fg_tab is None else fg_tab.shape[0]
+    if fg_tab is not None:
+        check_tensor("fg_tab", fg_tab, F32, dev, (n_fg, 1024))
     if dev.type == "cpu":
-        return composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit)
+        return composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit,
+                                       fg_tab)
     out = torch.empty((PC, 4, 256), dtype=F32, device=dev)
     err = kernels().jello_fine_v2(
         rec.data_ptr(), cov.data_ptr(), stops.data_ptr(), tile_start.data_ptr(),
-        tile_end.data_ptr(), base.data_ptr(), out.data_ptr(), grid, NR, W,
-        int(wit), stream_of(rec))
+        tile_end.data_ptr(), base.data_ptr(),
+        None if fg_tab is None else fg_tab.data_ptr(), out.data_ptr(), grid, NR, W,
+        int(wit), n_fg, stream_of(rec))
     check("jello_fine_v2", err)
     composite_records.launches += 1
     return out
@@ -300,15 +326,23 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit):
 composite_records.launches = 0
 
 
-def fine_v2(cmds, counted, ramps, layout, caps):
-    """The fine stage of a clip-free, image-free area-AA frame.
+def fine_v2(cmds, counted, ramps, atlas, layout, caps):
+    """The fine stage of a clip-free area-AA frame. With `_image_tap` in
+    caps and an atlas (f32 [4, AHp, AWp], `pipeline.image_tap.atlas_planar`)
+    the image-tap stage runs here and image records paint from its table,
+    as in jello_tpu's standalone `fine_v2` (`tpu/fine_v2.py:629-640`).
     Returns ((compact, tile2rank), flags)."""
     area, area_row_rec, rows_overflow = compute_area_rows(cmds, counted, caps)
-    rec = build_records(dict(cmds, area_row=area_row_rec))
+    flags = {"area_rows_overflow": rows_overflow}
+    rec = build_records(dict(cmds, area_row=area_row_rec), caps)
+    fg_tab = None
+    if caps.get("_image_tap") and atlas is not None:
+        fg_tab, flags["image_region_overflow"], flags["img_recs_overflow"] = image_tap(
+            rec, cmds, atlas, layout, caps)
     compact = composite_records(rec, area, ramps, layout["base_color"], cmds["tile_start"],
-                                cmds["tile_end"], layout["width_in_tiles"])
+                                cmds["tile_end"], layout["width_in_tiles"], fg_tab)
     tile2rank = tile_last_record(cmds["tile_start"], cmds["tile_end"])
-    return (compact, tile2rank), {"area_rows_overflow": rows_overflow}
+    return (compact, tile2rank), flags
 
 
 def assemble_compact(compact, tile2rank, ld):

@@ -10,8 +10,11 @@ runs again (the protocol of `tpu/render.py:445-461`). Overflow flags
 grow the implicated capacities (`grow_caps`) and retry. Flags are read
 on every frame.
 
-The port covers clip-free, image-free, fill-only, area-AA frames; a
-scene outside that raises NotImplementedError naming the later slice.
+The port covers clip-free area-AA frames: fills and strokes with solid,
+gradient and image paints. Clip layers and MSAA raise
+NotImplementedError naming the later slice, and so does a frame whose
+image minifies past the tap's region windows (jello_tpu reroutes it to
+its reference fine, which is not ported).
 """
 
 from __future__ import annotations
@@ -19,20 +22,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jello_tpu.encoding.draw import DRAW_TAG_IMAGE
-from jello_tpu.encoding.path import FLAGS_STYLE_BIT
-from jello_tpu.gfx import premul32
-from jello_tpu.pipeline.gradient import stops_table_or_empty
-from jello_tpu.renderer.estimate import (
+from ..gfx import premul32
+from ..pipeline.gradient import stops_table_or_empty
+from ..renderer.estimate import (
     calibrate_caps,
     caps_shrank,
     estimate_caps_from_scene,
     grow_caps,
 )
-from jello_tpu.renderer.params import AaConfig, RenderParams
-from jello_tpu.renderer.resolve import Resolver
-
+from ..pipeline.image_tap import atlas_planar
 from ..pipeline.render import render_frame
+from ..renderer.atlas import build_image_atlas
+from ..renderer.params import AaConfig, RenderParams
+from ..renderer.resolve import Resolver
 from .fine_v2 import assemble_compact, fine_v2
 
 
@@ -52,11 +54,22 @@ def build_layout_dict(layout, params: RenderParams) -> dict:
     return ld
 
 
+def upload_atlas(atlas, device):
+    """The numpy [AH, AW, 4] atlas plane `jello_tpu` feeds `render_frame`
+    (`build_image_atlas`) as the premultiplied channel-planar padded f32
+    [4, AHp, AWp] tensor on `device` that the image tap reads; None for
+    no atlas."""
+    if atlas is None:
+        return None
+    return torch.from_numpy(atlas_planar(atlas)).to(torch.device(device))
+
+
 def upload(scene_u32, ld, ramps, caps, device):
     """The inputs `jello_tpu` feeds `render_frame`, as torch inputs on
     `device`: scene words as int32 bit patterns, the layout's integer
     fields as host ints plus `base_color` as a f32 [4] tensor, the stop
-    table as f32. Returns (scene, layout, ramps, caps)."""
+    table as f32. The atlas goes through `upload_atlas`.
+    Returns (scene, layout, ramps, caps)."""
     device = torch.device(device)
     scene = torch.from_numpy(np.asarray(scene_u32, dtype=np.uint32).view(np.int32).copy())
     layout = {k: int(v) for k, v in ld.items() if k != "base_color"}
@@ -75,12 +88,6 @@ def check_supported(enc, params: RenderParams) -> None:
     if enc.n_clips:
         raise NotImplementedError(
             "clip layers are not ported yet: they arrive with ROADMAP slice 6")
-    if any(t == DRAW_TAG_IMAGE for t in enc.draw_tags):
-        raise NotImplementedError(
-            "image paints are not ported yet: they arrive with ROADMAP slice 4")
-    if any(int(style[0]) & FLAGS_STYLE_BIT for style in enc.styles):
-        raise NotImplementedError(
-            "strokes are not ported yet: they arrive with ROADMAP slice 3")
 
 
 def present(img, premul: bool = True, srgb: bool = True):
@@ -99,10 +106,12 @@ def present(img, premul: bool = True, srgb: bool = True):
 
 
 class Renderer:
-    """Renders jello_tpu Scenes with the torch pipeline on `device`.
+    """Renders `jello_tpu_torch.Scene`s with the torch pipeline on
+    `device`.
 
     Keeps the resolver (ramp cache), the uploaded frame inputs of the
-    last scene revision and the capacity class across frames."""
+    last scene revision (stop table and image atlas included, uploaded
+    once per revision) and the capacity class across frames."""
 
     def __init__(self, device="cuda"):
         device = torch.device(device)
@@ -142,7 +151,7 @@ class Renderer:
                 return self._frame[2]
         enc = scene.encoding if hasattr(scene, "encoding") else scene
         check_supported(enc, params)
-        layout, ramps, _, scene_u32 = self._resolver.resolve(enc)
+        layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
         ld = build_layout_dict(layout, params)
         est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
                    params.width, params.height)
@@ -154,6 +163,7 @@ class Renderer:
                 scene_u32, layout, params.width, params.height)
             self._est_key = est_key
         inputs = upload(scene_u32, ld, stops_table_or_empty(ramps), {}, self.device)[:3]
+        inputs += (upload_atlas(build_image_atlas(images), self.device),)
         frame = (est_key, ld, inputs)
         if key is not None:
             # Hold the scene so its id() stays unique while cached.
@@ -162,21 +172,32 @@ class Renderer:
 
     def render_device(self, scene, params: RenderParams, max_retries: int = 4):
         """Render and return ((compact, tile2rank) on the device, ld)."""
-        est_key, ld, (scene_t, layout_t, ramps_t) = self._prepare(scene, params)
+        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t) = self._prepare(scene, params)
+        # jello_tpu's routing on its accelerator (`tpu/render.py:341-365`),
+        # set per frame and never kept in the class that calibrate_caps and
+        # grow_caps see: the streaming expansions (kernels C, D, E) and,
+        # for a scene with an atlas, the image tap (kernel F) inside fine.
+        routing = {"_expand_pallas": True}
+        if atlas_t is not None:
+            routing["_image_tap"] = True
         calibrated = self._calib_key == est_key
         flags = {}
         for _ in range(max_retries + 2):
-            # jello_tpu's routing on its accelerator (`tpu/render.py:352-357`):
-            # the streaming expansions (kernels C, D, E), set per frame and
-            # never kept in the class that calibrate_caps and grow_caps see.
             fine_out, flags_t, stats_t = render_frame(
-                scene_t, layout_t, ramps_t, dict(self._caps, _expand_pallas=True), fine_v2)
+                scene_t, layout_t, ramps_t, atlas_t, dict(self._caps, **routing), fine_v2)
             fkeys, skeys = sorted(flags_t), sorted(stats_t)
             vals = torch.stack([flags_t[k].to(torch.int64).reshape(()) for k in fkeys]
                                + [stats_t[k].to(torch.int64).reshape(()) for k in skeys]).cpu()
             flags = {k: bool(v) for k, v in zip(fkeys, vals[:len(fkeys)].tolist())}
             stats = {k: int(v) for k, v in zip(skeys, vals[len(fkeys):].tolist())}
             self.last_flags, self.last_stats = flags, stats
+            if flags.get("image_region_overflow"):
+                # No capacity to grow: jello_tpu renders such a frame
+                # through its reference fine (`tpu/render.py:428-434`).
+                raise NotImplementedError(
+                    "an image draw minifies beyond the image tap's region windows: the "
+                    "frame needs the reference-fine fallback, which is not ported yet "
+                    "(ROADMAP queue 1 item 18)")
             if any(flags.values()):
                 self._caps = grow_caps(self._caps, flags)
                 continue

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from jello_tpu.encoding.draw import (
+from ..encoding.draw import (
     DRAW_TAG_BEGIN_CLIP,
     DRAW_TAG_COLOR,
     DRAW_TAG_END_CLIP,

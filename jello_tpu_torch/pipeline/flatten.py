@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from jello_tpu.encoding.path import (
+from ..encoding.path import (
     FLAGS_CAP_BITS_ROUND,
     FLAGS_CAP_BITS_SQUARE,
     FLAGS_END_CAP_MASK,

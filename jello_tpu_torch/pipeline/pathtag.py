@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from jello_tpu.encoding.path import (
+from ..encoding.path import (
     PATH_TAG_F32_BIT,
     PATH_TAG_PATH,
     PATH_TAG_SEG_TYPE_MASK,

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from jello_tpu.encoding.draw import DRAW_TAG_NOP
+from ..encoding.draw import DRAW_TAG_NOP
 
 from . import clips, coarse, drawobjs, flatten, ops, tiling
 
@@ -65,7 +65,12 @@ def geometry(scene, layout, caps):
         "pairs_overflow": cmds["overflow"],
     }
     # Exact per-frame counters read by renderer.estimate.calibrate_caps.
+    # img_recs sizes the image-tap table (the predicate of its compaction).
+    tile = cmds["tile"]
+    img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
+                & (tile >= 0)).sum()
     stats = {
+        "img_recs": img_recs,
         "work_a": fl["n_work_a"],
         "work_b": fl["n_work_b"],
         "euler_lines": fl["e_real"],
@@ -87,17 +92,18 @@ def geometry(scene, layout, caps):
     return stages, flags, stats
 
 
-def render_frame(scene, layout, ramps, caps, fine_impl):
+def render_frame(scene, layout, ramps, atlas, caps, fine_impl):
     """Render one frame.
 
     scene: int32 scene words on the device; layout: dict of host ints
     plus `base_color` (f32 [4] premultiplied, on the device); ramps: f32
-    [NR, W] stop table; caps: capacity dict; fine_impl(cmds, counted,
-    ramps, layout, caps) -> (fine_out, flags).
+    [NR, W] stop table; atlas: f32 [4, AHp, AWp] premultiplied planar
+    image atlas, or None; caps: capacity dict; fine_impl(cmds, counted,
+    ramps, atlas, layout, caps) -> (fine_out, flags).
     Returns (fine_out, flags, stats)."""
     stages, flags, stats = geometry(scene, layout, caps)
     with record_function("fine"):
-        fine_out, fine_flags = fine_impl(stages["cmds"], stages["counted"], ramps,
+        fine_out, fine_flags = fine_impl(stages["cmds"], stages["counted"], ramps, atlas,
                                          layout, caps)
     flags.update(fine_flags)
     return fine_out, flags, stats

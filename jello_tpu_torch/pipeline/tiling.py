@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jello_tpu.encoding.draw import DRAW_TAG_END_CLIP, DRAW_TAG_NOP
+from ..encoding.draw import DRAW_TAG_END_CLIP, DRAW_TAG_NOP
 
 from ..pmath import rdiv
 from . import ops

@@ -1,6 +1,8 @@
 """The port's coverage stage (plain row sums on the CPU) vs
 jello_tpu.pipeline.coverage.compute_area_rows under numpy, on the same
-command and segment streams, and its per-record output contract."""
+command and segment streams, its per-record output contract, and the one
+place where its arithmetic leaves jello_tpu's on purpose (the regrouped
+numerator under vertical edges), against a float64 oracle."""
 
 import functools
 
@@ -95,3 +97,58 @@ def test_torch_coverage_rows_plain_row_ranges():
         s, e = int(row_start[r]), int(row_end[r])
         want = contrib[s:e].sum(0) + row_bd[r]
         assert torch.allclose(got[r], want, atol=1e-5), r
+
+
+def _area_numpy(seg, dtype, regrouped):
+    """The area formula on vertical-edge segments [n, 5] in `dtype`, the
+    numerator summed as jello_tpu's kernels do (b + (d^2 - c^2)/2 - xmin)
+    or regrouped as the port does ((b - xmin) + (d - c)(d + c)/2)."""
+    sx0, sy0, sx1, sy1, sye = (seg[:, k].astype(dtype)[:, None] for k in range(5))
+    p = np.arange(256)
+    lx, ly = (p % 16).astype(dtype)[None, :], (p // 16).astype(dtype)[None, :]
+    one, zero, half, eps = (dtype(v) for v in (1.0, 0.0, 0.5, 1.0e-6))
+    dx, dy = sx1 - sx0, sy1 - sy0
+    y = sy0 - ly
+    y0c, y1c = np.clip(y, zero, one), np.clip(y + dy, zero, one)
+    dyc = y0c - y1c
+    safe_dy = np.where(dy == zero, one, dy)
+    startx = sx0 - lx
+    x0 = startx + (y0c - y) / safe_dy * dx
+    x1 = startx + (y1c - y) / safe_dy * dx
+    xmin0, xmax0 = np.minimum(x0, x1), np.maximum(x0, x1)
+    xmin = np.minimum(xmin0, one) - eps
+    b = np.minimum(xmax0, one)
+    cc, d = np.maximum(b, zero), np.maximum(xmin, zero)
+    if regrouped:
+        num = (b - xmin) + half * ((d - cc) * (d + cc))
+    else:
+        num = (b + half * (d * d - cc * cc)) - xmin
+    a = num / (xmax0 - xmin)
+    contrib = np.where(dyc != zero, a * dyc, zero)
+    return contrib + np.sign(dx) * np.clip(ly - sye + one, zero, one)
+
+
+def test_torch_coverage_vertical_edges_keep_the_regrouped_numerator():
+    """Where the port leaves jello_tpu's arithmetic on purpose. Under a
+    vertical edge at a fractional x the area quotient is ~1e-6 over
+    ~1e-6; jello_tpu's float32 grouping of the numerator cancels there
+    and lands percent off the float64 oracle, the port's regrouping
+    stays at rounding error. Both errors are measured on the same stream
+    so that a later regrouping back shows here."""
+    rng = np.random.default_rng(11)
+    n = 64
+    x = (rng.integers(0, 16, n) + rng.uniform(0.05, 0.95, n)).astype(np.float32)
+    seg = np.zeros((n, 5), np.float32)
+    seg[:, 0] = seg[:, 2] = x
+    seg[:, 1], seg[:, 3] = 0.0, 16.0  # top to bottom of the tile
+    seg[:, 4] = 1e9
+    oracle = _area_numpy(seg, np.float64, regrouped=False)
+    assert np.abs(_area_numpy(seg, np.float64, regrouped=True) - oracle).max() <= 1e-9
+    err_old = np.abs(_area_numpy(seg, np.float32, regrouped=False) - oracle).max()
+    err_numpy = np.abs(_area_numpy(seg, np.float32, regrouped=True) - oracle).max()
+    got = cov.area_contrib(*(torch.from_numpy(seg[:, k].copy()) for k in range(5)))
+    err_port = np.abs(as_np(got).astype(np.float64) - oracle).max()
+    print(f"vertical edges: jello_tpu's grouping {err_old:.3e}, regrouped {err_numpy:.3e}, "
+          f"area_contrib {err_port:.3e} from the float64 oracle")
+    assert err_old > 5e-3  # the fault that the regrouping removes
+    assert err_numpy <= 1e-6 and err_port <= 1e-6

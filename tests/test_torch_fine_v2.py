@@ -115,7 +115,7 @@ def _port_fine(scene, params):
     s, ld, ramps, caps = prepare(scene, params)
     scene_t, layout_t, ramps_t, caps = upload(s, ld, ramps, caps, "cpu")
     stages, flags, _ = geometry(scene_t, layout_t, caps)
-    (compact, t2r), fflags = fine_v2(stages["cmds"], stages["counted"], ramps_t,
+    (compact, t2r), fflags = fine_v2(stages["cmds"], stages["counted"], ramps_t, None,
                                      layout_t, caps)
     flags.update(fflags)
     assert not any(bool(v) for v in flags.values()), flags
@@ -143,7 +143,7 @@ def test_torch_build_records_matches_jello_tpu(name):
         _, area_row, _ = np_cov.compute_area_rows(np, ref["cmds"], ref["counted"], caps)
         cmds = dict(ref["cmds"], area_row=area_row)
         want = np_build_records(np, cmds, s, ref["info"], caps)
-    got = build_records(tree_to_torch(cmds))
+    got = build_records(tree_to_torch(cmds), caps)
     np.testing.assert_array_equal(u32(as_np(got)), u32(want))
 
 

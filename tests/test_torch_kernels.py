@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-import jello_tpu as jt
+import jello_tpu
+import jello_tpu_torch
 from jello_tpu.cpu import render_numpy
-from jello_tpu.renderer.params import RenderParams
 
 from jello_tpu_torch.cuda import expand as kx
 from jello_tpu_torch.cuda import land as kland
@@ -25,17 +25,18 @@ from jello_tpu_torch.cuda.fine_v2 import (
     composite_records_plain,
     tile_last_record,
 )
-from jello_tpu_torch.cuda.render import Renderer, upload
+from jello_tpu_torch.cuda import image_tap as ktap
+from jello_tpu_torch.cuda.render import Renderer, upload, upload_atlas
 from jello_tpu_torch.pipeline import coverage as plain_cov
 from jello_tpu_torch.pipeline import expand as plain_expand
+from jello_tpu_torch.pipeline import image_tap as plain_tap
 from jello_tpu_torch.pipeline import land as plain_land
 from jello_tpu_torch.pipeline import lockstep as plain_walk
 from jello_tpu_torch.pipeline.render import geometry
 
-from .torch_reference import prepare
+from .torch_reference import prepare, prepare_with_atlas
 
 pytestmark = pytest.mark.cuda
-IDENT = jt.Affine.identity()
 
 
 @pytest.fixture
@@ -45,7 +46,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gradient_scene():
+def _gradient_scene(jt=jello_tpu):
+    IDENT = jt.Affine.identity()
     rng = np.random.default_rng(11)
     s = jt.Scene()
     for i in range(24):
@@ -72,7 +74,52 @@ def _gradient_scene():
             brush = jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.7))
         rule = jt.Fill.EVEN_ODD if i % 5 == 0 else jt.Fill.NON_ZERO
         s.fill(rule, IDENT, brush, None, p)
-    return s, RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
+    return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _image_scene(jt=jello_tpu):
+    """Solid ground, three image fills (upscaled, rotated and translucent,
+    minified over several region windows) and a thin round stroke."""
+    IDENT = jt.Affine.identity()
+    rng = np.random.default_rng(17)
+
+    def image(size, alpha):
+        pix = (rng.random((size, size, 4)) * 255).astype(np.uint8)
+        pix[..., 3] = alpha
+        return jt.ImageBrush(jt.Image(pixels=pix))
+
+    def rect(w, h):
+        return jt.BezPath().move_to(0, 0).line_to(w, 0).line_to(w, h).line_to(0, h).close()
+
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, IDENT, jt.SolidBrush(jt.Color.rgba(0.2, 0.5, 0.7, 1)), None,
+           rect(128, 128))
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(6.3, 4.6) @ jt.Affine.scale(5.7),
+           image(8, 255), None, rect(8, 8))
+    s.fill(jt.Fill.EVEN_ODD, jt.Affine.translate(70, 20) @ jt.Affine.rotate(0.4)
+           @ jt.Affine.scale(2.2), image(16, 150), None, rect(16, 16))
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(10, 70) @ jt.Affine.scale(1.0 / 6.0),
+           image(96, 230), None, rect(96, 96))
+    st = jt.Stroke(width=0.8, join=jt.Join.ROUND).with_caps(jt.Cap.ROUND)
+    s.stroke(st, IDENT, jt.SolidBrush(jt.Color.rgba(0.9, 0.1, 0.1, 0.9)), None,
+             jt.BezPath().move_to(8, 120).cubic_to(40, 10, 90, 130, 122, 30))
+    return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _image_inputs(cuda):
+    """Stages, records and the image-tap table of `_image_scene` on the
+    card, with the tap's compacted records as recorded from the stage."""
+    s, ld, ramps, atlas, caps = prepare_with_atlas(*_image_scene())
+    caps = dict(caps, _expand_pallas=True, _image_tap=True)
+    scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, {}, cuda)
+    atlas_t = upload_atlas(atlas, cuda)
+    stages, flags, stats = geometry(scene_t, layout_t, caps)
+    assert not any(bool(v) for v in flags.values())
+    assert int(stats["img_recs"]) > 0
+    cmds = stages["cmds"]
+    area, ids, _ = compute_area_rows(cmds, stages["counted"], caps)
+    rec = build_records(dict(cmds, area_row=ids), caps)
+    return cmds, area, rec, atlas_t, layout_t, ramps_t, caps, ld
 
 
 def _inputs(cuda):
@@ -186,7 +233,7 @@ def test_torch_fine_kernel_matches_plain(cuda):
     stages, layout_t, ramps_t, caps, ld = _inputs(cuda)
     cmds, counted = stages["cmds"], stages["counted"]
     area, ids, _ = compute_area_rows(cmds, counted, caps)
-    rec = build_records(dict(cmds, area_row=ids))
+    rec = build_records(dict(cmds, area_row=ids), caps)
     args = (rec, area, ramps_t, layout_t["base_color"], cmds["tile_start"], cmds["tile_end"],
             layout_t["width_in_tiles"])
     n0 = composite_records.launches
@@ -201,13 +248,75 @@ def test_torch_fine_kernel_matches_plain(cuda):
     assert (img - img_p).abs().max().item() <= 1e-4
 
 
-def test_torch_cuda_renderer_matches_oracle(cuda):
-    scene, params = _gradient_scene()
-    ref, _, _ = render_numpy(scene, params)
+def test_torch_image_tap_kernel_matches_plain(cuda, monkeypatch):
+    """Kernel F on the tap's own compacted records: within 1e-6 of the
+    plain version (the same four products and three sums per channel, not
+    contracted), region flag equal, zero rows past the image count."""
+    cmds, _, rec, atlas_t, layout_t, _, caps, _ = _image_inputs(cuda)
+    calls = []
+    tap = ktap.tap_records
+
+    def spy(*args):
+        calls.append(args)
+        return tap(*args)
+
+    spy.launches = 0
+    monkeypatch.setattr(ktap, "tap_records", spy)
+    fg_tab, region_ovf, recs_ovf = plain_tap.image_tap(rec, cmds, atlas_t, layout_t, caps)
+    monkeypatch.undo()
+    (args,) = calls
+    assert not bool(region_ovf) and not bool(recs_ovf)
+    n0 = ktap.tap_records.launches
+    got, got_flag = ktap.tap_records(*args)
+    assert ktap.tap_records.launches == n0 + 1
+    want, want_flag = plain_tap.tap_records_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fg_tab)
+    assert bool(got_flag) == bool(want_flag) is False
+    assert (got - want).abs().max().item() <= 1e-6
+    n_img = int((args[0][:, 0] == 5).sum())
+    assert 0 < n_img < got.shape[0] and not got[n_img:].any() and got[:n_img].any()
+    # A record that minifies past the region windows: zeros and the flag.
+    bad = args[0].clone()
+    bad[0, 6:10] = torch.tensor([64.0, 0.0, 0.0, 64.0]).view(torch.int32).to(cuda)
+    bad[0, 13] = (2048 << 16) | 2048
+    got, got_flag = ktap.tap_records(bad, *args[1:])
+    want, want_flag = plain_tap.tap_records_plain(bad, *args[1:])
+    assert bool(got_flag) and bool(want_flag) and not got[0].any()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+def test_torch_fine_kernel_with_images_matches_plain(cuda):
+    cmds, area, rec, atlas_t, layout_t, ramps_t, caps, ld = _image_inputs(cuda)
+    fg_tab, _, _ = plain_tap.image_tap(rec, cmds, atlas_t, layout_t, caps)
+    args = (rec, area, ramps_t, layout_t["base_color"], cmds["tile_start"], cmds["tile_end"],
+            layout_t["width_in_tiles"])
+    n0 = composite_records.launches
+    out = composite_records(*args, fg_tab)
+    assert composite_records.launches == n0 + 1
+    out_p = composite_records_plain(*args, fg_tab)
+    t2r = tile_last_record(cmds["tile_start"], cmds["tile_end"])
+    img = assemble_compact(out, t2r, ld)
+    img_p = assemble_compact(out_p, t2r, ld)
+    torch.cuda.synchronize()
+    assert not torch.isnan(img).any()
+    assert (img - img_p).abs().max().item() <= 1e-4
+    # The table is what paints the image records: without it they are the
+    # identity and the frame differs.
+    bare = assemble_compact(composite_records(*args), t2r, ld)
+    assert (img - bare).abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("case", ["gradients", "images_and_stroke"])
+def test_torch_cuda_renderer_matches_oracle(cuda, case):
+    build = {"gradients": _gradient_scene, "images_and_stroke": _image_scene}[case]
+    ref, _, _ = render_numpy(*build(jello_tpu))
     fns = [coverage_rows, composite_records] + [getattr(m, n) for m, n in WRAPPERS]
+    if case == "images_and_stroke":
+        fns.append(ktap.tap_records)
     before = [fn.launches for fn in fns]
     r = Renderer(device="cuda")
-    img = r.render(scene, params)
+    img = r.render(*build(jello_tpu_torch))
     assert not any(r.last_flags.values())
     assert all(fn.launches > n for fn, n in zip(fns, before))
     assert np.abs(img - ref).max() <= 2e-3

@@ -1,29 +1,33 @@
 """Renderer(device="cpu") of jello_tpu_torch, end to end, vs the numpy
 oracle: images within 2e-3, no flags, u8 present math, capacity
 calibration and overflow retries, and the refusal of scenes outside the
-ported slice."""
+ported slice. Each scene is built twice, through jello_tpu for the
+oracle and through jello_tpu_torch for the port."""
 
 import numpy as np
 import pytest
 import torch
 
-import jello_tpu as jt
-from jello_tpu.cpu import render_numpy
-from jello_tpu.renderer.params import AaConfig, RenderParams
+import jello_tpu
+import jello_tpu.scenes
+import jello_tpu_torch
+import jello_tpu_torch.scenes
 from jello_tpu.renderer.surface import to_rgba8
-from jello_tpu.scenes import config1
 
 from jello_tpu_torch.cuda import Renderer, upload
 from jello_tpu_torch.cuda.render import build_layout_dict, present
 
+from .torch_reference import check_frame as _check
 from .torch_reference import prepare
 
-IDENT = jt.Affine.identity()
-TOL = 2e-3
+
+def config1(jt=jello_tpu):
+    return jt.scenes.config1()
 
 
-def _gradient_blobs(seed=3, n=16, size=128):
+def _gradient_blobs(jt=jello_tpu, seed=3, n=16, size=128):
     """A small seeded cut of config 3: linear and radial gradient blobs."""
+    IDENT = jt.Affine.identity()
     rng = np.random.default_rng(seed)
     s = jt.Scene()
     for i in range(n):
@@ -40,21 +44,11 @@ def _gradient_blobs(seed=3, n=16, size=128):
         g = (jt.LinearGradient((cx - r, cy), (cx + r, cy), st) if i % 2 == 0
              else jt.RadialGradient((cx, cy), 0.0, (cx, cy), r, st))
         s.fill(jt.Fill.NON_ZERO, IDENT, jt.GradientBrush(g), None, p)
-    return s, RenderParams(width=size, height=size, base_color=jt.Color.rgba(1, 1, 1, 1))
-
-
-def _check(r, scene, params):
-    img = r.render(scene, params)
-    assert not any(r.last_flags.values()), r.last_flags
-    ref, _, _ = render_numpy(scene, params)
-    assert img.shape == ref.shape and img.dtype == np.float32
-    assert np.isfinite(img).all()
-    assert np.abs(img - ref).max() <= TOL
-    return img, ref
+    return s, jt.RenderParams(width=size, height=size, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
 def test_torch_renderer_config1_matches_oracle():
-    _check(Renderer(device="cpu"), *config1())
+    _check(Renderer(device="cpu"), config1)
 
 
 def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
@@ -65,25 +59,24 @@ def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
     seen = []
     frame = render_mod.render_frame
 
-    def spy(scene, layout, ramps, caps, fine_impl):
+    def spy(scene, layout, ramps, atlas, caps, fine_impl):
         seen.append(caps)
-        return frame(scene, layout, ramps, caps, fine_impl)
+        return frame(scene, layout, ramps, atlas, caps, fine_impl)
 
     monkeypatch.setattr(render_mod, "render_frame", spy)
     r = Renderer(device="cpu")
-    _check(r, *_gradient_blobs(seed=9, n=6))
+    _check(r, _gradient_blobs, seed=9, n=6)
     assert seen and all(c.get("_expand_pallas") is True for c in seen)
     assert "_expand_pallas" not in r._caps
 
 
 def test_torch_renderer_gradient_blobs_match_oracle():
-    _check(Renderer(device="cpu"), *_gradient_blobs())
+    _check(Renderer(device="cpu"), _gradient_blobs)
 
 
 def test_torch_render_surface_matches_present_of_oracle():
-    scene, params = _gradient_blobs(seed=8, n=10)
     r = Renderer(device="cpu")
-    img, ref = _check(r, scene, params)
+    img, ref, (scene, params) = _check(r, _gradient_blobs, seed=8, n=10)
     u8 = r.render_surface(scene, params)
     assert u8.shape == ref.shape and u8.dtype == np.uint8
     # Same present math as the device route: exactly the port's image...
@@ -93,10 +86,9 @@ def test_torch_render_surface_matches_present_of_oracle():
 
 
 def test_torch_renderer_calibrates_then_grows_on_overflow():
-    scene, params = _gradient_blobs(seed=5, n=12)
     r = Renderer(device="cpu")
-    s, _, _, est = prepare(scene, params)
-    _check(r, scene, params)
+    s, _, _, est = prepare(*_gradient_blobs(seed=5, n=12))
+    _check(r, _gradient_blobs, seed=5, n=12)
     calibrated = dict(r._caps)
     assert calibrated["tiles_cap"] <= est["tiles_cap"]
     assert calibrated["max_iters"] <= est["max_iters"]
@@ -105,7 +97,7 @@ def test_torch_renderer_calibrates_then_grows_on_overflow():
     # A grown tiles_cap leaves pair_cap behind, which takes coarse off
     # its dense branch onto the general pair expansion.
     r._caps = dict(calibrated, seg_cap=64, area_rows_cap=16, tiles_cap=32)
-    _check(r, scene, params)
+    _check(r, _gradient_blobs, seed=5, n=12)
     assert r._caps["seg_cap"] > 64 and r._caps["area_rows_cap"] > 16
     assert 32 < r._caps["tiles_cap"] != r._caps["pair_cap"]
 
@@ -113,18 +105,17 @@ def test_torch_renderer_calibrates_then_grows_on_overflow():
 def test_torch_renderer_class_depends_only_on_the_scene():
     """A scene's capacity class is the same whether the renderer drew a
     larger scene before it or not."""
-    small = config1()
     fresh = Renderer(device="cpu")
-    fresh.render(*small)
+    fresh.render(*config1(jello_tpu_torch))
     r = Renderer(device="cpu")
-    r.render(*_gradient_blobs(seed=4, n=8, size=512))
+    r.render(*_gradient_blobs(jello_tpu_torch, seed=4, n=8, size=512))
     assert r._caps["tile_grid_cap"] > fresh._caps["tile_grid_cap"]
-    _check(r, *small)
+    _check(r, config1)
     assert r._caps == fresh._caps
 
 
 def test_torch_renderer_overflow_exhausted_raises():
-    scene, params = _gradient_blobs(seed=6, n=6)
+    scene, params = _gradient_blobs(jello_tpu_torch, seed=6, n=6)
     r = Renderer(device="cpu")
     r.render(scene, params)
     r._caps = dict(r._caps, seg_cap=8)
@@ -132,42 +123,65 @@ def test_torch_renderer_overflow_exhausted_raises():
         r.render(scene, params, max_retries=0)
 
 
-def _stroke_scene():
+def _stroke_scene(jt=jello_tpu):
     s = jt.Scene()
-    s.stroke(jt.Stroke(width=3.0), IDENT, jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)), None,
-             jt.BezPath().move_to(10, 10).line_to(100, 60))
-    return s
+    s.stroke(jt.Stroke(width=3.0), jt.Affine.identity(), jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)),
+             None, jt.BezPath().move_to(10, 10).line_to(100, 60))
+    return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def _clip_scene():
+def _clip_scene(jt=jello_tpu):
+    IDENT = jt.Affine.identity()
     s = jt.Scene()
     s.push_layer(jt.BlendMode(jt.Mix.NORMAL, jt.Compose.SRC_OVER), 1.0, IDENT,
                  jt.BezPath().move_to(0, 0).line_to(64, 0).line_to(64, 64).close())
     s.fill(jt.Fill.NON_ZERO, IDENT, jt.SolidBrush(jt.Color.rgba(1, 0, 0, 1)), None,
            jt.BezPath().move_to(10, 10).line_to(100, 60).line_to(20, 90).close())
     s.pop_layer()
-    return s
+    return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def _image_scene():
+def _image_scene(jt=jello_tpu):
     s = jt.Scene()
     pix = np.full((4, 4, 4), 255, np.uint8)
-    s.fill(jt.Fill.NON_ZERO, IDENT, jt.ImageBrush(jt.Image(pixels=pix)), None,
+    pix[1:3, 1:3, :3] = 40
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(3.3, 2.7) @ jt.Affine.scale(2.3),
+           jt.ImageBrush(jt.Image(pixels=pix)), None,
            jt.BezPath().move_to(0, 0).line_to(8, 0).line_to(8, 8).line_to(0, 8).close())
-    return s
+    return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-@pytest.mark.parametrize("case, slice_no", [
-    ("stroke", "slice 3"), ("clip", "slice 6"), ("image", "slice 4"), ("msaa", "slice 5")])
+def _msaa_scene(jt=jello_tpu):
+    scene, _ = jt.scenes.config1()
+    return scene, jt.RenderParams(width=256, height=256,
+                                  antialiasing_method=jt.AaConfig.MSAA8)
+
+
+@pytest.mark.parametrize("case, slice_no", [("clip", "slice 6"), ("msaa", "slice 5")])
 def test_torch_renderer_refuses_scenes_outside_the_slice(case, slice_no):
-    params = RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
-    if case == "msaa":
-        scene, _ = config1()
-        params = RenderParams(width=256, height=256, antialiasing_method=AaConfig.MSAA8)
-    else:
-        scene = {"stroke": _stroke_scene, "clip": _clip_scene, "image": _image_scene}[case]()
+    scene, params = {"clip": _clip_scene, "msaa": _msaa_scene}[case](jello_tpu_torch)
     with pytest.raises(NotImplementedError, match=slice_no):
         Renderer(device="cpu").render(scene, params)
+
+
+@pytest.mark.parametrize("case", ["stroke", "image"])
+def test_torch_renderer_renders_strokes_and_images(case):
+    """The scenes the renderer refused before strokes and image paints
+    were ported now render, and match the oracle."""
+    r = Renderer(device="cpu")
+    _check(r, {"stroke": _stroke_scene, "image": _image_scene}[case])
+    assert ("image_region_overflow" in r.last_flags) == (case == "image")
+
+
+def test_torch_renderer_grows_the_image_record_table():
+    """A starved img_recs_cap raises img_recs_overflow, grows and renders."""
+    r = Renderer(device="cpu")
+    _check(r, _image_scene)
+    need = r.last_stats["img_recs"]
+    assert need > 2
+    r._caps = dict(r._caps, img_recs_cap=2)
+    _check(r, _image_scene)
+    assert r._caps["img_recs_cap"] >= need
 
 
 def test_torch_renderer_cuda_device_needs_cuda():
