@@ -38,30 +38,42 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the same products and sums, not contracted; region flag equal), and
      kernel B with the tap's table vs its plain version on config 5's
      records (<= 1e-4 on the assembled image);
-  8. main path: Renderer(device="cuda") on config 1 (one cubic fill,
+  8. config 4 (nested clip layers with mix blends over a full-frame
+     gradient, 1920x1080) at its calibrated class, its fine stage's real
+     inputs recorded from one frame: kernel G (the per-tile interpreter)
+     vs its plain version on all legacy slots (output rows within 1e-4,
+     overflow words equal); kernel H (eight tiles a CTA) vs G on the same
+     slab (real slots within 1e-6, overflow words equal) and vs plain;
+     kernel B with clip groups vs its plain version on config 4's records
+     (<= 1e-4 on the assembled image); and G and H through fine_interp
+     over the full tile grid of a small scene with clips, blends,
+     gradients and an image vs the plain version;
+  9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
-     stroked and dashed paths, 512x512) and config 5, render() and, for
-     configs 3 and 5, render_surface(); every launch count is set to 0
-     before each config and read after it; flags must be clear, each
-     kernel of the config's path must have launched (all eight on config
-     5; the JSON line gives the sum), and the images must be finite and
-     within 2e-3 of the reference. The reference for configs 1, 2 and 3
-     is Renderer(device="cpu"), the plain PyTorch version of every stage
-     and kernel, which the CPU tests (tests/test_torch_*.py) hold to the
-     JAX package's numpy oracle. At config 5's size that costs minutes on
-     a CPU, so its reference is the same plain versions run on CUDA
-     tensors: this script's own reference call swaps the plain versions
-     in for the kernel wrappers (the main path has no such switch) and
-     checks that no kernel launched meanwhile; --config5-cpu-reference
-     also renders and times the CPU reference. Then steady-state ms/frame
+     stroked and dashed paths, 512x512), config 5 and config 4, render()
+     and, for configs 3, 5 and 4, render_surface(); config 4 once more
+     under JELLO_INTERP_BATCH=1 (kernel H in G's place, the frame equal
+     to G's within 1e-6); every launch count is set to 0 before each
+     config and read after it; flags must be clear, each kernel of the
+     config's path must have launched (the JSON line gives the sum), and
+     the images must be finite and within 2e-3 of the reference. The
+     reference for configs 1, 2 and 3 is Renderer(device="cpu"), the
+     plain PyTorch version of every stage and kernel, which the CPU tests
+     (tests/test_torch_*.py) hold to the JAX package's numpy oracle. At
+     the size of configs 4 and 5 that costs minutes on a CPU, so their
+     reference is the same plain versions run on CUDA tensors: this
+     script's own reference call swaps the plain versions in for the
+     kernel wrappers (the main path has no such switch) and checks that
+     no kernel launched meanwhile; --config5-cpu-reference also renders
+     and times config 5's CPU reference. Then steady-state ms/frame
      (median after 2 warm-ups) and the peak device memory those frames
      allocate. Kernel times are CUDA-event means over repeated calls on
      the same inputs, the kernel's wrapper beside its plain version;
-  9. one JSON line of kernel results, the nvidia-smi line, and the
+ 10. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
      call: the larger of its bytes (each input read once, each output
-     written once; for B only the rows this run's records touch) over
-     3.35 TB/s and its float operations, counted for
+     written once; for B, G and H only the rows this run's records touch)
+     over 3.35 TB/s and its float operations, counted for
      this run's data, over 67 TFLOP/s (float32 outside the tensor cores).
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
@@ -77,6 +89,8 @@ A_TOL = 1e-5
 B_TOL = 1e-4
 E_TOL = 1e-5  # E, E': end points and segments vs the plain version
 F_TOL = 1e-6
+G_TOL = 1e-4  # G, H vs the plain version, output rows of real slots
+H_TOL = 1e-6  # H vs G
 IMG_TOL = 2e-3
 FRAMES = 8
 WARMUP = 2
@@ -232,12 +246,14 @@ class _PlainKernels:
     def __enter__(self):
         from jello_tpu_torch.cuda import coverage as kcov
         from jello_tpu_torch.cuda import expand as kx
+        from jello_tpu_torch.cuda import fine_interp as kint
         from jello_tpu_torch.cuda import fine_v2 as kfine
         from jello_tpu_torch.cuda import image_tap as ktap
         from jello_tpu_torch.cuda import land as kland
         from jello_tpu_torch.cuda import lockstep as kwalk
         from jello_tpu_torch.pipeline import coverage as plain_cov
         from jello_tpu_torch.pipeline import expand as px
+        from jello_tpu_torch.pipeline import fine_interp as plain_int
         from jello_tpu_torch.pipeline import image_tap as plain_tap
         from jello_tpu_torch.pipeline import land as plain_land
         from jello_tpu_torch.pipeline import lockstep as plain_walk
@@ -254,7 +270,13 @@ class _PlainKernels:
             incl, total = px.expand_prefix(counts, assume_compact=True)
             return px.row_deltas(PRT, incl, counts, RC, T) + (total,)
 
+        def interpret(counts, tile_ids, base, slab, rows, stops, atlas, wit, depth,
+                      batch=False):
+            return plain_int.interpret_plain(counts[:-1], tile_ids, base, slab, rows, stops,
+                                             atlas, wit, depth)
+
         swaps = [
+            (kint, "interpret_tiles", interpret),
             (kcov, "coverage_rows", plain_cov.coverage_rows_plain),
             (kfine, "composite_records", kfine.composite_records_plain),
             (kland, "monotone_land", plain_land.monotone_land),
@@ -279,9 +301,57 @@ def _max_diff(a, b, mask=None):
     return d.max().item() if d.numel() else 0.0
 
 
+def _small_clip_scene(jt):
+    """A 256x256 scene that holds every record kind: a linear, a radial
+    and a sweep gradient, an upscaled image, a nested clip under a
+    MULTIPLY group, a src-over group with alpha and a dashed stroke."""
+    import numpy as np
+
+    from jello_tpu_torch.scenes import circle
+
+    ident = jt.Affine.identity()
+    stops = tuple(jt.ColorStop(o, jt.Color.rgba(*c, 1))
+                  for o, c in ((0.0, (1, 1, 0)), (0.5, (1, 0, 1)), (1.0, (0, 0, 1))))
+    full = jt.BezPath().move_to(0, 0).line_to(256, 0).line_to(256, 256).line_to(0, 256).close()
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, ident,
+           jt.GradientBrush(jt.LinearGradient((0, 0), (256, 0), stops)), None, full)
+    s.fill(jt.Fill.EVEN_ODD, ident, jt.GradientBrush(jt.RadialGradient(
+        (100, 100), 5.0, (120, 110), 80.0, stops, jt.Extend.REFLECT)), None,
+        circle(110, 105, 70))
+    s.fill(jt.Fill.NON_ZERO, ident,
+           jt.GradientBrush(jt.SweepGradient((180, 180), 0.0, 6.283185, stops)), None,
+           circle(180, 180, 50))
+    pix = np.zeros((4, 4, 4), np.uint8)
+    pix[:2, :2], pix[2:, 2:] = [255, 0, 0, 255], [0, 255, 0, 255]
+    pix[:2, 2:], pix[2:, :2] = [0, 0, 255, 255], [255, 255, 0, 128]
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(10, 180) @ jt.Affine.scale(12),
+           jt.ImageBrush(jt.Image(pixels=pix)), None,
+           jt.BezPath().move_to(0, 0).line_to(4, 0).line_to(4, 4).line_to(0, 4).close())
+    s.push_layer(jt.BlendMode(jt.Mix.MULTIPLY, jt.Compose.SRC_OVER), 0.8, ident,
+                 circle(128, 128, 100))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.2, 0.9, 0.4, 0.7)), None,
+           circle(120, 120, 60))
+    s.push_layer(jt.BlendMode(jt.Mix.CLIP, jt.Compose.SRC_OVER), 1.0, ident,
+                 circle(140, 140, 40))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.9, 0.1, 0.1, 1)), None, full)
+    s.pop_layer()
+    s.pop_layer()
+    s.push_layer(jt.BlendMode(jt.Mix.NORMAL, jt.Compose.SRC_OVER), 0.6, ident,
+                 circle(60, 200, 40.3))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.1, 0.1, 0.9, 0.7)), None,
+           circle(70, 190, 30))
+    s.pop_layer()
+    s.stroke(jt.Stroke(width=5, dash_pattern=(12, 6)).with_caps(jt.Cap.ROUND), ident,
+             jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)), None,
+             jt.BezPath().move_to(10, 30).cubic_to(80, 5, 170, 60, 246, 25))
+    return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
 def main():
     import argparse
     import json
+    import os
     import time
 
     import numpy as np
@@ -303,6 +373,9 @@ def main():
     from jello_tpu_torch import native
     from jello_tpu_torch.cuda import build
     from jello_tpu_torch.cuda import expand as kx
+    from jello_tpu_torch.cuda import fine_hybrid as khybrid
+    from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda import land as kland
     from jello_tpu_torch.cuda import lockstep as kwalk
@@ -314,16 +387,17 @@ def main():
         composite_records_plain,
         tile_last_record,
     )
-    from jello_tpu_torch.cuda.render import Renderer, present
+    from jello_tpu_torch.cuda.render import Renderer, frame_routing, present
     from jello_tpu_torch.pipeline import coverage as plain_cov
     from jello_tpu_torch.pipeline import expand as plain_expand
+    from jello_tpu_torch.pipeline import fine_interp as plain_int
     from jello_tpu_torch.pipeline import image_tap as plain_tap
     from jello_tpu_torch.pipeline import land as plain_land
     from jello_tpu_torch.pipeline import lockstep as plain_walk
     from jello_tpu_torch.pipeline.render import geometry
     from jello_tpu_torch.scenes import GATE_SCENES
 
-    config1, config2, config3, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 5))
+    config1, config2, config3, config4, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 4, 5))
     print("path encoder: " + ("native (g++)" if native.get_lib() is not None
                               else "the Python twin (no native library)"))
     # ---- 2. build --------------------------------------------------------
@@ -338,8 +412,8 @@ def main():
     scene3, params3 = config3()
     warm = Renderer(device="cuda")
     warm.render(scene3, params3)
-    _, _, (scene_t, layout_t, ramps_t, _) = warm._prepare(scene3, params3)
-    caps = dict(warm._caps, _expand_pallas=True)
+    _, _, (scene_t, layout_t, ramps_t, _), _ = warm._prepare(scene3, params3)
+    caps = dict(warm._caps, **frame_routing(0, False, 0))
     out = {}
     calls = _record_calls(
         [(kland, "monotone_land"), (kwalk, "lockstep_walk"), (kx, "expand_euler"),
@@ -562,10 +636,10 @@ def main():
     print(f"config 5: first render (estimate, grow, calibrate) {time.perf_counter() - t:.1f} s, "
           f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
     print(f"config 5 calibrated caps: {warm._caps}")
-    _, ld5, (scene_t, layout_t, ramps_t, atlas_t) = warm._prepare(scene5, params5)
+    _, ld5, (scene_t, layout_t, ramps_t, atlas_t), _ = warm._prepare(scene5, params5)
     if atlas_t is None:
         _fail("config 5 resolved to no image atlas")
-    caps = dict(warm._caps, _expand_pallas=True, _image_tap=True)
+    caps = dict(warm._caps, **frame_routing(0, True, 0))
     out = {}
     calls5 = _record_calls(
         geometry_wrappers,
@@ -675,22 +749,180 @@ def main():
          run_len, edges, nonempty, walked, paints5)
     torch.cuda.empty_cache()
 
-    # ---- 8. main path ----------------------------------------------------
+    # ---- 8. config 4: kernels G and H, and kernel B with clip groups -------
+    import jello_tpu_torch
+
+    scene4, params4 = config4()
+    warm = Renderer(device="cuda")
+    t = time.perf_counter()
+    warm.render(scene4, params4)
+    print(f"config 4: first render {time.perf_counter() - t:.2f} s, frames run again for: "
+          f"{warm.last_retries}; legacy tiles {warm.last_stats['legacy_tiles']} of "
+          f"{warm._caps['tile_grid_cap']}, records {warm.last_stats['cmds']}, longest tape "
+          f"{warm.last_stats['max_cmds']}")
+    print("config 4 calibrated caps: " + ", ".join(f"{k} {warm._caps[k]}" for k in (
+        "legacy_tiles_cap", "cmds_per_tile", "blend_depth", "cmd_cap", "pair_cap",
+        "tiles_cap", "area_rows_cap", "seg_cap", "n_clips_cap")))
+    _, ld4, (scene_t, layout_t, ramps_t, atlas_t), depth4 = warm._prepare(scene4, params4)
+    caps = dict(warm._caps, **frame_routing(layout_t["n_clips"], atlas_t is not None, depth4))
+    stages = geometry(scene_t, layout_t, caps)[0]
+    cmds, counted = stages["cmds"], stages["counted"]
+    out = {}
+    calls4 = _record_calls(
+        [(kint, "interpret_tiles"), (kfine, "composite_records")],
+        lambda: out.update(fine=khybrid.fine_hybrid(cmds, counted, ramps_t, atlas_t, layout_t,
+                                                    caps)))
+    if any(bool(v) for v in out["fine"][1].values()):
+        _fail("config 4's fine stage raised a flag at the calibrated class")
+    g_args = calls4["interpret_tiles"][0][:9]  # without the batch switch
+    (b_args,) = calls4["composite_records"]
+    g_counts, g_ids, _, g_slab, g_rows = g_args[:5]
+    GRID4, BD4 = caps["tile_grid_cap"], g_args[8]
+
+    def plain_g():
+        return plain_int.interpret_plain(g_counts[:-1], *g_args[1:])
+
+    real = g_ids < GRID4
+    n_real = int(real.sum())
+    got_g, ovf_g = kint.interpret_tiles(*g_args)
+    got_h, ovf_h = kint.interpret_tiles(*g_args, batch=True)
+    want_g, ovf_p = plain_g()
+    torch.cuda.synchronize()
+    err_g = _max_diff(got_g[real], want_g[real])
+    err_h = _max_diff(got_h[real], want_g[real])
+    err_hg = _max_diff(got_h[real], got_g[real])
+    print(f"kernel G: {g_slab.shape[0]} slots ({n_real} legacy tiles), tapes of up to "
+          f"{int(g_counts[:-1].max())} of {g_slab.shape[1]} records, blend depth {BD4}: "
+          f"max|row diff| vs plain {err_g:.3e}; kernel H vs plain {err_h:.3e}, vs G "
+          f"{err_hg:.3e}; overflow words equal: G {torch.equal(ovf_g, ovf_p)}, H "
+          f"{torch.equal(ovf_h, ovf_g)}; any overflow {bool(ovf_g.any())}; nan "
+          f"{bool(torch.isnan(got_g[real]).any())}")
+    if (n_real < 1 or not err_g <= G_TOL or not err_h <= G_TOL or not err_hg <= H_TOL
+            or not torch.equal(ovf_g, ovf_p) or not torch.equal(ovf_h, ovf_g)
+            or torch.isnan(got_g[real]).any()):
+        _fail("kernel G or H disagrees with its plain version")
+    # Bound, from what this run's tapes make the kernel touch: 64 B a
+    # record walked, 1 KB of coverage for each fill, gradient, image or
+    # EndClip record with segments, 4 KB and a word written per slot,
+    # counts, ids, the stop table and the base color once (no atlas texel:
+    # config 4 has no image). Float operations a pixel: ~12 a solid fill,
+    # ~120 a gradient, ~45 an EndClip (its blend), none a BeginClip.
+    # Suppressed records read no row, so the bound errs high by them.
+    steps = torch.arange(g_slab.shape[1], device=g_slab.device)[None, :] < g_counts[:-1, None]
+    kinds = g_slab[:, :, 0][steps]
+    segs = g_slab[:, :, 2][steps]
+    n_walk = int(steps.sum())
+    n_rowed = int(((kinds != 6) & (segs > 0)).sum())
+    n_solid4 = int((kinds == 1).sum())
+    n_grad4 = int(((kinds >= 2) & (kinds <= 4)).sum())
+    n_end4 = int((kinds == 7).sum())
+    g_bytes = (n_walk * 64 + n_rowed * 1024 + g_slab.shape[0] * (4096 + 4)
+               + _nbytes(g_counts, g_ids, g_args[2], ramps_t))
+    g_bound = _bound(g_bytes, 256 * (12 * n_solid4 + 120 * n_grad4 + 45 * n_end4))
+    g_ms = _time_ms(lambda: kint.interpret_tiles(*g_args), 20)
+    h_ms = _time_ms(lambda: kint.interpret_tiles(*g_args, batch=True), 20)
+    g_plain_ms = _time_ms(plain_g, 2)
+    res["G"] = (err_g, g_ms, g_plain_ms, g_bound, None)
+    res["H"] = (max(err_h, err_hg), h_ms, g_plain_ms, g_bound, None)
+    print(f"kernels G and H, config 4: {n_walk} records walked ({n_solid4} solid, {n_grad4} "
+          f"gradient, {n_end4} EndClip, {int((kinds == 6).sum())} BeginClip; {n_rowed} read a "
+          f"row), {g_bytes / 1e6:.1f} MB needed; G {g_ms:.3f} ms, H {h_ms:.3f} ms vs plain "
+          f"{g_plain_ms:.3f} ms, bound {g_bound[0]:.4f} ms by {g_bound[1]}")
+
+    rec4 = b_args[0]
+    out_k = composite_records(*b_args)
+    out_p = composite_records_plain(*b_args)
+    t2r = tile_last_record(cmds["tile_start"], cmds["tile_end"])
+    img_k = assemble_compact(out_k, t2r, ld4)
+    img_p = assemble_compact(out_p, t2r, ld4)
+    torch.cuda.synchronize()
+    err_b4 = (img_k - img_p).abs().max().item()
+    in_run = (rec4[:, 3] >= 0) & (rec4[:, 3] < GRID4)
+    fl4, kind4 = rec4[:, 4], rec4[:, 0]
+    n_legacy_rec = int((in_run & ((fl4 & 2) != 0)).sum())
+    n_member = int((in_run & ((fl4 & 16) != 0)).sum())
+    n_endg = int((in_run & ((fl4 & 32) != 0)).sum())
+    paint4 = in_run & ((fl4 & 2) == 0) & (kind4 >= 1) & (kind4 <= 5)
+    n_grad_b4 = int((paint4 & (kind4 >= 2)).sum())
+    n_paint4 = int(paint4.sum())
+    print(f"kernel B with groups: records {int(in_run.sum())} in tile runs ({n_legacy_rec} of "
+          f"legacy tiles, {n_member} group members and BeginClips, {n_endg} group EndClips, "
+          f"{n_paint4} paint) max|image diff| {err_b4:.3e} nan "
+          f"{bool(torch.isnan(img_k).any())}")
+    if not err_b4 <= B_TOL or torch.isnan(img_k).any() or n_endg < 1:
+        _fail("kernel B with clip groups disagrees with its plain version")
+    # Bound as in phase 7: 64 B read and 4 KB written for each record of a
+    # tile's run, 1 KB of coverage for each that paints or ends a group.
+    b4_bytes = (int(in_run.sum()) * (64 + 4096) + (n_paint4 + n_endg) * 1024
+                + _nbytes(ramps_t, layout_t["base_color"], cmds["tile_start"],
+                          cmds["tile_end"]))
+    b4_bound = _bound(b4_bytes, 256 * (14 * (n_paint4 - n_grad_b4) + 120 * n_grad_b4
+                                       + 14 * n_endg))
+    b4_ms = _time_ms(lambda: composite_records(*b_args), 20)
+    b4_plain_ms = _time_ms(lambda: composite_records_plain(*b_args), 2)
+    res["B groups"] = (err_b4, b4_ms, b4_plain_ms, b4_bound, None)
+    print(f"kernel B with groups, config 4: {b4_ms:.3f} ms vs plain {b4_plain_ms:.3f} ms, "
+          f"bound {b4_bound[0]:.4f} ms by {b4_bound[1]} ({b4_bytes / 1e6:.1f} MB needed)")
+    del (stages, cmds, counted, out, calls4, g_args, b_args, got_g, got_h, want_g, steps,
+         kinds, segs, rec4, out_k, out_p, img_k, img_p, warm, g_slab, g_rows)
+
+    # G and H through fine_interp over the full grid of a small scene whose
+    # image, too, goes through the interpreter (no image tap).
+    small = _small_clip_scene(jello_tpu_torch)
+    warm = Renderer(device="cuda")
+    warm.render(*small)
+    _, _, (scene_t, layout_t, ramps_t, atlas_t), depth_s = warm._prepare(*small)
+    caps = dict(warm._caps, **frame_routing(layout_t["n_clips"], False, depth_s))
+    stages = geometry(scene_t, layout_t, caps)[0]
+    fi_args = (stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t)
+    full_g, flags_g = kint.fine_interp(*fi_args, caps)
+    full_h, flags_h = kint.fine_interp(*fi_args, dict(caps, _interp_batch=True))
+    with _PlainKernels():
+        full_p, flags_p = kint.fine_interp(*fi_args, caps)
+    torch.cuda.synchronize()
+    err_fg, err_fh = _max_diff(full_g, full_p), _max_diff(full_h, full_g)
+    kinds_s = sorted(set(stages["cmds"]["kind"][stages["cmds"]["tile"]
+                                                < caps["tile_grid_cap"]].tolist()))
+    print(f"fine_interp, full grid of the small scene ({caps['tile_grid_cap']} tiles, record "
+          f"kinds {kinds_s}): G vs plain {err_fg:.3e}, H vs G {err_fh:.3e}, flags "
+          f"{sorted(k for k, v in flags_g.items() if bool(v))}")
+    if (not err_fg <= G_TOL or not err_fh <= H_TOL or kinds_s != [1, 2, 3, 4, 5, 6, 7]
+            or any(bool(flags_g[k]) != bool(flags_p[k]) or bool(flags_h[k]) != bool(flags_p[k])
+                   or bool(flags_p[k]) for k in flags_p)):
+        _fail("fine_interp over the full grid disagrees with its plain version")
+    res["G"] = (max(res["G"][0], err_fg),) + res["G"][1:]
+    res["H"] = (max(res["H"][0], err_fh),) + res["H"][1:]
+    del stages, fi_args, full_g, full_h, full_p, warm
+    torch.cuda.empty_cache()
+
+    # ---- 9. main path ----------------------------------------------------
     counters = {
-        "coverage_area": coverage_rows, "fine_v2": composite_records,
-        "monotone_land": kland.monotone_land, "lockstep_walk": kwalk.lockstep_walk,
-        "expand_euler": kx.expand_euler, "expand_crossings": kx.expand_crossings,
-        "expand_rows": kx.expand_rows, "image_tap": ktap.tap_records,
+        "coverage_area": (coverage_rows, "launches"),
+        "fine_v2": (composite_records, "launches"),
+        "monotone_land": (kland.monotone_land, "launches"),
+        "lockstep_walk": (kwalk.lockstep_walk, "launches"),
+        "expand_euler": (kx.expand_euler, "launches"),
+        "expand_crossings": (kx.expand_crossings, "launches"),
+        "expand_rows": (kx.expand_rows, "launches"),
+        "image_tap": (ktap.tap_records, "launches"),
+        "fine_interp": (kint.interpret_tiles, "launches"),
+        "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
     }
+    # Kernels that only some configs' paths run.
+    optional = {"image_tap": ("config5",), "fine_interp": ("config4",),
+                "fine_interp_b8": ("config4_b8",)}
 
     def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
-    def read_counts(name, images):
-        got = {k: fn.launches for k, fn in counters.items()}
+    def any_launch():
+        return any(getattr(fn, attr) for fn, attr in counters.values())
+
+    def read_counts(name):
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         print(f"{name} main path launches: {got}")
-        if min(v for k, v in got.items() if images or k != "image_tap") < 1:
+        if min(v for k, v in got.items() if name in optional.get(k, (name,))) < 1:
             _fail(f"{name}: a kernel of the main path was never launched")
         return got
 
@@ -699,26 +931,45 @@ def main():
     print(f"config 2 scene built in {time.perf_counter() - t:.1f} s")
     scene1, params1 = config1()
     scenes = {"config1": (scene1, params1), "config3": (scene3, params3),
-              "config2": (scene2, params2), "config5": (scene5, params5)}
+              "config2": (scene2, params2), "config5": (scene5, params5),
+              "config4": (scene4, params4)}
     r = Renderer(device="cuda")
-    frames, surfaces, launches = {}, {}, {k: 0 for k in counters}
+    frames, surfaces, launches = {}, {}, {}
     for name, (scene, params) in scenes.items():
         zero_counts()
         img = r.render(scene, params)
         frames[name] = (img, dict(r.last_flags), dict(r.last_stats))
-        if name in ("config3", "config5"):
+        if name in ("config3", "config5", "config4"):
             surfaces[name] = r.render_surface(scene, params)
-        got = read_counts(name, images=name == "config5")
-        launches = {k: launches[k] + got[k] for k in counters}
+        launches[name] = read_counts(name)
         if name != "config1":
-            print(f"{name} frame stats: {frames[name][2]}")
+            print(f"{name} frame stats: {frames[name][2]}; frames run again for: "
+                  f"{r.last_retries}")
+    # Config 4 once more with the reference's own switch for the 8-tile
+    # interpreter: kernel H in G's place, the same frame.
+    os.environ["JELLO_INTERP_BATCH"] = "1"
+    try:
+        zero_counts()
+        img_b8 = r.render(scene4, params4)
+        flags_b8 = dict(r.last_flags)
+        launches["config4_b8"] = read_counts("config4_b8")
+    finally:
+        del os.environ["JELLO_INTERP_BATCH"]
+    err_b8 = float(np.abs(img_b8 - frames["config4"][0]).max())
+    print(f"config4 under JELLO_INTERP_BATCH=1: kernel G launched "
+          f"{launches['config4_b8']['fine_interp']} times, H "
+          f"{launches['config4_b8']['fine_interp_b8']}; max|frame diff| vs the G frame "
+          f"{err_b8:.3e}; flags raised {[k for k, v in flags_b8.items() if v]}")
+    if (not err_b8 <= H_TOL or any(flags_b8.values())
+            or launches["config4_b8"]["fine_interp"] != 0):
+        _fail("config 4 through kernel H differs from the frame through kernel G")
 
     refs = {}
     cpu = Renderer(device="cpu")
     for name, (scene, params) in scenes.items():
         img, flags, _ = frames[name]
         t = time.perf_counter()
-        if name == "config5":
+        if name in ("config5", "config4"):
             # This script's own reference call: the plain version of every
             # kernel, on CUDA tensors.
             zero_counts()
@@ -726,8 +977,8 @@ def main():
                 plain_r = Renderer(device="cuda")
                 ref = plain_r.render(scene, params)
             torch.cuda.synchronize()
-            if any(fn.launches for fn in counters.values()) or any(plain_r.last_flags.values()):
-                _fail("config5: the plain reference launched a kernel or raised a flag")
+            if any_launch() or any(plain_r.last_flags.values()):
+                _fail(f"{name}: the plain reference launched a kernel or raised a flag")
             how = "the plain versions on CUDA tensors"
         else:
             ref = cpu.render(scene, params)
@@ -780,10 +1031,15 @@ def main():
     if loaded:
         _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
-    # ---- 9. results ------------------------------------------------------
-    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms):
+    # ---- 10. results -----------------------------------------------------
+    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, counter=None,
+              configs=None):
+        """One kernel's line; its launches are the main path's, summed over
+        `configs` (default: every config)."""
+        n = sum(got[counter or name] for cfg, got in launches.items()
+                if configs is None or cfg in configs)
         return {"name": name, "route": "cuda", "source": f"jello_tpu_torch/csrc/{src}",
-                "replaces": f"jello_tpu/tpu/{replaces}", "launches": launches[name],
+                "replaces": f"jello_tpu/tpu/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
 
@@ -791,12 +1047,17 @@ def main():
         entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",
               max(err_rows, err_a, err_a5), a_ms, a_plain_ms, a_bound, None),
         entry("fine_v2", "fine_v2.cu", "fine_v2.py:564", *res["B"]),
+        # Kernel B again, at config 4's records: its clip-group pass.
+        entry("fine_v2_groups", "fine_v2.cu", "fine_v2.py:564", *res["B groups"],
+              counter="fine_v2", configs=("config4", "config4_b8")),
         entry("monotone_land", "land.cu", "land_pallas.py:171", *res["C"]),
         entry("lockstep_walk", "lockstep.cu", "lockstep_pallas.py:198", *res["D"]),
         entry("expand_euler", "expand.cu", "expand_pallas.py:248", *res["E"]),
         entry("expand_crossings", "expand.cu", "expand_pallas.py:248", *res["E'"]),
         entry("expand_rows", "expand.cu", "expand_pallas.py:248", *res["E''"]),
         entry("image_tap", "image_tap.cu", "image_tap.py:248", *res["F"]),
+        entry("fine_interp", "fine_interp.cu", "fine_pallas.py:567", *res["G"]),
+        entry("fine_interp_b8", "fine_interp.cu", "fine_pallas.py:1079", *res["H"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

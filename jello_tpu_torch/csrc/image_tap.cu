@@ -36,27 +36,19 @@
 // of record plus at most 16 texels per pixel that hit L2, so it is
 // bound by the bytes written to device memory. Built with -fmad=false:
 // ux = m0 gx + m2 gy + xl must round as the reference's separate
-// multiplies and adds do, or a texel index flips at a boundary.
+// multiplies and adds do, or a texel index flips at a boundary. The tap
+// itself (corners, extent, gather) is paint.cuh's, shared with the
+// interpreter (fine_interp.cu).
 
 #include <cuda_runtime.h>
 
+#include "paint.cuh"
+
 namespace {
 
-constexpr int kPixels = 256;
-constexpr int CMD_IMAGE = 5;
-constexpr int REGH = 64;
-constexpr int REGW = 256;
+using namespace jello;
+
 constexpr int MAX_WIN = 12;
-
-__device__ __forceinline__ int clamp_i(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// floor(a / b) for b > 0 (Python's //).
-__device__ __forceinline__ int floordiv_i(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
 
 __global__ void __launch_bounds__(kPixels)
 image_tap_kernel(const int* __restrict__ rec, const float* __restrict__ atlas,
@@ -69,88 +61,28 @@ image_tap_kernel(const int* __restrict__ rec, const float* __restrict__ atlas,
   if (p < 16) w[p] = rec[(size_t)i * 16 + p];
   __syncthreads();
 
-  const float* f = reinterpret_cast<const float*>(w);
   const int t = w[3];
   const bool valid = w[0] == CMD_IMAGE && t >= 0 && t < grid;
   const int tc = clamp_i(t, 0, grid - 1);
   const float gx = (float)(p & 15) + (float)((tc % wit) * 16);
   const float gy = (float)(p >> 4) + (float)((tc / wit) * 16);
 
-  const float m0 = f[6], m1 = f[7], m2 = f[8], m3 = f[9];
-  const float xl = f[10], yl = f[11];
-  const unsigned axy = (unsigned)w[12];
-  const int ax = (int)(axy & 0xFFFFu);
-  const int ay = (int)(axy >> 16);
-  const unsigned wh = (unsigned)w[13];
-  const int iwi = (int)(wh >> 16);
-  const int ihi = (int)(wh & 0xFFFFu);
-  const float ux = m0 * gx + m2 * gy + xl;
-  const float uy = m1 * gx + m3 * gy + yl;
-  const bool inb = ux < (float)iwi && uy < (float)ihi && ux >= 0.0f && uy >= 0.0f;
-  const float x0f = floorf(ux);
-  const float y0f = floorf(uy);
-  const float fx = ux - x0f;
-  const float fy = uy - y0f;
-  const int xmax = max(iwi - 1, 0);
-  const int ymax = max(ihi - 1, 0);
-  // Atlas-absolute clamped corners.
-  const int c0 = ax + clamp_i((int)x0f, 0, xmax);
-  const int c1 = ax + clamp_i((int)ceilf(ux), 0, xmax);
-  const int r0 = ay + clamp_i((int)y0f, 0, ymax);
-  const int r1 = ay + clamp_i((int)ceilf(uy), 0, ymax);
-
-  // The record's corner extent over all 256 pixels: min of the floor
-  // corners, max of the ceil corners.
-  const unsigned full = 0xFFFFFFFFu;
-  const int wmin_x = __reduce_min_sync(full, c0);
-  const int wmin_y = __reduce_min_sync(full, r0);
-  const int wmax_x = __reduce_max_sync(full, c1);
-  const int wmax_y = __reduce_max_sync(full, r1);
-  if ((p & 31) == 0) {
-    red[0][p >> 5] = wmin_x;
-    red[1][p >> 5] = wmin_y;
-    red[2][p >> 5] = wmax_x;
-    red[3][p >> 5] = wmax_y;
-  }
-  __syncthreads();
-  int rx0 = red[0][0], ry0 = red[1][0], rx1 = red[2][0], ry1 = red[3][0];
-  for (int k = 1; k < kPixels / 32; ++k) {
-    rx0 = min(rx0, red[0][k]);
-    ry0 = min(ry0, red[1][k]);
-    rx1 = max(rx1, red[2][k]);
-    ry1 = max(ry1, red[3][k]);
-  }
-  const int x_lo = clamp_i(floordiv_i(rx0, 128) * 128, 0, AWp - REGW);
-  const int y_lo = clamp_i(floordiv_i(ry0, 8) * 8, 0, AHp - REGH);
+  const Tap tap = image_tap_corners(w, gx, gy);
+  // The record's corner extent over all 256 pixels, and the origin of its
+  // first region window.
+  int rx0, ry0, rx1, ry1, x_lo, y_lo;
+  image_tap_extent(tap, red, &rx0, &ry0, &rx1, &ry1);
+  image_region_origin(rx0, ry0, AHp, AWp, &x_lo, &y_lo);
   const int nx = min(max(rx1 - x_lo, 0) / REGW + 1, 255);
   const int ny = min(max(ry1 - y_lo, 0) / REGH + 1, 255);
   const bool region_bad = ny * nx > MAX_WIN;
   if (p == 0 && region_bad && valid) atomicOr(region_flag, 1);
 
   float* o = out + (size_t)i * 4 * kPixels + p;
-  if (!(inb && valid && !region_bad)) {
-    o[0] = 0.0f;
-    o[kPixels] = 0.0f;
-    o[2 * kPixels] = 0.0f;
-    o[3 * kPixels] = 0.0f;
-    return;
-  }
-  // A live record's corners lie inside its image, which the packer
-  // placed inside the atlas; the clamp only keeps a malformed record's
-  // reads in bounds.
-  const int rr0 = clamp_i(r0, 0, AHp - 1), rr1 = clamp_i(r1, 0, AHp - 1);
-  const int cc0 = clamp_i(c0, 0, AWp - 1), cc1 = clamp_i(c1, 0, AWp - 1);
-  const size_t plane = (size_t)AHp * AWp;
-  const size_t i00 = (size_t)rr0 * AWp + cc0, i01 = (size_t)rr0 * AWp + cc1;
-  const size_t i10 = (size_t)rr1 * AWp + cc0, i11 = (size_t)rr1 * AWp + cc1;
-  const float wx0 = 1.0f - fx, wy0 = 1.0f - fy;
+  float fg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (tap.inb && valid && !region_bad) image_tap_gather(atlas, AHp, AWp, tap, fg);
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch) {
-    const float* a = atlas + ch * plane;
-    const float top = __ldg(a + i00) * wx0 + __ldg(a + i01) * fx;
-    const float bot = __ldg(a + i10) * wx0 + __ldg(a + i11) * fx;
-    o[ch * kPixels] = top * wy0 + bot * fy;
-  }
+  for (int ch = 0; ch < 4; ++ch) o[ch * kPixels] = fg[ch];
 }
 
 }  // namespace

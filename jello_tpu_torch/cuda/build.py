@@ -63,6 +63,12 @@ SIGNATURES = {
     # tap_rec [IRC, 16] i32, atlas [4, AHp, AWp] f32, out [IRC, 1024] f32,
     # region flag [1] i32 (zeroed), IRC, GRID, wit, AHp, AWp, stream
     "jello_image_tap": [P, P, P, P, I, I, I, I, I, P],
+    # counts [n] i32, tile_ids [n] i32, base [4] f32, slab [n, MC, 16] i32,
+    # rows [R, 256] f32, stops [NR, W] f32, atlas [4, AHp, AWp] f32 or null,
+    # stack scratch [n, BD, 4, 256] f32 or null, out [n, 4, 256] f32, ovf
+    # [n] i32, n, MC, R, NR, W, wit, BD, AHp, AWp, batch (0 kernel G, 1
+    # kernel H), stream
+    "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
 }
 
 

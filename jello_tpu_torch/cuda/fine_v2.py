@@ -4,7 +4,8 @@ Counterparts in `jello_tpu`:
   - `tpu/fine_pallas.py::build_records`: the 16-word record packing;
   - `tpu/fine_v2.py::fine_v2`, standalone call (clip-free; with the
     image-tap stage inside when the frame has an atlas): coverage,
-    records, image foregrounds, compositing;
+    records, image foregrounds, compositing; `cuda/fine_hybrid.py` calls
+    `composite_records` on a frame with clip layers;
   - `tpu/fine_v2.py::assemble_compact`: tiles -> image.
 
 Painter's-order src-over compositing, v' = v (1 - fa cov) + fg cov, is
@@ -13,6 +14,16 @@ kernel B for CUDA tensors (one CTA per tile walks the tile's records in
 order) and takes `composite_records_plain` only for CPU tensors: a
 vectorized Hillis-Steele segmented scan of the (A, B) affine pairs over
 the whole record stream, segments keyed on the tile column.
+
+A depth-1 clip group whose blend is src-over (any alpha) is itself an
+affine map of the background, so it stays here: the group's records are
+composed first over transparent black into (A_g, B_g), and its EndClip
+applies v' = (1 - covc (1 - A_g)) v + covc B_g with covc the clip path's
+coverage times the group alpha (`tpu/fine_v2.py:192-214,401-460`).
+Record flags (word 4): bit 0 even-odd, bit 1 a record of a legacy tile
+(the identity; the interpreter renders that tile), bit 3 a non-affine
+blend, bit 4 a group's BeginClip and members, bit 5 its EndClip, bits
+8+ the group id (a record outside a group has an id of its own).
 
 Output contract: compact [PC, 4, 256] f32, every record's
 un-premultiplied inclusive composite at its own index, and tile2rank
@@ -50,14 +61,9 @@ from ..pipeline.coarse import (
     CMD_SWEEP_GRAD,
 )
 from ..pipeline.image_tap import image_tap
-from ..pipeline.drawobjs import (
-    RAD_GRAD_KIND_CIRCULAR,
-    RAD_GRAD_KIND_FOCAL_ON_CIRCLE,
-    RAD_GRAD_KIND_STRIP,
-    RAD_GRAD_SWAPPED,
-)
 from ..pipeline.ops import F32, I32
-from ..pmath import rdiv, sqrt
+from ..pipeline.paint import gradient_fg
+from ..pmath import rdiv
 from .build import check, check_tensor, kernels, stream_of
 from .coverage import compute_area_rows
 
@@ -121,118 +127,6 @@ def tile_last_record(tile_start, tile_end):
     return torch.where(tile_end > tile_start, tile_end - 1, -1).to(I32)
 
 
-def _extend(t, mode):
-    pad = torch.clamp(t, 0.0, 1.0)
-    rep = t - torch.floor(t)
-    refl = torch.abs(t - 2.0 * torch.round(0.5 * t))
-    return torch.where(mode == 0, pad, torch.where(mode == 1, rep, refl))
-
-
-def _eotf(x):
-    hi = torch.exp(2.4 * torch.log(torch.clamp(x + 0.055, min=1e-6) * (1.0 / 1.055)))
-    return torch.where(x <= 0.04045, x * (1.0 / 12.92), hi)
-
-
-def _gradient_fg(rec, stops, wit, is_lin, is_rad, is_grad):
-    """Premultiplied gradient paint per record and pixel: 4 x [PC, 256]
-    (fine_v2.py:216-339)."""
-    dev = rec.device
-    fr = rec.view(F32)
-
-    def fu(k):
-        return fr[:, k:k + 1]
-
-    def iu(k):
-        return rec[:, k:k + 1]
-
-    one = torch.ones((), dtype=F32, device=dev)
-    zero = torch.zeros((), dtype=F32, device=dev)
-    p = ops.iota(256, dev)
-    tile = iu(3)
-    gx = ((tile % wit) * 16).to(F32) + (p % 16).to(F32)[None, :]
-    gy = (torch.div(tile, wit, rounding_mode="floor") * 16).to(F32) + (p // 16).to(F32)[None, :]
-
-    t_lin = fu(6) * gx + fu(7) * gy + fu(8)
-
-    m0, m1, m2, m3 = fu(6), fu(7), fu(8), fu(9)
-    xl, yl = fu(10), fu(11)
-    focal_x = fu(12)
-    radius = fu(13)
-    kf = iu(14)
-    rkind = kf & 0x7
-    rflags = kf >> 3
-    lxr = m0 * gx + m2 * gy + xl
-    lyr = m1 * gx + m3 * gy + yl
-    xx = lxr * lxr
-    yy = lyr * lyr
-    is_strip = rkind == RAD_GRAD_KIND_STRIP
-    is_circ = rkind == RAD_GRAD_KIND_CIRCULAR
-    is_foc = rkind == RAD_GRAD_KIND_FOCAL_ON_CIRCLE
-    is_swapped = (rflags & RAD_GRAD_SWAPPED) != 0
-    r1r = torch.where(is_circ, zero, rdiv(1.0, torch.where(radius == 0, one, radius)))
-    less_scale = torch.where(is_swapped | ((1.0 - focal_x) < 0.0), -one, one)
-    t_sign = torch.sign(1.0 - focal_x)
-    a_s = radius - yy
-    t_strip = sqrt(torch.clamp(a_s, min=0.0)) + lxr
-    v_strip = (a_s >= 0.0).to(F32)
-    t_foc = (xx + yy) / torch.where(lxr == 0.0, one, lxr)
-    v_foc = ((t_foc >= 0.0) & (lxr != 0.0)).to(F32)
-    t_big = sqrt(xx + yy) - lxr * r1r
-    a_c = xx - yy
-    t_cone = less_scale * sqrt(torch.clamp(a_c, min=0.0)) - lxr * r1r
-    v_cone = ((a_c >= 0.0) & (t_cone >= 0.0)).to(F32)
-    big = radius > 1.0
-    t_rad = torch.where(is_strip, t_strip, torch.where(is_foc, t_foc,
-                                                       torch.where(big, t_big, t_cone)))
-    v_rad = torch.where(is_strip, v_strip, torch.where(is_foc, v_foc,
-                                                       torch.where(big, one, v_cone)))
-    t_rad = focal_x + t_sign * t_rad
-
-    # Sweep: atan polynomial (fine.wgsl:1035-1067) with its NaN scrub.
-    t0s, t1s = fu(12), fu(13)
-    xabs = torch.abs(lxr)
-    yabs = torch.abs(lyr)
-    mx = torch.maximum(xabs, yabs)
-    slope = torch.minimum(xabs, yabs) / torch.where(mx == 0, one, mx)
-    s2 = slope * slope
-    phi = slope * (
-        0.15912117063999176025390625
-        + s2 * (-5.185396969318389892578125e-2
-                + s2 * (2.476101927459239959716796875e-2
-                        + s2 * (-7.0547382347285747528076171875e-3))))
-    phi = torch.where(xabs < yabs, 0.25 - phi, phi)
-    phi = torch.where(lxr < 0.0, 0.5 - phi, phi)
-    phi = torch.where(lyr < 0.0, 1.0 - phi, phi)
-    phi = torch.where(phi != phi, zero, phi)
-    t_sweep = (phi - t0s) / torch.where(t1s == t0s, one, t1s - t0s)
-
-    t = torch.where(is_lin, t_lin, torch.where(is_rad, t_rad, t_sweep))
-    t = _extend(t, iu(5))
-    t = torch.where(is_rad & is_swapped, 1.0 - t, t)
-    vmask = torch.where(is_rad, v_rad, one)
-
-    NR, W = stops.shape
-    S = (W - 1) // 5
-    ramp = rec[:, 15]
-    ok = is_grad[:, 0] & (ramp >= 0) & (ramp < NR)
-    rows = torch.where(ok[:, None], ops.gather_guarded(stops, ramp), zero)
-
-    def stop_p(k):
-        return rows[:, 1 + k:2 + k]
-
-    def stop_c(k, ch):
-        return rows[:, 1 + S + 4 * k + ch:2 + S + 4 * k + ch]
-
-    acc = [stop_c(0, ch).expand(-1, 256) for ch in range(4)]
-    for k in range(S - 1):
-        dk = torch.clamp(stop_p(k + 1) - stop_p(k), min=1e-9)
-        u = torch.clamp((t - stop_p(k)) / dk, 0.0, 1.0)
-        for ch in range(4):
-            acc[ch] = acc[ch] + (stop_c(k + 1, ch) - stop_c(k, ch)) * u
-    ga = acc[3] * vmask
-    return [_eotf(acc[0]) * ga, _eotf(acc[1]) * ga, _eotf(acc[2]) * ga, ga]
-
-
 def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None):
     """Plain version of kernel B (same inputs and output as
     `composite_records`). The scan is keyed on the records' tile column;
@@ -258,7 +152,7 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     c = torch.where(rec[:, 1:2] >= 0, c, torch.ones_like(c))
     c = c * live.to(F32)
 
-    gfg = _gradient_fg(rec, stops, wit, is_lin, is_rad, is_grad)
+    gfg = gradient_fg(rec, stops, rec[:, 3:4], wit)
     zero = torch.zeros((), dtype=F32, device=rec.device)
     # Records that paint nothing are the identity, whatever their words.
     fg = [torch.where(live, torch.where(is_color, fr[:, 5 + ch:6 + ch], gfg[ch]), zero)
@@ -272,15 +166,48 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
         fg = [torch.where(live & is_img, rows[:, 256 * ch:256 * (ch + 1)], fg[ch])
               for ch in range(4)]
 
-    # (A, B) affine pairs; Hillis-Steele inclusive scan within tiles.
+    # (A, B) affine pairs of the records.
     A = 1.0 - fg[3] * c
     B = torch.stack([f * c for f in fg], dim=1)  # [PC, 4, 256]
-    k = 1
-    while k < PC:
-        same = (tile[k:] == tile[:-k])[:, None]
-        B = torch.cat([B[:k], B[k:] + torch.where(same[:, None], A[k:, None] * B[:-k], zero)])
-        A = torch.cat([A[:k], torch.where(same, A[k:] * A[:-k], A[k:])])
-        k *= 2
+
+    def scan(A, B, key):
+        """Hillis-Steele inclusive scan of the affine pairs within runs of
+        equal keys (runs are contiguous, so the first distance with no
+        equal pair ends it)."""
+        k = 1
+        while k < PC:
+            same = (key[k:] == key[:-k])[:, None]
+            if not bool(same.any()):
+                break
+            B = torch.cat([B[:k], B[k:] + torch.where(same[:, None], A[k:, None] * B[:-k],
+                                                       zero)])
+            A = torch.cat([A[:k], torch.where(same, A[k:] * A[:-k], A[k:])])
+            k *= 2
+        return A, B
+
+    # Pass 1, clip groups: a group's records (flag bit 4 its BeginClip and
+    # members, bit 5 its EndClip) share the id in bits 8+, so the scan's
+    # value at the EndClip is the group's composite (A_g, B_g) over
+    # transparent black. Every other record is a run of its own.
+    ident2 = (flags & 16) != 0
+    end_t = (flags & 32) != 0
+    if bool((ident2 | end_t).any()):
+        seg = ops.shr(rec[:, 4], 8).long()
+        key = torch.where((ident2 | end_t)[:, 0], 2 * seg,
+                          2 * torch.arange(PC, device=rec.device) + 1)
+        A, B = scan(A, B, key)
+        # The EndClip composes the group over the background as
+        # (1 - covc (1 - A_g), covc B_g), covc its clip row by the nonzero
+        # rule, or, rowless, full when its tile backdrop (word 7) is not 0,
+        # times the group alpha; Begin and members become the identity.
+        covc = torch.where(rec[:, 1:2] >= 0, nz,
+                           torch.clamp(torch.abs(rec[:, 7:8].to(F32)), max=1.0)) * fr[:, 6:7]
+        A = torch.where(end_t, 1.0 - covc * (1.0 - A), A)
+        A = torch.where(ident2, torch.ones_like(A), A)
+        B = torch.where(end_t[:, None], covc[:, None] * B, B)
+        B = torch.where(ident2[:, None], zero, B)
+    # Pass 2: compositing within tiles.
+    A, B = scan(A, B, tile)
     v = B + A[:, None] * base.to(F32)[None, :, None]
     inv_a = rdiv(1.0, torch.clamp(v[:, 3], min=1e-6))
     return torch.cat([v[:, :3] * inv_a[:, None], v[:, 3:]], dim=1)
@@ -334,7 +261,11 @@ def fine_v2(cmds, counted, ramps, atlas, layout, caps):
     Returns ((compact, tile2rank), flags)."""
     area, area_row_rec, rows_overflow = compute_area_rows(cmds, counted, caps)
     flags = {"area_rows_overflow": rows_overflow}
-    rec = build_records(dict(cmds, area_row=area_row_rec), caps)
+    # No group metadata on this path: every record is its own pass-1
+    # segment (ids from 1 in flag bits 8+, as `tpu/fine_v2.py:599-609`).
+    ids = ops.iota(cmds["flags"].shape[0], cmds["flags"].device) + 1
+    rec = build_records(dict(cmds, area_row=area_row_rec, flags=cmds["flags"] | (ids << 8)),
+                        caps)
     fg_tab = None
     if caps.get("_image_tap") and atlas is not None:
         fg_tab, flags["image_region_overflow"], flags["img_recs_overflow"] = image_tap(

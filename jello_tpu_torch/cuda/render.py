@@ -10,18 +10,24 @@ runs again (the protocol of `tpu/render.py:445-461`). Overflow flags
 grow the implicated capacities (`grow_caps`) and retry. Flags are read
 on every frame.
 
-The port covers clip-free area-AA frames: fills and strokes with solid,
-gradient and image paints. Clip layers and MSAA raise
-NotImplementedError naming the later slice, and so does a frame whose
-image minifies past the tap's region windows (jello_tpu reroutes it to
-its reference fine, which is not ported).
+The port covers area-AA frames: fills and strokes with solid, gradient
+and image paints, clip layers and blend groups. A clip-free frame takes
+the record-stream fine stage (`fine_v2`) and the dense coarse branch, a
+frame with clip layers the hybrid one (`fine_hybrid`: kernel B plus the
+per-tile interpreter). MSAA raises NotImplementedError naming the later
+slice, and so does a frame whose image minifies past the region windows
+of the tap or of the interpreter (jello_tpu reroutes it to its reference
+fine, which is not ported).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ..encoding.draw import DRAW_TAG_BEGIN_CLIP, DRAW_TAG_END_CLIP
 from ..gfx import premul32
 from ..pipeline.gradient import stops_table_or_empty
 from ..renderer.estimate import (
@@ -35,6 +41,7 @@ from ..pipeline.render import render_frame
 from ..renderer.atlas import build_image_atlas
 from ..renderer.params import AaConfig, RenderParams
 from ..renderer.resolve import Resolver
+from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
 
 
@@ -79,15 +86,42 @@ def upload(scene_u32, ld, ramps, caps, device):
     return scene.to(device), layout, ramps_t.to(device), dict(caps)
 
 
-def check_supported(enc, params: RenderParams) -> None:
-    """Refuse scenes outside the ported slice (host-side, from the
-    encoding and the params)."""
+def check_supported(params: RenderParams) -> None:
+    """Refuse frames outside the ported slices (host-side, from the
+    params)."""
     if params.antialiasing_method != AaConfig.AREA:
         raise NotImplementedError(
             "MSAA is not ported yet: it arrives with ROADMAP slice 5")
-    if enc.n_clips:
-        raise NotImplementedError(
-            "clip layers are not ported yet: they arrive with ROADMAP slice 6")
+
+
+def clip_nesting_depth(scene_u32, layout) -> int:
+    """The deepest nesting of the resolved scene's clip layers (host-side,
+    from its draw tags): the trip count of `clips.clip_leaf_vectorized`."""
+    tags = np.asarray(scene_u32[layout.draw_tag_base:
+                                layout.draw_tag_base + layout.n_draw_objects])
+    delta = (tags == DRAW_TAG_BEGIN_CLIP).astype(np.int64) - (tags == DRAW_TAG_END_CLIP)
+    return int(np.cumsum(delta).max(initial=0))
+
+
+def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int) -> dict:
+    """jello_tpu's routing on its accelerator (`tpu/render.py:341-365`),
+    set per frame and never kept in the class that calibrate_caps and
+    grow_caps see: the streaming expansions (kernels C, D, E) always; for
+    a scene with an atlas the image tap (kernel F); for a clip-free frame
+    the dense coarse branch, and with it the record-stream fine stage
+    alone (a frame with clip layers takes `fine_hybrid`); the 8-tile
+    interpreter (kernel H) under JELLO_INTERP_BATCH=1, the reference's own
+    switch. `clip_depth_cap` is the scene's own nesting depth."""
+    routing = {"_expand_pallas": True}
+    if has_atlas:
+        routing["_image_tap"] = True
+    if n_clips == 0:
+        routing["_coarse_dense"] = True
+    else:
+        routing["clip_depth_cap"] = max(int(clip_depth), 1)
+        if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
+            routing["_interp_batch"] = True
+    return routing
 
 
 def present(img, premul: bool = True, srgb: bool = True):
@@ -127,6 +161,9 @@ class Renderer:
         self._frame = None
         self.last_flags: dict = {}
         self.last_stats: dict = {}
+        # What made each frame of the last render run again: the raised
+        # flags of a grown class, or ["calibrated"].
+        self.last_retries: list = []
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
@@ -150,7 +187,7 @@ class Renderer:
             if self._frame is not None and self._frame[0] == key:
                 return self._frame[2]
         enc = scene.encoding if hasattr(scene, "encoding") else scene
-        check_supported(enc, params)
+        check_supported(params)
         layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
         ld = build_layout_dict(layout, params)
         est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
@@ -164,7 +201,7 @@ class Renderer:
             self._est_key = est_key
         inputs = upload(scene_u32, ld, stops_table_or_empty(ramps), {}, self.device)[:3]
         inputs += (upload_atlas(build_image_atlas(images), self.device),)
-        frame = (est_key, ld, inputs)
+        frame = (est_key, ld, inputs, clip_nesting_depth(scene_u32, layout))
         if key is not None:
             # Hold the scene so its id() stays unique while cached.
             self._frame = (key, scene, frame)
@@ -172,19 +209,16 @@ class Renderer:
 
     def render_device(self, scene, params: RenderParams, max_retries: int = 4):
         """Render and return ((compact, tile2rank) on the device, ld)."""
-        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t) = self._prepare(scene, params)
-        # jello_tpu's routing on its accelerator (`tpu/render.py:341-365`),
-        # set per frame and never kept in the class that calibrate_caps and
-        # grow_caps see: the streaming expansions (kernels C, D, E) and,
-        # for a scene with an atlas, the image tap (kernel F) inside fine.
-        routing = {"_expand_pallas": True}
-        if atlas_t is not None:
-            routing["_image_tap"] = True
+        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t), clip_depth = self._prepare(
+            scene, params)
+        routing = frame_routing(layout_t["n_clips"], atlas_t is not None, clip_depth)
+        fine_impl = fine_v2 if routing.get("_coarse_dense") else fine_hybrid
         calibrated = self._calib_key == est_key
         flags = {}
+        self.last_retries = []
         for _ in range(max_retries + 2):
             fine_out, flags_t, stats_t = render_frame(
-                scene_t, layout_t, ramps_t, atlas_t, dict(self._caps, **routing), fine_v2)
+                scene_t, layout_t, ramps_t, atlas_t, dict(self._caps, **routing), fine_impl)
             fkeys, skeys = sorted(flags_t), sorted(stats_t)
             vals = torch.stack([flags_t[k].to(torch.int64).reshape(()) for k in fkeys]
                                + [stats_t[k].to(torch.int64).reshape(()) for k in skeys]).cpu()
@@ -195,10 +229,11 @@ class Renderer:
                 # No capacity to grow: jello_tpu renders such a frame
                 # through its reference fine (`tpu/render.py:428-434`).
                 raise NotImplementedError(
-                    "an image draw minifies beyond the image tap's region windows: the "
+                    "an image draw minifies beyond the fine kernels' region windows: the "
                     "frame needs the reference-fine fallback, which is not ported yet "
                     "(ROADMAP queue 1 item 18)")
             if any(flags.values()):
+                self.last_retries.append(sorted(k for k, v in flags.items() if v))
                 self._caps = grow_caps(self._caps, flags)
                 continue
             if not calibrated:
@@ -206,6 +241,7 @@ class Renderer:
                 self._calib_key = est_key
                 new_caps = calibrate_caps(self._caps, stats)
                 if caps_shrank(new_caps, self._caps):
+                    self.last_retries.append(["calibrated"])
                     self._caps = new_caps
                     continue
             break

@@ -3,11 +3,13 @@
 Counterpart of `jello_tpu/pipeline/coarse.py`: `binning_bboxes` and
 `build_commands` with its dense branch (`coarse.py:205`, the
 clip-free frame: every draw owns its slot rect, so the slot space is
-the (draw, tile) pair space) and its general pair expansion (taken only
-when a `tiles_overflow` retry has grown `tiles_cap` past `pair_cap`).
-A vectorized include filter and one stable sort by tile id, which
-keeps draw order within each tile, produce the command stream; per-tile
-command ranges come from its run boundaries.
+the (draw, tile) pair space) and its general pair expansion (a frame
+with clips, where an EndClip shares its BeginClip's slots, or one whose
+`tiles_overflow` retry has grown `tiles_cap` past `pair_cap`). A
+vectorized include filter and one stable sort by tile id, which keeps
+draw order within each tile, produce the command stream; per-tile
+command ranges come from its run boundaries. `classify_legacy_tiles`
+marks the tiles whose tape the record-stream kernel cannot express.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..encoding.draw import (
 
 from . import ops
 from .flatten import expand_by_counts
-from .ops import F32, I32
+from .ops import I32
 from .tiling import TILE_SCALE
 
 BIG = 1e9
@@ -47,8 +49,8 @@ def binning_bboxes(dm, path_bbox, clip_bboxes):
     """Intersected draw bboxes."""
     clip_idx = dm["clip_idx"]
     cb = ops.gather_guarded(clip_bboxes, torch.clamp(clip_idx - 1, min=0))
-    inf = torch.tensor([-BIG, -BIG, BIG, BIG], dtype=F32, device=path_bbox.device)
-    cb = torch.where((clip_idx > 0)[:, None], cb, inf[None, :])
+    cb = torch.where((clip_idx > 0)[:, None], cb,
+                     ops.unbounded_bboxes(1, path_bbox.device, BIG))
     pb = ops.gather_guarded(path_bbox, dm["path_idx"])
     return torch.stack([
         torch.maximum(cb[:, 0], pb[:, 0]),
@@ -112,9 +114,9 @@ def build_commands(layout, dm, tag, dtab, draw_bbox, paths, counted, path_draw_f
         _draw_kind(tag), prow_p[:, 5], is_blend_d.to(I32), legacy_blend_d.to(I32),
     ], dim=1)
 
-    # jello_tpu also requires a clip-free frame here (`_coarse_dense`,
-    # tpu/render.py:342-346); the port renders only clip-free frames.
-    if PC == caps["tiles_cap"]:
+    # Dense only on a clip-free frame (`_coarse_dense`, set per frame by
+    # the renderer): an EndClip owns no slot rect of its own.
+    if caps.get("_coarse_dense") and PC == caps["tiles_cap"]:
         rec = paths["tile_draw"]
         valid = paths["tile_valid"]
         pair_total = paths["n_tiles"]
@@ -175,3 +177,37 @@ def build_commands(layout, dm, tag, dtab, draw_bbox, paths, counted, path_draw_f
     cmds["max_cmds"] = (cmds["tile_end"] - cmds["tile_start"]).max()
     cmds["overflow"] = (pair_total > PC) | (n_cmds_true > CC)
     return cmds
+
+
+def classify_legacy_tiles(cmds, caps):
+    """Mark the tiles that need the per-tile interpreter (kernels G, H).
+
+    A tile is legacy iff its tape holds something the record-stream
+    kernel's affine formulation cannot express: an image paint (unless
+    the image tap feeds kernel B, `_image_tap` in caps), a non-affine
+    blend group (flag bit 3 on its Begin or EndClip) or a nested clip
+    (within-tile clip depth >= 2). Depth-1 groups whose blend is
+    src-over stay on kernel B, which composes the group first.
+
+    Returns (lt_flag [GRID] i32 0/1, d_excl [PC] i32 within-tile clip
+    depth before each record, is_begin, is_end [PC] bool)."""
+    GRID = caps["tile_grid_cap"]
+    tile = cmds["tile"]
+    kind = cmds["kind"]
+    in_grid = tile < GRID
+    is_begin = kind == CMD_BEGIN_CLIP
+    is_end = kind == CMD_END_CLIP
+    is_blend = (cmds["flags"] & 8) != 0
+
+    # Global exclusive cumsum of (begin - end), rebased at the tile's
+    # first record.
+    g = ops.exclusive_cumsum(is_begin.to(I32) - is_end.to(I32))
+    start_of_tile = ops.gather_guarded(cmds["tile_start"], torch.clamp(tile, 0, GRID - 1))
+    d_excl = torch.where(in_grid, g - ops.gather_guarded(g, start_of_tile), 0)
+
+    bad = (is_begin & (d_excl >= 1)) | (is_blend & (is_begin | is_end))
+    if not caps.get("_image_tap"):
+        bad = bad | (kind == CMD_IMAGE)
+    lt = ops.scatter_max(torch.zeros(GRID + 1, dtype=I32, device=tile.device),
+                         torch.where(in_grid, tile, GRID), (bad & in_grid).to(I32))
+    return lt[:GRID], d_excl, is_begin, is_end

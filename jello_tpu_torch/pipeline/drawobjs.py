@@ -5,8 +5,9 @@ Counterpart of `jello_tpu/pipeline/drawobjs.py` (`draw_monoid_scan`,
 draw tags (path_idx, clip_idx, scene_offset, info_offset). `draw_leaf`
 turns each draw's brush parameters into the words fine rasterization
 reads: the solid info word, the linear gradient line equation, the
-focal-form radial parameters and the sweep inverse transform (image
-info comes along; images are refused by the renderer for now).
+focal-form radial parameters, the sweep and image inverse transforms,
+and the clip stream (draw index and path index per clip element) that
+`clips.clip_leaf_vectorized` resolves.
 The info_offset monoid is kept for parity with the reference's stream
 layout; the table is indexed by draw.
 """
@@ -18,6 +19,7 @@ import torch
 from ..encoding.draw import (
     DRAW_TAG_BEGIN_CLIP,
     DRAW_TAG_COLOR,
+    DRAW_TAG_END_CLIP,
     DRAW_TAG_IMAGE,
     DRAW_TAG_LINEAR_GRADIENT,
     DRAW_TAG_NOP,
@@ -81,10 +83,14 @@ def _two_point_to_unit_line(p0x, p0y, p1x, p1y):
 
 
 def draw_leaf(scene, layout, monoids, path_trans_idx, path_draw_flags, caps, tag):
-    """Per-draw info table: int32-carried u32 [D, 10], word k of draw i.
-    (The clip stream inputs that jello_tpu's draw_leaf also returns
-    arrive with clip layers.)"""
+    """Per-draw info table and the clip stream.
+
+    Returns (info int32-carried u32 [D, 10], word k of draw i;
+    clip_idx_arr [NC] i32, the draw index of each clip element;
+    clip_path_idx_arr [NC] i32, its path index for a BeginClip, ~draw
+    index for an EndClip)."""
     D = caps["n_draws_cap"]
+    NC = caps["n_clips_cap"]
     dev = scene.device
     act = ops.iota(D, dev) < layout["n_draw_objects"]
 
@@ -199,4 +205,12 @@ def draw_leaf(scene, layout, monoids, path_trans_idx, path_draw_flags, caps, tag
     wr(img, 7, gall[0])
     wr(img, 8, gall[1])
 
-    return torch.stack(cols, dim=1)
+    # Clip stream: both columns ride one scatter at the clip monoid.
+    di_draw = ops.iota(D, dev)
+    is_begin = act & (tag == DRAW_TAG_BEGIN_CLIP)
+    is_end = act & (tag == DRAW_TAG_END_CLIP)
+    clip_tgt = torch.where(is_begin | is_end, monoids["clip_idx"], NC)
+    clip_path = torch.where(is_begin, m_path, ~di_draw)
+    both = ops.scatter_set(torch.zeros((NC, 2), dtype=I32, device=dev), clip_tgt,
+                           torch.stack([di_draw, clip_path], dim=1))
+    return torch.stack(cols, dim=1), both[:, 0], both[:, 1]

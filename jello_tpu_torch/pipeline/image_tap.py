@@ -94,21 +94,46 @@ def tap_geometry(tap_rec, wit, grid):
     }
 
 
+def region_extent(g, AHp, AWp):
+    """Per record: the far corner (rx1, ry1) of its taps over all 256
+    pixels and the origin (x_lo, y_lo) of the aligned region window that
+    holds their near corner. All [IRC] i32."""
+    rx0 = g["c0"].amin(dim=1)
+    ry0 = g["r0"].amin(dim=1)
+    x_lo = torch.clamp(torch.div(rx0, 128, rounding_mode="floor") * 128, 0, AWp - REGW)
+    y_lo = torch.clamp(torch.div(ry0, 8, rounding_mode="floor") * 8, 0, AHp - REGH)
+    return g["c1"].amax(dim=1), g["r1"].amax(dim=1), x_lo, y_lo
+
+
 def region_bad(g, AHp, AWp):
     """[IRC] bool: the record's taps span more than MAX_WIN region
     windows of the padded atlas (`_region_offsets`, image_tap.py:259-306,
     and the kernel's `nw > MAX_WIN`)."""
-    rx0 = g["c0"].amin(dim=1)
-    ry0 = g["r0"].amin(dim=1)
-    rx1 = g["c1"].amax(dim=1)
-    ry1 = g["r1"].amax(dim=1)
-    x_lo = torch.clamp(torch.div(rx0, 128, rounding_mode="floor") * 128, 0, AWp - REGW)
-    y_lo = torch.clamp(torch.div(ry0, 8, rounding_mode="floor") * 8, 0, AHp - REGH)
+    rx1, ry1, x_lo, y_lo = region_extent(g, AHp, AWp)
     nx = torch.clamp(torch.div(torch.clamp(rx1 - x_lo, min=0), REGW, rounding_mode="floor")
                      + 1, max=255)
     ny = torch.clamp(torch.div(torch.clamp(ry1 - y_lo, min=0), REGH, rounding_mode="floor")
                      + 1, max=255)
     return ny * nx > MAX_WIN
+
+
+def bilinear_taps(g, atlas):
+    """The four premultiplied texels of each channel at the corners of
+    `tap_geometry`, mixed x first, then y, as the TPU kernels' column
+    product and row reduce: [4, IRC, 256], not yet masked."""
+    _, AHp, AWp = atlas.shape
+    flat = atlas.reshape(4, AHp * AWp)
+
+    def texel(r, c):
+        # Rows of zeroed or overflowing records may point anywhere; their
+        # taps are masked by the caller, so only keep the read in bounds.
+        idx = torch.clamp(r, 0, AHp - 1).long() * AWp + torch.clamp(c, 0, AWp - 1).long()
+        return flat[:, idx]
+
+    fx, fy = g["fx"], g["fy"]
+    top = texel(g["r0"], g["c0"]) * (1.0 - fx) + texel(g["r0"], g["c1"]) * fx
+    bot = texel(g["r1"], g["c0"]) * (1.0 - fx) + texel(g["r1"], g["c1"]) * fx
+    return top * (1.0 - fy) + bot * fy
 
 
 def tap_records_plain(tap_rec, atlas, wit, grid):
@@ -120,19 +145,7 @@ def tap_records_plain(tap_rec, atlas, wit, grid):
     g = tap_geometry(tap_rec, wit, grid)
     bad = region_bad(g, AHp, AWp)
     okf = (g["inb"] & (~bad & g["valid"])[:, None]).to(F32)
-    flat = atlas.reshape(4, AHp * AWp)
-
-    def texel(r, c):
-        # Rows of zeroed or overflowing records may point anywhere; their
-        # taps are masked by okf, so only keep the read in bounds.
-        idx = torch.clamp(r, 0, AHp - 1).long() * AWp + torch.clamp(c, 0, AWp - 1).long()
-        return flat[:, idx]  # [4, IRC, 256]
-
-    fx, fy = g["fx"], g["fy"]
-    # x first, then y, as the TPU kernel's column product and row reduce.
-    top = texel(g["r0"], g["c0"]) * (1.0 - fx) + texel(g["r0"], g["c1"]) * fx
-    bot = texel(g["r1"], g["c0"]) * (1.0 - fx) + texel(g["r1"], g["c1"]) * fx
-    fg = (top * (1.0 - fy) + bot * fy) * okf
+    fg = bilinear_taps(g, atlas) * okf
     return fg.permute(1, 0, 2).reshape(IRC, 1024).contiguous(), (bad & g["valid"]).any()
 
 

@@ -126,3 +126,11 @@ def gather_guarded(arr, idx):
 
 def iota(n, device, dtype=I32):
     return torch.arange(n, dtype=dtype, device=device)
+
+
+def unbounded_bboxes(n, device, big):
+    """[n, 4] f32 rows (-big, -big, big, big): the box that clips nothing.
+    Filled on the device: a tensor built from a Python list is copied from
+    the host, and that copy makes the host wait for the queued work."""
+    return torch.cat([torch.full((n, 2), -big, dtype=F32, device=device),
+                      torch.full((n, 2), big, dtype=F32, device=device)], dim=1)

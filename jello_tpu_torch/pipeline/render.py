@@ -7,7 +7,7 @@ output, run eagerly on the device the inputs live on. Capacities
 overflow through a 0-dim flag instead of failing, and the renderer
 re-renders with a larger class.
 
-Stage order: flatten -> draw_leaf -> clip_leaf (clip-free) -> binning
+Stage order: flatten -> draw_leaf -> clip_leaf -> binning
 + tile_alloc -> path_count -> path_tiling -> coarse -> fine.
 """
 
@@ -35,11 +35,12 @@ def geometry(scene, layout, caps):
                           ops.gather_guarded(scene, layout["draw_tag_base"] + i),
                           DRAW_TAG_NOP)
         dm = drawobjs.draw_monoid_scan(tag)
-        info = drawobjs.draw_leaf(
+        info, clip_idx_arr, clip_path_arr = drawobjs.draw_leaf(
             scene, layout, dm, fl["path_trans_idx"], fl["path_draw_flags"], caps, tag)
     with record_function("clip_leaf"):
-        clip_bboxes, dm_path, dm_scene = clips.clip_leaf(
-            fl["path_bbox"], dm["path_idx"], dm["scene_offset"], layout, caps)
+        clip_bboxes, dm_path, dm_scene = clips.clip_leaf_vectorized(
+            clip_idx_arr, clip_path_arr, fl["path_bbox"], dm["path_idx"],
+            dm["scene_offset"], layout, caps)
     dm = dict(dm, path_idx=dm_path, scene_offset=dm_scene)
     # Per-draw word table read by coarse and the record packing: scene
     # words dd+0..3 and info words 1..9.
@@ -65,11 +66,19 @@ def geometry(scene, layout, caps):
         "pairs_overflow": cmds["overflow"],
     }
     # Exact per-frame counters read by renderer.estimate.calibrate_caps.
-    # img_recs sizes the image-tap table (the predicate of its compaction).
+    # img_recs sizes the image-tap table (the predicate of its compaction),
+    # legacy_tiles the interpreter's grid (the classification fine_hybrid
+    # uses).
     tile = cmds["tile"]
     img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
                 & (tile >= 0)).sum()
+    # A clip-free frame whose images ride the tap has no legacy tile.
+    if layout["n_clips"] or not caps.get("_image_tap"):
+        legacy_tiles = coarse.classify_legacy_tiles(cmds, caps)[0].sum()
+    else:
+        legacy_tiles = torch.zeros((), dtype=torch.int64, device=tile.device)
     stats = {
+        "legacy_tiles": legacy_tiles,
         "img_recs": img_recs,
         "work_a": fl["n_work_a"],
         "work_b": fl["n_work_b"],

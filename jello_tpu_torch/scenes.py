@@ -272,9 +272,9 @@ def config5(n_paths=10000):
 
 CONFIGS = {1: config1, 2: config2, 3: config3, 4: config4, 5: config5}
 
-# The configs the port renders, config number -> () -> (Scene, RenderParams).
-# Config 4 needs clip layers and blends, which the port still refuses.
-GATE_SCENES = {1: config1, 2: config2, 3: config3, 5: config5}
+# The configs the port renders, config number -> () -> (Scene, RenderParams):
+# all of them.
+GATE_SCENES = dict(CONFIGS)
 
 
 def _profile_config5(n_paths=10000):

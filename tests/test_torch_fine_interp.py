@@ -1,0 +1,148 @@
+"""The plain version of the per-tile interpreter (kernels G and H,
+`jello_tpu_torch/pipeline/fine_interp.py`) vs jello_tpu's Pallas kernels
+`make_fine_kernel` and `make_fine_kernel_b8` in interpret mode, on
+hand-built slabs of 16 programs and 16 records a tape that hold every
+record kind, clip depth up to BD and one past it, a clip-zero group, and
+an image record that trips the region bit. Premultiplied result within
+1e-5, overflow words equal. Also `build_cmd_slab` and the full-grid
+`fine_interp` against the numpy oracle's frame."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import jello_tpu
+from jello_tpu.cpu import render_numpy
+from jello_tpu.tpu import fine_pallas
+
+from jello_tpu_torch.cuda import upload, upload_atlas
+from jello_tpu_torch.cuda.fine_interp import fine_interp, interpret_tiles
+from jello_tpu_torch.cuda.fine_v2 import assemble_compact
+from jello_tpu_torch.pipeline.render import geometry
+
+from .torch_reference import (
+    CLIP_SCENES,
+    full_scene,
+    hand_built_slab,
+    interpret_args,
+    prepare_with_atlas,
+)
+
+TOL = 1e-5
+
+
+def _premul(out):
+    out = np.asarray(out)
+    return np.concatenate([out[:, :3] * out[:, 3:4], out[:, 3:4]], axis=1)
+
+
+def _pallas(h, batch):
+    n, MC, _ = h["slab"].shape
+    NR, W = h["stops"].shape
+    caps = {"tile_grid_cap": h["grid"], "cmds_per_tile": MC, "blend_depth": h["BD"],
+            "max_stops": (W - 1) // 5}
+    make = fine_pallas.make_fine_kernel_b8 if batch else fine_pallas.make_fine_kernel
+    call = make(caps, tuple(h["atlas"].shape[1:]), interpret=True, n_ramp_rows=NR,
+                n_programs=n)
+    stops_pad = np.zeros((NR, 128), np.float32)
+    stops_pad[:, :W] = h["stops"]
+    counts = np.concatenate([h["counts"], [h["wit"]]]).astype(np.int32)
+    out, ovf = call(jnp.asarray(counts), jnp.asarray(h["tile_ids"]), jnp.asarray(h["base"]),
+                    jnp.asarray(h["slab"]), jnp.asarray(h["rows"]), jnp.asarray(stops_pad),
+                    jnp.asarray(h["atlas"]))
+    return np.asarray(out), np.asarray(ovf)[:, 0, 0]
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["G", "H"])
+def test_torch_interpreter_plain_matches_pallas_interpret(batch):
+    h = hand_built_slab(seed=5)
+    want, want_ovf = _pallas(h, batch)
+    got, got_ovf = interpret_tiles(*interpret_args(h), batch=batch)
+    assert got.shape == (16, 4, 256) and got.dtype == torch.float32
+    assert np.isfinite(got.numpy()).all()
+    assert np.array_equal(got_ovf.numpy(), want_ovf)
+    # The slab trips both bits, each on its own program.
+    assert got_ovf[4] == 2 and got_ovf[8] == 1 and int((got_ovf != 0).sum()) == 2
+    err = np.abs(_premul(got.numpy()) - _premul(want)).max()
+    print(f"plain vs Pallas interpret ({'H' if batch else 'G'}): {err:.3e}")
+    assert err <= TOL
+
+
+def test_torch_interpreter_semantics_on_the_hand_built_slab():
+    """What the tapes are built to show, held on the plain version alone:
+    a suppressed group paints nothing, a tripped image record paints
+    nothing, a pad slot stays at the base color."""
+    h = hand_built_slab(seed=5)
+    args = interpret_args(h)
+    out, _ = interpret_tiles(*args)
+    base = h["base"]
+    assert np.allclose(out[15].numpy(), base[:, None])
+    # Program 9 without its clip-zero group (records 1..6) is the same.
+    h2 = dict(h, slab=h["slab"].copy(), counts=h["counts"].copy())
+    h2["slab"][9, 1] = h["slab"][9, 7]
+    h2["counts"][9] = 2
+    out2, _ = interpret_tiles(*interpret_args(h2))
+    assert torch.equal(out[9], out2[9])
+    # Program 4 without its tripped image record.
+    h3 = dict(h, slab=h["slab"].copy(), counts=h["counts"].copy())
+    h3["slab"][4, 1] = h["slab"][4, 2]
+    h3["counts"][4] = 2
+    out3, ovf3 = interpret_tiles(*interpret_args(h3))
+    assert torch.equal(out[4], out3[4]) and int(ovf3[4]) == 0
+
+
+def test_torch_interpret_tiles_rejects_bad_inputs():
+    args = list(interpret_args(hand_built_slab()))
+    with pytest.raises(ValueError):
+        interpret_tiles(*args[:3], args[3].to(torch.int64), *args[4:])
+    with pytest.raises(ValueError):
+        interpret_tiles(args[0][:-1], *args[1:])
+    with pytest.raises(ValueError):
+        interpret_tiles(*args[:8], 0)
+
+
+@pytest.mark.parametrize("name", ["mix_stack", "full_scene"])
+def test_torch_fine_interp_full_grid_matches_oracle(name):
+    """The interpreter alone as the whole fine stage (every tile's tape,
+    images through it too) against the numpy oracle's frame: 8e-3, the
+    tolerance of tests/test_fine_hybrid.py; expected <= 1e-4."""
+    build = CLIP_SCENES.get(name, full_scene)
+    scene_j, params_j = build(jello_tpu)
+    with np.errstate(all="ignore"):
+        ref, _, _ = render_numpy(scene_j, params_j)
+    s, ld, ramps, atlas, caps = prepare_with_atlas(scene_j, params_j)
+    caps = dict(caps, _expand_pallas=True, cmds_per_tile=16)
+    scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, caps, "cpu")
+    atlas_t = upload_atlas(atlas, "cpu")
+    stages, flags, _ = geometry(scene_t, layout_t, caps)
+    assert not any(bool(v) for v in flags.values())
+    for batch in (False, True):
+        out, fl = fine_interp(stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t,
+                              dict(caps, _interp_batch=batch))
+        assert not any(bool(v) for v in fl.values()), fl
+        GRID = caps["tile_grid_cap"]
+        t2r = torch.arange(GRID, dtype=torch.int32)
+        img = assemble_compact(out.permute(1, 0, 2).contiguous(), t2r, ld).numpy()
+        err = np.abs(img - ref).max()
+        print(f"{name}: full-grid interpreter vs the oracle {err:.3e}")
+        assert err <= 8e-3
+
+
+def test_torch_build_cmd_slab_places_records_and_flags_long_tapes():
+    """Slot = tile * MC + index within the tile's run; a tape longer than
+    MC is cut to MC records and raises the overflow flag."""
+    from jello_tpu_torch.pipeline.fine_interp import build_cmd_slab
+
+    tile = torch.tensor([0, 0, 0, 2, 2, 5, 9, 9], dtype=torch.int32)  # 9: past the grid
+    rec = torch.arange(8 * 16, dtype=torch.int32).reshape(8, 16)
+    cmds = {"tile": tile,
+            "tile_start": torch.tensor([0, 0, 3, 0, 0, 5], dtype=torch.int32),
+            "tile_end": torch.tensor([3, 0, 5, 0, 0, 6], dtype=torch.int32)}
+    slab, counts, ovf = build_cmd_slab(rec, cmds, {"tile_grid_cap": 6, "cmds_per_tile": 2})
+    assert slab.shape == (6, 2, 16) and bool(ovf)
+    assert counts.tolist() == [2, 0, 2, 0, 0, 1]
+    assert torch.equal(slab[0], rec[0:2]) and torch.equal(slab[2], rec[3:5])
+    assert torch.equal(slab[5, 0], rec[5]) and not slab[1].any() and not slab[5, 1].any()
+    _, counts4, ovf4 = build_cmd_slab(rec, cmds, {"tile_grid_cap": 6, "cmds_per_tile": 4})
+    assert counts4.tolist() == [3, 0, 2, 0, 0, 1] and not bool(ovf4)

@@ -67,7 +67,7 @@ def _thirty_stops(jt):
 # Config 2 is held in tests/test_torch_config2.py, which builds it once for
 # the host comparison and the frame.
 SCENES = {
-    "config1": _config(1), "config3": _config(3),
+    "config1": _config(1), "config3": _config(3), "config4": _config(4),
     "config5_200": _config(5, n_paths=200), "dashed_stroke": _dashed_stroke,
     "image_fill": _image_fill, "thirty_stops": _thirty_stops,
 }

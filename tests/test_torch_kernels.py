@@ -15,6 +15,9 @@ import jello_tpu_torch
 from jello_tpu.cpu import render_numpy
 
 from jello_tpu_torch.cuda import expand as kx
+from jello_tpu_torch.cuda import fine_hybrid as khybrid
+from jello_tpu_torch.cuda import fine_interp as kint
+from jello_tpu_torch.cuda import fine_v2 as kfine
 from jello_tpu_torch.cuda import land as kland
 from jello_tpu_torch.cuda import lockstep as kwalk
 from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
@@ -29,12 +32,20 @@ from jello_tpu_torch.cuda import image_tap as ktap
 from jello_tpu_torch.cuda.render import Renderer, upload, upload_atlas
 from jello_tpu_torch.pipeline import coverage as plain_cov
 from jello_tpu_torch.pipeline import expand as plain_expand
+from jello_tpu_torch.pipeline import fine_interp as plain_int
 from jello_tpu_torch.pipeline import image_tap as plain_tap
 from jello_tpu_torch.pipeline import land as plain_land
 from jello_tpu_torch.pipeline import lockstep as plain_walk
 from jello_tpu_torch.pipeline.render import geometry
 
-from .torch_reference import prepare, prepare_with_atlas
+from .torch_reference import (
+    CLIP_SCENES,
+    full_scene,
+    hand_built_slab,
+    interpret_args,
+    prepare,
+    prepare_with_atlas,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -307,13 +318,102 @@ def test_torch_fine_kernel_with_images_matches_plain(cuda):
     assert (img - bare).abs().max().item() > 0.05
 
 
-@pytest.mark.parametrize("case", ["gradients", "images_and_stroke"])
-def test_torch_cuda_renderer_matches_oracle(cuda, case):
-    build = {"gradients": _gradient_scene, "images_and_stroke": _image_scene}[case]
+@pytest.mark.parametrize("depth", [2, 60])
+def test_torch_interpreter_kernels_match_plain(cuda, depth):
+    """Kernels G and H on the hand-built slab (every record kind, depth up
+    to BD and one past it at BD 2, a clip-zero group, a tripped image
+    record): premultiplied rows within 1e-5 of the plain version, H within
+    1e-6 of G, overflow words equal. At BD 60 G's stack exceeds a CTA's
+    shared memory and lives in the global scratch."""
+    h = dict(hand_built_slab(seed=5), BD=depth)
+    args = interpret_args(h, cuda)
+    n0, n1 = kint.interpret_tiles.launches, kint.interpret_tiles.launches_batch
+    got_g, ovf_g = kint.interpret_tiles(*args)
+    got_h, ovf_h = kint.interpret_tiles(*args, batch=True)
+    assert kint.interpret_tiles.launches == n0 + 1
+    assert kint.interpret_tiles.launches_batch == n1 + 1
+    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
+    torch.cuda.synchronize()
+
+    def premul(o):
+        return torch.cat([o[:, :3] * o[:, 3:4], o[:, 3:4]], dim=1)
+
+    assert torch.equal(ovf_g, ovf_p) and torch.equal(ovf_h, ovf_p)
+    assert int(ovf_g[4]) == 2 and int(ovf_g[8]) == (1 if depth == 2 else 0)
+    assert not torch.isnan(got_g).any()
+    assert (premul(got_g) - premul(want)).abs().max().item() <= 1e-5
+    assert (premul(got_h) - premul(got_g)).abs().max().item() <= 1e-6
+
+
+def _clip_inputs(cuda, build):
+    """Stages of a clip scene on the card, with the calls of the two fine
+    kernels recorded from one pass of the hybrid fine stage."""
+    s, ld, ramps, atlas, caps = prepare_with_atlas(*build(jello_tpu))
+    caps = dict(caps, _expand_pallas=True, clip_depth_cap=4)
+    if atlas is not None:
+        caps["_image_tap"] = True
+    scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, {}, cuda)
+    atlas_t = upload_atlas(atlas, cuda)
+    stages, flags, _ = geometry(scene_t, layout_t, caps)
+    assert not any(bool(v) for v in flags.values())
+    return stages, ramps_t, atlas_t, layout_t, caps, ld
+
+
+def test_torch_fine_kernel_with_clip_groups_matches_plain(cuda, monkeypatch):
+    """Kernel B's clip-group pass on the records the hybrid stage packs
+    for a scene with depth-1 src-over groups (alpha, rowless EndClips, a
+    zero-coverage group): the assembled image within 1e-4 of the plain
+    version's two scans."""
+    from .test_torch_fine_hybrid import GROUP_SCENES
+
+    stages, ramps_t, atlas_t, layout_t, caps, ld = _clip_inputs(
+        cuda, GROUP_SCENES["alpha_groups"][0])
+    calls = []
+    real = kfine.composite_records
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    spy.launches = 0
+    monkeypatch.setattr(kfine, "composite_records", spy)
+    (compact, t2r), flags = khybrid.fine_hybrid(stages["cmds"], stages["counted"], ramps_t,
+                                                atlas_t, layout_t, caps)
+    monkeypatch.undo()
+    assert not any(bool(v) for v in flags.values())
+    (args,) = calls
+    assert int(((args[0][:, 4] & 32) != 0).sum()) > 0  # group EndClips
+    n0 = composite_records.launches
+    out = composite_records(*args)
+    assert composite_records.launches == n0 + 1
+    out_p = composite_records_plain(*args)
+    img = assemble_compact(out, t2r, ld)
+    img_p = assemble_compact(out_p, t2r, ld)
+    torch.cuda.synchronize()
+    assert not torch.isnan(img).any()
+    assert (img - img_p).abs().max().item() <= 1e-4
+    assert torch.equal(assemble_compact(compact, t2r, ld), img)  # no legacy tile
+
+
+@pytest.mark.parametrize("case", ["gradients", "images_and_stroke", "clips_and_blends",
+                                  "mix_stack"])
+def test_torch_cuda_renderer_matches_oracle(cuda, case, monkeypatch):
+    build = {"gradients": _gradient_scene, "images_and_stroke": _image_scene,
+             "clips_and_blends": full_scene, "mix_stack": CLIP_SCENES["mix_stack"]}[case]
     ref, _, _ = render_numpy(*build(jello_tpu))
     fns = [coverage_rows, composite_records] + [getattr(m, n) for m, n in WRAPPERS]
-    if case == "images_and_stroke":
+    if case in ("images_and_stroke", "clips_and_blends"):
         fns.append(ktap.tap_records)
+    if case in ("clips_and_blends", "mix_stack"):
+        fns.append(kint.interpret_tiles)
+        # The same frame through kernel H.
+        monkeypatch.setenv("JELLO_INTERP_BATCH", "1")
+        n_h = kint.interpret_tiles.launches_batch
+        r_h = Renderer(device="cuda")
+        img_h = r_h.render(*build(jello_tpu_torch))
+        assert kint.interpret_tiles.launches_batch > n_h and not any(r_h.last_flags.values())
+        assert np.abs(img_h - ref).max() <= 2e-3
+        monkeypatch.delenv("JELLO_INTERP_BATCH")
     before = [fn.launches for fn in fns]
     r = Renderer(device="cuda")
     img = r.render(*build(jello_tpu_torch))
@@ -335,3 +435,8 @@ def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
         kwalk.lockstep_walk(table.double(), valid, 8)
     with pytest.raises(ValueError):
         kland.monotone_land(valid.to(torch.int64), valid, [valid], 64)
+    args = list(interpret_args(hand_built_slab(), cuda))
+    with pytest.raises(ValueError):
+        kint.interpret_tiles(*args[:4], args[4].cpu(), *args[5:])
+    with pytest.raises(ValueError):
+        kint.interpret_tiles(*args[:3], args[3][:, :, :8].contiguous(), *args[4:])

@@ -1,6 +1,7 @@
 """jello_tpu_torch imports neither JAX nor anything of jello_tpu: with
 `jax` and `jello_tpu` both blocked in sys.modules, the port imports and
-renders config 1 and a small image-plus-stroke scene on the CPU. The
+renders config 1, a small image-plus-stroke scene and a scene with
+nested blend layers on the CPU. The
 comparison with the oracle runs in this process, which may import
 jello_tpu, on the image the blocked process saved."""
 
@@ -25,6 +26,27 @@ def image_and_stroke(jt):
     s.stroke(st, jt.Affine.identity(), jt.SolidBrush(jt.Color.rgba(0.1, 0.2, 0.7, 0.8)), None,
              jt.BezPath().move_to(6, 50).cubic_to(20, 5, 40, 60, 58, 12))
     return s, jt.RenderParams(width=64, height=64, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def nested_layers(jt):
+    def rect(x0, y0, x1, y1):
+        return jt.BezPath().move_to(x0, y0).line_to(x1, y0).line_to(x1, y1).line_to(x0, y1).close()
+
+    ident = jt.Affine.identity()
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.9, 0.7, 0.2, 1)), None,
+           rect(0, 0, 64, 64))
+    s.push_layer(jt.BlendMode(jt.Mix.MULTIPLY, jt.Compose.SRC_OVER), 0.8, ident,
+                 rect(4.5, 6.5, 58.5, 60.5))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.2, 0.6, 0.9, 0.7)), None,
+           rect(10, 10, 50, 40))
+    s.push_layer(jt.BlendMode(jt.Mix.CLIP, jt.Compose.SRC_OVER), 1.0, ident,
+                 rect(20.3, 20.7, 44.2, 52.9))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.8, 0.1, 0.3, 0.9)), None,
+           rect(0, 0, 64, 64))
+    s.pop_layer()
+    s.pop_layer()
+    return s, jt.RenderParams(width=64, height=64, base_color=jt.Color.rgba(1, 1, 1, 1))
 """
 
 SCRIPT = """
@@ -43,11 +65,14 @@ assert not any(r.last_flags.values()), r.last_flags
 img2 = r.render(*image_and_stroke(jt))
 assert not any(r.last_flags.values()), r.last_flags
 assert r.last_stats["img_recs"] > 0 and r.last_stats["work_b"] > 0
+img3 = r.render(*nested_layers(jt))
+assert not any(r.last_flags.values()), r.last_flags
+assert r.last_stats["legacy_tiles"] > 0
 loaded = [k for k, v in sys.modules.items() if v is not None
           and (k == "jax" or k.startswith("jax.") or k == "jello_tpu"
                or k.startswith("jello_tpu."))]
 assert not loaded, loaded
-np.savez(sys.argv[1], config1=img1, image_and_stroke=img2)
+np.savez(sys.argv[1], config1=img1, image_and_stroke=img2, nested_layers=img3)
 """
 
 
@@ -64,7 +89,8 @@ def test_torch_port_runs_without_jax_and_jello_tpu(tmp_path):
     exec(BUILD, scope)
     frames = np.load(out)
     for name, built in (("config1", jello_tpu.scenes.config1()),
-                        ("image_and_stroke", scope["image_and_stroke"](jello_tpu))):
+                        ("image_and_stroke", scope["image_and_stroke"](jello_tpu)),
+                        ("nested_layers", scope["nested_layers"](jello_tpu))):
         with np.errstate(all="ignore"):
             ref, _, _ = render_numpy(*built)
         assert np.abs(frames[name] - ref).max() <= 2e-3, name

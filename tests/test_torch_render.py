@@ -1,7 +1,7 @@
 """Renderer(device="cpu") of jello_tpu_torch, end to end, vs the numpy
 oracle: images within 2e-3, no flags, u8 present math, capacity
-calibration and overflow retries, and the refusal of scenes outside the
-ported slice. Each scene is built twice, through jello_tpu for the
+calibration and overflow retries, and the refusal of MSAA, the one kind
+of scene still outside the ported slices. Each scene is built twice, through jello_tpu for the
 oracle and through jello_tpu_torch for the port."""
 
 import numpy as np
@@ -67,7 +67,8 @@ def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
     r = Renderer(device="cpu")
     _check(r, _gradient_blobs, seed=9, n=6)
     assert seen and all(c.get("_expand_pallas") is True for c in seen)
-    assert "_expand_pallas" not in r._caps
+    assert all(c.get("_coarse_dense") is True for c in seen)  # a clip-free frame
+    assert "_expand_pallas" not in r._caps and "_coarse_dense" not in r._caps
 
 
 def test_torch_renderer_gradient_blobs_match_oracle():
@@ -159,7 +160,15 @@ def _msaa_scene(jt=jello_tpu):
 
 @pytest.mark.parametrize("case, slice_no", [("clip", "slice 6"), ("msaa", "slice 5")])
 def test_torch_renderer_refuses_scenes_outside_the_slice(case, slice_no):
-    scene, params = {"clip": _clip_scene, "msaa": _msaa_scene}[case](jello_tpu_torch)
+    """MSAA is still refused, by the name of its slice; the clip layer that
+    slice 6 used to refuse renders now, on the hybrid fine stage, and
+    matches the oracle."""
+    if case == "clip":
+        r = Renderer(device="cpu")
+        _check(r, _clip_scene)
+        assert "legacy_overflow" in r.last_flags  # the hybrid stage's flag set
+        return
+    scene, params = _msaa_scene(jello_tpu_torch)
     with pytest.raises(NotImplementedError, match=slice_no):
         Renderer(device="cpu").render(scene, params)
 

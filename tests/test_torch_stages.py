@@ -213,9 +213,12 @@ def test_torch_draw_leaf_matches_numpy(name):
     dm = drawobjs.draw_monoid_scan(tag)
     for k in ("path_idx", "clip_idx", "scene_offset", "info_offset"):
         _exact(ref["dm"][k], dm[k])
-    info = drawobjs.draw_leaf(scene_t, layout_t, dm, fl["path_trans_idx"],
-                              fl["path_draw_flags"], caps, tag)
+    info, clip_idx, clip_path = drawobjs.draw_leaf(
+        scene_t, layout_t, dm, fl["path_trans_idx"], fl["path_draw_flags"], caps, tag)
     _exact(u32(ref["info"]), u32(as_np(info)))
+    # These scenes hold no clip: the clip stream stays empty.
+    assert clip_idx.shape == clip_path.shape == (caps["n_clips_cap"],)
+    assert not clip_idx.any() and not clip_path.any()
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -285,3 +288,19 @@ def test_torch_geometry_chain_matches_numpy(name):
     _exact(u32(cmds["dtab"]), u32(as_np(gcmds["dtab"])))
     assert stats["cmds"] == int(cmds["n_cmds"])
     assert stats["lockstep_iters"] == int(ref["fl"]["lockstep_iters"])
+
+
+def test_torch_stages_make_no_tensor_from_host_data():
+    """A stage that runs inside a frame builds its constants on the
+    device: `torch.tensor([...], device=...)` copies from the host, and
+    on a GPU that copy makes the host wait for everything queued."""
+    import pathlib
+    import re
+
+    call = re.compile(r"torch\.(as_)?tensor\([^()]*(\([^()]*\)[^()]*)*device=")
+    pipeline = pathlib.Path(ops.__file__).parent
+    for path in sorted(pipeline.glob("*.py")):
+        assert not call.search(path.read_text()), path.name
+    box = ops.unbounded_bboxes(3, torch.device("cpu"), 1e9)
+    assert box.dtype == torch.float32
+    assert box.tolist() == [[-1e9, -1e9, 1e9, 1e9]] * 3

@@ -76,9 +76,12 @@ def prepare_with_atlas(scene, params):
     layout, ramps, images, scene_u32 = Resolver().resolve(scene.encoding)
     ld = build_layout_dict(layout, params)
     caps = estimate_caps_from_scene(scene_u32, layout, params.width, params.height)
-    # jello_tpu's routing of a clip-free area frame (tpu/render.py:341-346),
-    # read by its stages; the port's stages take that route always.
-    caps.update(aa_mode="area", _coarse_dense=True)
+    # jello_tpu's routing of an area frame (tpu/render.py:341-346), read by
+    # its stages and by the port's: the dense coarse branch only without
+    # clip layers.
+    caps.update(aa_mode="area")
+    if layout.n_clips == 0:
+        caps["_coarse_dense"] = True
     return scene_u32, ld, stops_table_or_empty(ramps), build_image_atlas(images), caps
 
 
@@ -142,3 +145,292 @@ def to_torch(v):
 def tree_to_torch(d):
     return {k: tree_to_torch(v) if isinstance(v, dict) else to_torch(v)
             for k, v in d.items()}
+
+
+def _rect(jt, x0, y0, x1, y1):
+    return jt.BezPath().move_to(x0, y0).line_to(x1, y0).line_to(x1, y1).line_to(x0, y1).close()
+
+
+def _clip_scene(body, size=256, base=(0, 0, 0, 0)):
+    """`build(jt) -> (scene, params)` from `body(jt, scene)`."""
+    def build(jt):
+        scene = jt.Scene()
+        body(jt, scene)
+        return scene, jt.RenderParams(width=size, height=size,
+                                      base_color=jt.Color.rgba(*base))
+    return build
+
+
+def _layer(blend, alpha, clip, fills):
+    """body: one layer `blend(jt)` with alpha over the clip rect, holding
+    solid fills [(rgba, rect)]."""
+    def body(jt, scene):
+        ident = jt.Affine.identity()
+        scene.push_layer(blend(jt), alpha, ident, _rect(jt, *clip))
+        for rgba, rect in fills:
+            scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(*rgba)), None,
+                       _rect(jt, *rect))
+        scene.pop_layer()
+    return body
+
+
+def _pure_clip(jt):
+    return jt.BlendMode(jt.Mix.CLIP, jt.Compose.SRC_OVER)
+
+
+def _nested_clips(jt, scene):
+    ident = jt.Affine.identity()
+    scene.push_layer(_pure_clip(jt), 1.0, ident, _rect(jt, 32, 32, 224, 224))
+    scene.push_layer(_pure_clip(jt), 1.0, ident, _rect(jt, 96, 96, 256, 256))
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(1, 0, 0, 1)), None,
+               _rect(jt, 0, 0, 256, 256))
+    scene.pop_layer()
+    scene.pop_layer()
+
+
+def _blend_multiply(jt, scene):
+    ident = jt.Affine.identity()
+    full = _rect(jt, 0, 0, 256, 256)
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.5, 0.8, 1, 1)), None, full)
+    scene.push_layer(jt.BlendMode(jt.Mix.MULTIPLY, jt.Compose.SRC_OVER), 1.0, ident, full)
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.5, 0.5, 0.5, 1)), None,
+               full)
+    scene.pop_layer()
+
+
+def _empty_clip_path(jt, scene):
+    ident = jt.Affine.identity()
+    scene.push_layer(_pure_clip(jt), 1.0, ident, jt.BezPath())
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(1, 0, 0, 1)), None,
+               _rect(jt, 0, 0, 256, 256))
+    scene.pop_layer()
+
+
+def _unbalanced_push(jt, scene):
+    ident = jt.Affine.identity()
+    scene.push_layer(_pure_clip(jt), 1.0, ident, _rect(jt, 64, 64, 192, 192))
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(1, 0, 0, 1)), None,
+               _rect(jt, 0, 0, 256, 256))  # no pop: the resolver appends the EndClip
+
+
+def _mix_stack(jt, scene):
+    """Three nested layers with mix and compose blends over a gradient,
+    at fractional clip edges: blend depth 3, every tile under them legacy."""
+    ident = jt.Affine.identity()
+    stops = (jt.ColorStop(0.0, jt.Color.rgba(0.9, 0.2, 0.1, 1)),
+             jt.ColorStop(1.0, jt.Color.rgba(0.1, 0.3, 0.9, 0.6)))
+    scene.fill(jt.Fill.NON_ZERO, ident,
+               jt.GradientBrush(jt.LinearGradient((0, 0), (128, 128), stops)), None,
+               _rect(jt, 0, 0, 128, 128))
+    layers = ((jt.Mix.SOFT_LIGHT, jt.Compose.SRC_OVER, 0.9, (8.4, 8.6, 120.3, 118.7)),
+              (jt.Mix.HUE, jt.Compose.SRC_ATOP, 0.7, (20.5, 24.2, 100.1, 110.6)),
+              (jt.Mix.COLOR_DODGE, jt.Compose.XOR, 1.0, (30.3, 40.7, 90.9, 95.2)))
+    for k, (mix, compose, alpha, clip) in enumerate(layers):
+        scene.push_layer(jt.BlendMode(mix, compose), alpha, ident, _rect(jt, *clip))
+        scene.fill(jt.Fill.NON_ZERO, ident,
+                   jt.SolidBrush(jt.Color.rgba(0.2 + 0.3 * k, 0.8 - 0.2 * k, 0.4, 0.8)), None,
+                   _rect(jt, 12 + 9 * k, 16 + 7 * k, 116 - 5 * k, 112 - 9 * k))
+    for _ in layers:
+        scene.pop_layer()
+
+
+RED, GREEN, FULL256 = (1, 0, 0, 1), (0, 1, 0, 1), (0, 0, 256, 256)
+_normal = lambda jt: jt.BlendMode()  # noqa: E731
+
+# The scenes of tests/test_clip.py, and one deeper stack of mix blends.
+CLIP_SCENES = {
+    "basic_clip": _clip_scene(_layer(_pure_clip, 1.0, (64, 64, 192, 192), [(RED, FULL256)])),
+    "partial_coverage_edge": _clip_scene(
+        _layer(_pure_clip, 1.0, (64.5, 64, 192, 192), [(RED, FULL256)])),
+    "nested_clips": _clip_scene(_nested_clips),
+    "layer_alpha": _clip_scene(_layer(_normal, 0.5, FULL256, [(RED, FULL256)]),
+                               base=(0, 0, 0, 1)),
+    "blend_multiply": _clip_scene(_blend_multiply),
+    "clip_zero_tiles": _clip_scene(_layer(_pure_clip, 1.0, (16, 16, 32, 32),
+                                          [(GREEN, FULL256)])),
+    "empty_clip_path": _clip_scene(_empty_clip_path),
+    "unbalanced_push": _clip_scene(_unbalanced_push),
+    "normal_group": _clip_scene(_layer(_normal, 1.0, (40, 40, 200, 200), [(RED, FULL256)]),
+                                base=(0, 0, 1, 1)),
+    "mix_stack": _clip_scene(_mix_stack, size=128, base=(1, 1, 1, 1)),
+}
+
+
+def full_scene(jt):
+    """tests/test_full_scene.py::full_scene through either package: three
+    gradient kinds, an image, a MULTIPLY group with a clip nested in it,
+    a dashed stroke; 256x256 on white."""
+    from jello_tpu.curve import circle as circle_j
+    from jello_tpu_torch.curve import circle as circle_t
+
+    circle = circle_j if jt is jello_tpu else circle_t
+    ident = jt.Affine.identity()
+    stops = (jt.ColorStop(0.0, jt.Color.rgba(1, 1, 0, 1)),
+             jt.ColorStop(0.5, jt.Color.rgba(1, 0, 1, 1)),
+             jt.ColorStop(1.0, jt.Color.rgba(0, 0, 1, 1)))
+    full = _rect(jt, 0, 0, 256, 256)
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, ident,
+           jt.GradientBrush(jt.LinearGradient((0, 0), (256, 0), stops)), None, full)
+    s.fill(jt.Fill.EVEN_ODD, ident, jt.GradientBrush(jt.RadialGradient(
+        (100, 100), 5.0, (120, 110), 80.0, stops, jt.Extend.REFLECT)), None,
+        circle(110, 105, 70))
+    s.fill(jt.Fill.NON_ZERO, ident,
+           jt.GradientBrush(jt.SweepGradient((180, 180), 0.0, 6.283185, stops)), None,
+           circle(180, 180, 50))
+    pix = np.zeros((4, 4, 4), np.uint8)
+    pix[:2, :2], pix[2:, 2:] = [255, 0, 0, 255], [0, 255, 0, 255]
+    pix[:2, 2:], pix[2:, :2] = [0, 0, 255, 255], [255, 255, 0, 128]
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(10, 180) @ jt.Affine.scale(12),
+           jt.ImageBrush(jt.Image(pixels=pix)), None, _rect(jt, 0, 0, 4, 4))
+    s.push_layer(jt.BlendMode(jt.Mix.MULTIPLY, jt.Compose.SRC_OVER), 0.8, ident,
+                 circle(128, 128, 100))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.2, 0.9, 0.4, 0.7)), None,
+           circle(120, 120, 60))
+    s.push_layer(_pure_clip(jt), 1.0, ident, circle(140, 140, 40))
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.9, 0.1, 0.1, 1)), None, full)
+    s.pop_layer()
+    s.pop_layer()
+    s.stroke(jt.Stroke(width=5, dash_pattern=(12, 6)).with_caps(jt.Cap.ROUND), ident,
+             jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)), None,
+             jt.BezPath().move_to(10, 30).cubic_to(80, 5, 170, 60, 246, 25))
+    return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+# ---- hand-built interpreter slabs (kernels G and H) --------------------------
+
+def _fbits(x):
+    return int(np.float32(x).view(np.uint32))
+
+
+def hand_built_slab(seed=0, n=16, MC=16, BD=2, grid=64, wit=8):
+    """Inputs of the per-tile interpreter, built by hand with numpy: `n`
+    programs (the last two pads) whose tapes hold every record kind, clip
+    depth up to BD and one past it, a clip-zero group with a nested group
+    inside, an image record that fits the region window and one that trips
+    it, and seeded random tapes over every mix and compose word.
+
+    Returns a dict: counts [n] i32, tile_ids [n] i32, base [4] f32, slab
+    [n, MC, 16] u32, rows [32, 256] f32, stops [NR, W] f32, atlas [4, AHp,
+    AWp] f32 (premultiplied planar, padded), wit, grid, BD."""
+    from jello_tpu_torch.pipeline.image_tap import atlas_planar
+
+    rng = np.random.default_rng(seed)
+    S, NR, R = 3, 4, 32
+    stops = np.zeros((NR, 1 + 5 * S), np.float32)
+    stops[:, 0] = S
+    stops[:, 1:1 + S] = [0.0, 0.45, 1.0]
+    stops[:, 1 + S:] = rng.random((NR, 4 * S))
+    rows = (rng.random((R, 256)) * 5 - 2.5).astype(np.float32)
+    rows[::3] = np.clip(rows[::3], 0, 1)
+    atlas = atlas_planar(rng.random((32, 40, 4)).astype(np.float32))
+    tile_ids = np.concatenate([rng.permutation(grid)[:n - 2], [grid, grid]]).astype(np.int32)
+
+    def row():
+        return int(rng.integers(0, R))
+
+    def xform(tile, scale, rot, ox, oy):
+        """Words 6..11 mapping the tile's first pixel to (ox, oy)."""
+        c, s_ = np.cos(rot) * scale, np.sin(rot) * scale
+        m = np.array([c, s_, -s_, c], np.float32)
+        gx0, gy0 = (tile % wit) * 16, (tile // wit) * 16
+        xl = ox - (m[0] * gx0 + m[2] * gy0)
+        yl = oy - (m[1] * gx0 + m[3] * gy0)
+        return [_fbits(v) for v in (*m, xl, yl)]
+
+    def color(even_odd=False, rowless=False):
+        w = [1, 0 if rowless else row(), 0 if rowless else 3, 0, int(even_odd)]
+        rgba = rng.random(4)
+        return w + [_fbits(c * rgba[3]) for c in rgba[:3]] + [_fbits(rgba[3])] + [0] * 7
+
+    def lin(tile, ext):
+        gx0, gy0 = (tile % wit) * 16, (tile // wit) * 16
+        lx, ly = 0.05, 0.03
+        return [2, row(), 2, 0, 0, ext, _fbits(lx), _fbits(ly),
+                _fbits(-(lx * gx0 + ly * gy0) - 0.2), 0, 0, 0, 0, 0, 0, int(rng.integers(0, NR))]
+
+    def rad(tile, ext, kind, swapped, focal_x, radius, ox=-0.6):
+        return ([3, row(), 4, 0, 0, ext] + xform(tile, 0.09, 0.3, ox, -0.7)
+                + [_fbits(focal_x), _fbits(radius), (int(swapped) << 3) | kind,
+                   int(rng.integers(0, NR))])
+
+    def sweep(tile, ext):
+        return ([4, row(), 1, 0, 1, ext] + xform(tile, 0.2, 0.0, -1.7, -1.4)
+                + [_fbits(0.1), _fbits(0.8), 0, int(rng.integers(0, NR))])
+
+    def image(tile, trips=False):
+        if trips:  # minified 64x: the taps leave the one region window
+            return ([5, row(), 2, 0, 0, 0] + xform(tile, 64.0, 0.0, 0.0, 0.0)
+                    + [(5 << 16) | 3, (2048 << 16) | 2048, 0, 0])
+        return ([5, row(), 2, 0, 0, 0] + xform(tile, 1.3, 0.2, 1.5, 0.5)
+                + [(5 << 16) | 3, (24 << 16) | 20, 0, 0])
+
+    def begin(zero=False):
+        return [6, 0, 0xFFFFFFFF if zero else 2, 0, 0] + [0] * 11
+
+    def end(mix=0, compose=0, alpha=1.0, rowless=False):
+        return ([7, 0 if rowless else row(), 0 if rowless else 2, 0, 0, (mix << 8) | compose,
+                 _fbits(alpha), 1] + [0] * 8)
+
+    def paint(tile):
+        k = int(rng.integers(0, 5))
+        return [color(bool(rng.integers(0, 2)), k == 0), lin(tile, int(rng.integers(0, 3))),
+                rad(tile, int(rng.integers(0, 3)), 1, False, 0.0, 1.0),
+                sweep(tile, int(rng.integers(0, 3))), image(tile)][k]
+
+    def random_tape(tile):
+        tape, open_words = [], []
+        while len(tape) + len(open_words) < MC - 1:
+            u = rng.random()
+            if u < 0.25 and len(open_words) < BD:
+                tape.append(begin())
+                open_words.append((int(rng.integers(0, 16)), int(rng.integers(0, 14))))
+            elif u < 0.45 and open_words:
+                tape.append(end(*open_words.pop(), alpha=float(rng.random()),
+                                rowless=bool(rng.integers(0, 2))))
+            else:
+                tape.append(paint(tile))
+        while open_words:
+            tape.append(end(*open_words.pop(), alpha=0.8))
+        return tape
+
+    t = [int(v) for v in tile_ids]
+    tapes = [
+        [color(), color(even_odd=True), color(rowless=True)],
+        [lin(t[1], 0), rad(t[1], 1, 1, False, 0.0, 1.0), sweep(t[1], 2)],
+        [rad(t[2], 0, 2, False, 0.0, 0.8), rad(t[2], 2, 3, False, 0.4, 1.0, ox=0.9),  # focal form divides by x: keep x > 0
+        
+         rad(t[2], 1, 4, True, 0.3, 0.7), rad(t[2], 0, 4, False, 0.3, 1.6)],
+        [image(t[3]), color()],
+        [color(), image(t[4], trips=True), color(even_odd=True)],
+        [color(), begin(), color(), end(alpha=0.7)],
+        [color(), begin(), color(), end(mix=1, alpha=1.0, rowless=True)],
+        [color(), begin(), color(), begin(), lin(t[7], 1), end(mix=2, compose=9, alpha=0.9),
+         end(mix=12, alpha=0.6)],
+        [color(), begin(), color(), begin(), color(), begin(), color(), end(mix=3),
+         end(mix=10, compose=4), end(alpha=0.5)],
+        [color(), begin(zero=True), color(), begin(), color(), end(mix=5), end(), color()],
+    ]
+    tapes += [random_tape(t[k]) for k in range(len(tapes), n - 2)] + [[], []]
+    slab = np.zeros((n, MC, 16), np.uint32)
+    for k, tape in enumerate(tapes):
+        assert len(tape) <= MC
+        for ci, w in enumerate(tape):
+            slab[k, ci] = np.array(w, np.uint64).astype(np.uint32)
+            slab[k, ci, 3] = t[k]
+    return {
+        "counts": np.array([len(tp) for tp in tapes], np.int32), "tile_ids": tile_ids,
+        "base": np.array([0.9, 0.8, 0.7, 1.0], np.float32), "slab": slab, "rows": rows,
+        "stops": stops, "atlas": atlas, "wit": wit, "grid": grid, "BD": BD,
+    }
+
+
+def interpret_args(h, device="cpu"):
+    """The arguments of `cuda.fine_interp.interpret_tiles` from a
+    `hand_built_slab` dict, on `device`."""
+    dev = torch.device(device)
+    counts = np.concatenate([h["counts"], [h["wit"]]]).astype(np.int32)
+    return (to_torch(counts).to(dev), to_torch(h["tile_ids"]).to(dev),
+            to_torch(h["base"]).to(dev), to_torch(h["slab"]).to(dev),
+            to_torch(h["rows"]).to(dev), to_torch(h["stops"]).to(dev),
+            to_torch(h["atlas"]).to(dev), h["wit"], h["BD"])
