@@ -37,7 +37,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      real image records, recorded from the tap stage (max abs diff <= 1e-6:
      the same products and sums, not contracted; region flag equal), and
      kernel B with the tap's table vs its plain version on config 5's
-     records (<= 1e-4 on the assembled image);
+     records (<= 1e-4 on the assembled image); kernel A's MSAA body, S = 8
+     and 16, vs its plain version on the same coverage inputs (resolved
+     rows equal: <= 1e-6, 0 expected), timed beside the area body; kernel
+     B's resolved branch on the msaa8 rows, and, because a row in [0, 1]
+     reads the same under either fill rule and under none, once more on
+     rows made negative, where only a kernel that reads its `resolved`
+     switch agrees with its plain version;
   8. config 4 (nested clip layers with mix blends over a full-frame
      gradient, 1920x1080) at its calibrated class, its fine stage's real
      inputs recorded from one frame: kernel G (the per-tile interpreter)
@@ -45,18 +51,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      overflow words equal); kernel H (eight tiles a CTA) vs G on the same
      slab (real slots within 1e-6, overflow words equal) and vs plain;
      kernel B with clip groups vs its plain version on config 4's records
-     (<= 1e-4 on the assembled image); and G and H through fine_interp
-     over the full tile grid of a small scene with clips, blends,
-     gradients and an image vs the plain version;
+     (<= 1e-4 on the assembled image); kernel A's MSAA body vs plain on
+     config 4's coverage inputs, timed (the JSON line's two MSAA entries);
+     the resolved branch of G, H and B with groups on the inputs the fine
+     stage records under msaa8 (same tolerances) and of G and H on
+     negative rows; and G and H through fine_interp over the full tile
+     grid of a small scene with clips, blends, gradients and an image vs
+     the plain version;
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
      stroked and dashed paths, 512x512), config 5 and config 4, render()
      and, for configs 3, 5 and 4, render_surface(); config 4 once more
      under JELLO_INTERP_BATCH=1 (kernel H in G's place, the frame equal
-     to G's within 1e-6); every launch count is set to 0 before each
-     config and read after it; flags must be clear, each kernel of the
-     config's path must have launched (the JSON line gives the sum), and
-     the images must be finite and within 2e-3 of the reference. The
+     to G's within 1e-6); then the same five scenes under msaa8, config 4
+     also under msaa16 and, msaa8 again, under JELLO_INTERP_BATCH=1
+     (render_surface for configs 5 and 4); every launch count is set to 0
+     before each config and read after it; flags must be clear, each
+     kernel of the config's path must have launched (kernel A's MSAA
+     entry and never its area entry under MSAA, and the other way round;
+     the JSON line gives the sum), and the images must be finite and
+     within 2e-3 of the reference. Then an image minified past the image
+     tap's region windows (512x512): its first frame raises
+     image_region_overflow, the frame runs again through the reference
+     fine stage (plain torch on the card, run once a render) and must
+     equal Renderer(device="cpu") within 2e-3. The
      reference for configs 1, 2 and 3 is Renderer(device="cpu"), the
      plain PyTorch version of every stage and kernel, which the CPU tests
      (tests/test_torch_*.py) hold to the JAX package's numpy oracle. At
@@ -67,7 +85,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      no kernel launched meanwhile; --config5-cpu-reference also renders
      and times config 5's CPU reference. Then steady-state ms/frame
      (median after 2 warm-ups) and the peak device memory those frames
-     allocate. Kernel times are CUDA-event means over repeated calls on
+     allocate, each config's MSAA frames beside its area frame. Kernel times are CUDA-event means over repeated calls on
      the same inputs, the kernel's wrapper beside its plain version;
  10. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
@@ -86,6 +104,7 @@ sys.modules["jax"] = None  # any import of JAX fails loudly
 sys.modules["jello_tpu"] = None  # and so does any import of the JAX package
 
 A_TOL = 1e-5
+MSAA_TOL = 1e-6  # A's MSAA body: resolved rows, sums of small integers (0 expected)
 B_TOL = 1e-4
 E_TOL = 1e-5  # E, E': end points and segments vs the plain version
 F_TOL = 1e-6
@@ -271,9 +290,9 @@ class _PlainKernels:
             return px.row_deltas(PRT, incl, counts, RC, T) + (total,)
 
         def interpret(counts, tile_ids, base, slab, rows, stops, atlas, wit, depth,
-                      batch=False):
+                      batch=False, resolved=False):
             return plain_int.interpret_plain(counts[:-1], tile_ids, base, slab, rows, stops,
-                                             atlas, wit, depth)
+                                             atlas, wit, depth, resolved)
 
         swaps = [
             (kint, "interpret_tiles", interpret),
@@ -348,8 +367,32 @@ def _small_clip_scene(jt):
     return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
+def _over_minified_scene(jt):
+    """A 512x512 frame on a gradient ground with four copies of a 512x512
+    noise image drawn at 1/32 scale: a tile of such a draw spans 8 x 2 of
+    the image tap's region windows, more than it sweeps, so the frame
+    raises image_region_overflow."""
+    import numpy as np
+
+    ident = jt.Affine.identity()
+    stops = (jt.ColorStop(0.0, jt.Color.rgba(0.1, 0.3, 0.8, 1)),
+             jt.ColorStop(1.0, jt.Color.rgba(0.9, 0.8, 0.2, 1)))
+    rect = jt.BezPath().move_to(0, 0).line_to(512, 0).line_to(512, 512).line_to(0, 512).close()
+    pix = (np.random.default_rng(2).random((512, 512, 4)) * 255).astype(np.uint8)
+    pix[..., 3] = 255
+    brush = jt.ImageBrush(jt.Image(pixels=pix))
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, ident,
+           jt.GradientBrush(jt.LinearGradient((0, 0), (512, 512), stops)), None, rect)
+    for x, y in ((1, 1), (200.5, 40.25), (77, 301), (420.75, 450.5)):
+        s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(x, y) @ jt.Affine.scale(1.0 / 32.0), brush,
+               None, rect)
+    return s, jt.RenderParams(width=512, height=512, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
 def main():
     import argparse
+    import dataclasses
     import json
     import os
     import time
@@ -394,7 +437,9 @@ def main():
     from jello_tpu_torch.pipeline import image_tap as plain_tap
     from jello_tpu_torch.pipeline import land as plain_land
     from jello_tpu_torch.pipeline import lockstep as plain_walk
+    from jello_tpu_torch.pipeline import render as pipeline_render
     from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.renderer.params import AaConfig
     from jello_tpu_torch.scenes import GATE_SCENES
 
     config1, config2, config3, config4, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 4, 5))
@@ -430,7 +475,7 @@ def main():
     print("recorded calls: " + ", ".join(f"{k} x{len(v)}" for k, v in sorted(calls.items())))
 
     # ---- 4. kernel A vs plain --------------------------------------------
-    stream, rs, re_, bd, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
+    stream, rs, re_, bd, _, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
     rows_k = coverage_rows(stream, rs, re_, bd)
     rows_p = plain_cov.coverage_rows_plain(stream, rs, re_, bd)
     area_k, ids_k, ovf_k = compute_area_rows(cmds, counted, caps)
@@ -534,6 +579,71 @@ def main():
                 _fail(f"{tag}: kernel E'': row slots or deltas differ from the plain version")
             held["E''"] = (max(_max_diff(got[i], want[i]) for i in (0, 1)), got, want)
         return held
+
+    def hold_msaa_rows(aa, stream, rs, re_, bd, eo, tag):
+        """Kernel A's MSAA body against its plain version on one frame's
+        coverage inputs: the resolved rows must be equal (MSAA_TOL), in
+        [0, 1] and multiples of 1 / samples. Returns the max abs diff."""
+        offsets = plain_cov.sample_offsets(aa)
+        got = coverage_rows(stream, rs, re_, bd, offsets, eo)
+        want = plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo)
+        torch.cuda.synchronize()
+        err = _max_diff(got, want)
+        n = len(offsets)
+        live = got[re_ > rs]
+        quantized = torch.equal(got * n, torch.round(got * n))
+        print(f"{tag}: kernel A, {aa}: {live.shape[0]} rows, {int(eo.sum())} of them "
+              f"even-odd, max|row diff| {err:.3e}, mean coverage {float(live.mean()):.4f}, "
+              f"multiples of 1/{n}: {quantized}")
+        if (not err <= MSAA_TOL or not quantized or torch.isnan(got).any()
+                or float(got.min()) < 0.0 or float(got.max()) > 1.0
+                or not 0.0 < float(live.mean()) < 1.0):
+            _fail(f"{tag}: kernel A's {aa} body disagrees with its plain version")
+        return err
+
+    def time_msaa_rows(aa, stream, rs, re_, bd, eo, tag, n_plain):
+        """Kernel A's MSAA body timed on one frame's coverage inputs, beside
+        its plain version (n_plain calls; 0: not timed) and its bound.
+        Returns (ms, plain ms or None, (bound_ms, bound_by)).
+
+        The bound is by float operations unless the rows are few, and it
+        counts what the function needs, not what this kernel spends: the
+        crossing test, the crossing's x and the y_edge term depend on the
+        segment, the pixel row and the sample only, not on the pixel, so
+        they are counted once for each (segment, pixel row, sample): two
+        comparisons, the y_edge comparison, its product and the valid
+        product (5), and where the segment crosses the sample row a
+        difference, a division, a product, a sum and the winding's sign
+        (5 more); the crossed ones are counted from this run's segments.
+        For each (segment, pixel, sample) only `xi < xs` and the
+        accumulation are left (2). Bytes: the inputs once and 1 KB for
+        every row of the table."""
+        offsets = plain_cov.sample_offsets(aa)
+        n_s = len(offsets)
+        nonempty = re_ > rs
+        edges = torch.zeros(stream.shape[0] + 1, dtype=torch.int32, device=stream.device)
+        ones = torch.ones_like(rs[nonempty])
+        edges.index_add_(0, rs[nonempty].long(), ones)
+        edges.index_add_(0, re_[nonempty].long(), -ones)
+        run_seg = stream[torch.cumsum(edges, 0)[:-1] > 0]
+        ys = (torch.arange(16, device=stream.device)[:, None]
+              + (torch.arange(n_s, device=stream.device)[None, :] + 0.5) / n_s).reshape(1, -1)
+        crossed = int(((run_seg[:, 1:2] <= ys) != (run_seg[:, 3:4] <= ys)).sum())
+        sample_rows = run_seg.shape[0] * 16 * n_s
+        triples = sample_rows * 16
+        bound = _bound(_nbytes(stream, rs, re_, bd, eo) + rs.shape[0] * 1024,
+                       triples * 2 + sample_rows * 5 + crossed * 5)
+        ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd, offsets, eo), 20)
+        plain_ms = None
+        if n_plain:
+            plain_ms = _time_ms(
+                lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo), n_plain)
+        print(f"kernel A, {aa}, {tag}: {run_seg.shape[0]} segments in {int(nonempty.sum())} "
+              f"rows of {rs.shape[0]}, {crossed} crossed (segment, pixel row, sample) triples "
+              f"of {sample_rows}: {ms:.3f} ms"
+              + (f" vs plain {plain_ms:.3f} ms" if n_plain else "")
+              + f", bound {bound[0]:.4f} ms by {bound[1]}")
+        return ms, plain_ms, bound
 
     geometry_wrappers = [(kland, "monotone_land"), (kwalk, "lockstep_walk"),
                          (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows")]
@@ -649,9 +759,19 @@ def main():
     # The geometry kernels and A at this frame's shapes, the first with
     # stroke offsets: held to their plain versions, not timed.
     held5 = hold_geometry_kernels(calls5, "config 5")
-    stream, rs, re_, bd, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
+    stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(cmds, counted,
+                                                             dict(caps, aa_mode="msaa8"))
     err_a5 = _max_diff(coverage_rows(stream, rs, re_, bd),
                        plain_cov.coverage_rows_plain(stream, rs, re_, bd))
+    # Kernel A's MSAA body on the same coverage inputs: resolved rows.
+    err_msaa = {aa: hold_msaa_rows(aa, stream, rs, re_, bd, eo, "config 5")
+                for aa in ("msaa8", "msaa16")}
+    # At config 5's 872k segments the body is bound by its operations: timed
+    # here beside the area body (the JSON line carries config 4's times).
+    a5_ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd), 20)
+    print(f"kernel A, area, config 5: {a5_ms:.3f} ms")
+    for aa in ("msaa8", "msaa16"):
+        time_msaa_rows(aa, stream, rs, re_, bd, eo, "config 5", 0)
     print("config 5 recorded calls: "
           + ", ".join(f"{k} x{len(v)}" for k, v in sorted(calls5.items()))
           + "; max|diff| vs plain: "
@@ -662,7 +782,7 @@ def main():
         _fail("config 5: kernel A disagrees with its plain version")
     for k, v in held5.items():
         res[k] = (max(res[k][0], v[0]),) + res[k][1:]
-    del calls5, held5, stream, rs, re_, bd
+    del calls5, held5, stream, rs, re_, bd, eo
     area5, ids5, _ = compute_area_rows(cmds, counted, caps)
     rec5 = build_records(dict(cmds, area_row=ids5), caps)
     out = {}
@@ -743,7 +863,37 @@ def main():
     b5_plain_ms = _time_ms(lambda: composite_records_plain(*b_args), 2)
     print(f"kernel B, config 5: {b5_ms:.3f} ms vs plain {b5_plain_ms:.3f} ms, bound "
           f"{b_bound[0]:.4f} ms by {b_bound[1]}")
-    res["B"] = (max(err_b, err_b5), b5_ms, b5_plain_ms, b_bound, None)
+    # Kernel B's resolved branch: the same records over the resolved rows
+    # of an msaa8 frame, every row clipped to [0, 1] and no rule applied.
+    area5_m, ids5_m, _ = compute_area_rows(cmds, counted, dict(caps, aa_mode="msaa8"))
+    if not torch.equal(ids5_m, ids5):
+        _fail("config 5: the record ids of the MSAA coverage table differ from area mode's")
+    m_args = (rec5, area5_m) + b_args[2:] + (True,)
+    img_m = assemble_compact(composite_records(*m_args), t2r, ld5)
+    img_mp = assemble_compact(composite_records_plain(*m_args), t2r, ld5)
+    torch.cuda.synchronize()
+    err_b5m = (img_m - img_mp).abs().max().item()
+    moved = (img_m - img_k).abs().max().item()
+    print(f"kernel B, resolved branch, config 5 (msaa8 rows): max|image diff| {err_b5m:.3e} "
+          f"nan {bool(torch.isnan(img_m).any())}; the msaa8 rows move the frame by {moved:.3f}")
+    if not err_b5m <= B_TOL or torch.isnan(img_m).any() or not moved > 1e-2:
+        _fail("kernel B's resolved branch disagrees with its plain version")
+    # A row in [0, 1] reads the same under either rule and under none, so
+    # the switch itself is held on rows that leave [0, 1]: the area rows
+    # made negative wherever a path covers.
+    n_args = (rec5, -1.5 * area5.abs()) + b_args[2:] + (True,)
+    img_n = assemble_compact(composite_records(*n_args), t2r, ld5)
+    img_np = assemble_compact(composite_records_plain(*n_args), t2r, ld5)
+    by_rule = assemble_compact(composite_records(*n_args[:8]), t2r, ld5)
+    torch.cuda.synchronize()
+    err_b5n = (img_n - img_np).abs().max().item()
+    switched = (img_n - by_rule).abs().max().item()
+    print(f"kernel B, resolved branch on negative rows: max|image diff| {err_b5n:.3e}; the "
+          f"switch moves the frame by {switched:.3f}")
+    if not err_b5n <= B_TOL or not switched > 1e-2:
+        _fail("kernel B does not read its resolved switch as its plain version does")
+    res["B"] = (max(err_b, err_b5, err_b5m, err_b5n), b5_ms, b5_plain_ms, b_bound, None)
+    del area5_m, ids5_m, m_args, img_m, img_mp, n_args, img_n, img_np, by_rule
     del (stages, cmds, counted, area5, ids5, rec5, out, tap_calls, f_args, fg_tab, got_f,
          want_f, b_args, out_k, out_p, t2r, img_k, img_p, bare, kind5, live5, warm,
          run_len, edges, nonempty, walked, paints5)
@@ -863,8 +1013,73 @@ def main():
     res["B groups"] = (err_b4, b4_ms, b4_plain_ms, b4_bound, None)
     print(f"kernel B with groups, config 4: {b4_ms:.3f} ms vs plain {b4_plain_ms:.3f} ms, "
           f"bound {b4_bound[0]:.4f} ms by {b4_bound[1]} ({b4_bytes / 1e6:.1f} MB needed)")
+    # Kernel A's MSAA body on config 4's coverage inputs, held and timed.
+    stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(cmds, counted,
+                                                             dict(caps, aa_mode="msaa8"))
+    for aa in ("msaa8", "msaa16"):
+        err = hold_msaa_rows(aa, stream, rs, re_, bd, eo, "config 4")
+        res["A " + aa] = (max(err, err_msaa[aa]),) + time_msaa_rows(
+            aa, stream, rs, re_, bd, eo, "config 4", 2) + (None,)
+    del stream, rs, re_, bd, eo
+
+    # The resolved branch of G, H and B: config 4's fine stage once more
+    # with msaa8 in the caps, its real inputs (resolved rows) recorded.
+    out = {}
+    calls4m = _record_calls(
+        [(kint, "interpret_tiles"), (kfine, "composite_records")],
+        lambda: out.update(fine=khybrid.fine_hybrid(cmds, counted, ramps_t, atlas_t, layout_t,
+                                                    dict(caps, aa_mode="msaa8"))))
+    if any(bool(v) for v in out["fine"][1].values()):
+        _fail("config 4's msaa8 fine stage raised a flag at the calibrated class")
+    gm_all = calls4m["interpret_tiles"][0]
+    (bm_args,) = calls4m["composite_records"]
+    if gm_all[10] is not True or bm_args[8] is not True:
+        _fail("fine_hybrid did not ask for the resolved branch under msaa8")
+    gm_args = gm_all[:9]
+    got_gm, ovf_gm = kint.interpret_tiles(*gm_args, False, True)
+    got_hm, ovf_hm = kint.interpret_tiles(*gm_args, True, True)
+    want_gm, ovf_pm = plain_int.interpret_plain(gm_args[0][:-1], *gm_args[1:], resolved=True)
+    torch.cuda.synchronize()
+    err_gm = _max_diff(got_gm[real], want_gm[real])
+    err_hm = _max_diff(got_hm[real], want_gm[real])
+    err_hgm = _max_diff(got_hm[real], got_gm[real])
+    moved = _max_diff(got_gm[real], got_g[real])
+    print(f"kernels G and H, resolved branch (msaa8 rows): max|row diff| G vs plain "
+          f"{err_gm:.3e}, H vs plain {err_hm:.3e}, H vs G {err_hgm:.3e}; overflow words equal: "
+          f"{torch.equal(ovf_gm, ovf_pm) and torch.equal(ovf_hm, ovf_gm)}; the msaa8 rows move "
+          f"the legacy tiles by {moved:.3f}")
+    if (not err_gm <= G_TOL or not err_hm <= G_TOL or not err_hgm <= H_TOL
+            or not torch.equal(ovf_gm, ovf_pm) or not torch.equal(ovf_hm, ovf_gm)
+            or torch.isnan(got_gm[real]).any() or not moved > 1e-2):
+        _fail("the resolved branch of kernel G or H disagrees with its plain version")
+    # The switch itself, on rows that leave [0, 1] (as for kernel B).
+    gn_args = g_args[:4] + (-1.5 * g_rows.abs(),) + g_args[5:]
+    got_gn, _ = kint.interpret_tiles(*gn_args, False, True)
+    got_hn, _ = kint.interpret_tiles(*gn_args, True, True)
+    want_gn, _ = plain_int.interpret_plain(gn_args[0][:-1], *gn_args[1:], resolved=True)
+    by_rule, _ = kint.interpret_tiles(*gn_args)
+    torch.cuda.synchronize()
+    err_gn = max(_max_diff(got_gn[real], want_gn[real]), _max_diff(got_hn[real], want_gn[real]))
+    switched = _max_diff(got_gn[real], by_rule[real])
+    print(f"kernels G and H, resolved branch on negative rows: max|row diff| vs plain "
+          f"{err_gn:.3e}; the switch moves the legacy tiles by {switched:.3f}")
+    if not err_gn <= G_TOL or not switched > 1e-2:
+        _fail("kernel G or H does not read its resolved switch as the plain version does")
+    res["G"] = (max(res["G"][0], err_gm, err_gn),) + res["G"][1:]
+    res["H"] = (max(res["H"][0], err_hm, err_hgm, err_gn),) + res["H"][1:]
+    del gn_args, got_gn, got_hn, want_gn, by_rule
+    img_km = assemble_compact(composite_records(*bm_args), t2r, ld4)
+    img_pm = assemble_compact(composite_records_plain(*bm_args), t2r, ld4)
+    torch.cuda.synchronize()
+    err_b4m = (img_km - img_pm).abs().max().item()
+    print(f"kernel B with groups, resolved branch (msaa8 rows): max|image diff| {err_b4m:.3e} "
+          f"nan {bool(torch.isnan(img_km).any())}")
+    if not err_b4m <= B_TOL or torch.isnan(img_km).any():
+        _fail("kernel B's resolved branch with clip groups disagrees with its plain version")
+    res["B groups"] = (max(err_b4, err_b4m),) + res["B groups"][1:]
     del (stages, cmds, counted, out, calls4, g_args, b_args, got_g, got_h, want_g, steps,
-         kinds, segs, rec4, out_k, out_p, img_k, img_p, warm, g_slab, g_rows)
+         kinds, segs, rec4, out_k, out_p, img_k, img_p, warm, g_slab, g_rows, calls4m, gm_all,
+         bm_args, gm_args, got_gm, got_hm, want_gm, img_km, img_pm)
 
     # G and H through fine_interp over the full grid of a small scene whose
     # image, too, goes through the interpreter (no image tap).
@@ -898,6 +1113,7 @@ def main():
     # ---- 9. main path ----------------------------------------------------
     counters = {
         "coverage_area": (coverage_rows, "launches"),
+        "coverage_msaa": (coverage_rows, "launches_msaa"),
         "fine_v2": (composite_records, "launches"),
         "monotone_land": (kland.monotone_land, "launches"),
         "lockstep_walk": (kwalk.lockstep_walk, "launches"),
@@ -908,9 +1124,15 @@ def main():
         "fine_interp": (kint.interpret_tiles, "launches"),
         "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
     }
-    # Kernels that only some configs' paths run.
-    optional = {"image_tap": ("config5",), "fine_interp": ("config4",),
-                "fine_interp_b8": ("config4_b8",)}
+    def on_path(kernel, name):
+        """Whether the run `name` (a config, then maybe the MSAA mode, then
+        maybe b8) must launch `kernel`: each entry of kernel A in its own
+        mode only, F with config 5's atlas, G or H on config 4."""
+        config, msaa, b8 = name.split("_")[0], "msaa" in name, name.endswith("b8")
+        return {"coverage_area": not msaa, "coverage_msaa": msaa,
+                "image_tap": config == "config5",
+                "fine_interp": config == "config4" and not b8,
+                "fine_interp_b8": b8}.get(kernel, True)
 
     def zero_counts():
         for fn, attr in counters.values():
@@ -922,8 +1144,10 @@ def main():
     def read_counts(name):
         got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         print(f"{name} main path launches: {got}")
-        if min(v for k, v in got.items() if name in optional.get(k, (name,))) < 1:
+        if min(v for k, v in got.items() if on_path(k, name)) < 1:
             _fail(f"{name}: a kernel of the main path was never launched")
+        if got["coverage_area"] and got["coverage_msaa"]:
+            _fail(f"{name}: both entries of kernel A launched in one antialiasing mode")
         return got
 
     t = time.perf_counter()
@@ -964,17 +1188,51 @@ def main():
             or launches["config4_b8"]["fine_interp"] != 0):
         _fail("config 4 through kernel H differs from the frame through kernel G")
 
+    # The same five scenes under MSAA: msaa8 everywhere, config 4 also
+    # under msaa16 and, msaa8 again, through kernel H. Kernel A's MSAA
+    # entry must launch and its area entry must not.
+    msaa_frames, msaa_surfaces = {}, {}
+
+    def render_msaa(tag, scene, params, surface):
+        zero_counts()
+        img = r.render(scene, params)
+        msaa_frames[tag] = (scene, params, img, dict(r.last_flags))
+        if surface:
+            msaa_surfaces[tag] = r.render_surface(scene, params)
+        launches[tag] = read_counts(tag)
+        if r.last_retries:
+            print(f"{tag}: frames run again for: {r.last_retries}")
+
+    for name, (scene, params) in scenes.items():
+        for aa in ("msaa8", "msaa16") if name == "config4" else ("msaa8",):
+            render_msaa(f"{name}_{aa}", scene,
+                        dataclasses.replace(params, antialiasing_method=AaConfig(aa)),
+                        name in ("config5", "config4"))
+    os.environ["JELLO_INTERP_BATCH"] = "1"
+    try:
+        render_msaa("config4_msaa8_b8", *msaa_frames["config4_msaa8"][:2], False)
+    finally:
+        del os.environ["JELLO_INTERP_BATCH"]
+    err_b8m = float(np.abs(msaa_frames["config4_msaa8_b8"][2]
+                           - msaa_frames["config4_msaa8"][2]).max())
+    print(f"config4_msaa8 under JELLO_INTERP_BATCH=1: max|frame diff| vs the G frame "
+          f"{err_b8m:.3e}")
+    if not err_b8m <= H_TOL or launches["config4_msaa8_b8"]["fine_interp"] != 0:
+        _fail("config 4 under msaa8 through kernel H differs from the frame through kernel G")
+
     refs = {}
     cpu = Renderer(device="cpu")
-    for name, (scene, params) in scenes.items():
-        img, flags, _ = frames[name]
+    plain_r = Renderer(device="cuda")  # renders only inside _PlainKernels
+
+    def hold_frame(name, scene, params, img, flags):
+        """One frame of the main path against its reference (within
+        IMG_TOL, finite, no flag). Returns the reference image."""
         t = time.perf_counter()
-        if name in ("config5", "config4"):
+        if name.startswith(("config5", "config4")):
             # This script's own reference call: the plain version of every
             # kernel, on CUDA tensors.
             zero_counts()
             with _PlainKernels():
-                plain_r = Renderer(device="cuda")
                 ref = plain_r.render(scene, params)
             torch.cuda.synchronize()
             if any_launch() or any(plain_r.last_flags.values()):
@@ -994,7 +1252,22 @@ def main():
               f"max|err| vs {how} {err:.3e}{note} (reference took {ref_s:.1f} s)")
         if raised or not finite or not err <= IMG_TOL or img.shape != ref.shape:
             _fail(f"{name} output wrong")
-        refs[name] = ref
+        return ref
+
+    # A config's MSAA frames right after its area frame: the reference
+    # renderers then keep the scene's calibrated class.
+    for name, (scene, params) in scenes.items():
+        refs[name] = hold_frame(name, scene, params, *frames[name][:2])
+        for tag in (f"{name}_msaa8", f"{name}_msaa16"):
+            if tag in msaa_frames:
+                refs[tag] = hold_frame(tag, *msaa_frames[tag])
+    for tag, (_, _, img, _) in msaa_frames.items():
+        if tag.endswith("b8"):
+            continue  # held to the G frame above
+        moved = float(np.abs(img - frames[tag.split("_")[0]][0]).max())
+        print(f"{tag}: differs from the area frame by up to {moved:.3f}")
+        if not moved > 1e-2:
+            _fail(f"{tag}: the MSAA frame equals the area frame")
     if opts.config5_cpu_reference:
         t = time.perf_counter()
         ref_cpu = cpu.render(scene5, params5)
@@ -1002,7 +1275,7 @@ def main():
               f"frame vs it {float(np.abs(frames['config5'][0] - ref_cpu).max()):.3e}, of "
               f"the plain-on-CUDA reference vs it "
               f"{float(np.abs(refs['config5'] - ref_cpu).max()):.3e}")
-    for name, surf in surfaces.items():
+    for name, surf in {**surfaces, **msaa_surfaces}.items():
         ref_u8 = present(torch.from_numpy(refs[name])).numpy()
         du8 = int(np.abs(surf.astype(np.int32) - ref_u8.astype(np.int32)).max())
         print(f"render_surface {name}: {surf.shape} {surf.dtype}, max u8 diff vs "
@@ -1010,7 +1283,51 @@ def main():
         if surf.shape != ref_u8.shape or surf.dtype != np.uint8 or du8 > 1:
             _fail("render_surface output wrong")
 
+    # An image minified past the tap's region windows: the first frame
+    # raises image_region_overflow and the frame runs again through the
+    # reference fine stage, plain torch on the card.
+    scene_o, params_o = _over_minified_scene(jello_tpu_torch)
+    ref_runs = []
+    fine_ref_fine = pipeline_render.fine_ref.fine
+
+    def counted_fine_ref(*args):
+        ref_runs.append(1)
+        return fine_ref_fine(*args)
+
+    pipeline_render.fine_ref.fine = counted_fine_ref
+    try:
+        r_o = Renderer(device="cuda")
+        r_o.render(scene_o, params_o)
+        first = (list(r_o.last_retries), len(ref_runs))
+        del ref_runs[:]
+        zero_counts()
+        img_o = r_o.render(scene_o, params_o)
+        surf_o = r_o.render_surface(scene_o, params_o)
+    finally:
+        pipeline_render.fine_ref.fine = fine_ref_fine
+    got_o = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    ref_o = cpu.render(scene_o, params_o)
+    err_o = float(np.abs(img_o - ref_o).max())
+    du8_o = int(np.abs(surf_o.astype(np.int32)
+                       - present(torch.from_numpy(ref_o)).numpy().astype(np.int32)).max())
+    print(f"over-minified image, {params_o.width}x{params_o.height}: the first render ran "
+          f"again for {first[0]} (fine_ref {first[1]} times); settled, a render runs again "
+          f"for {r_o.last_retries}, fine_ref ran {len(ref_runs)} times in two renders, "
+          f"image tap launches {got_o['image_tap']}, fine_v2 {got_o['fine_v2']}; flags raised "
+          f"{[k for k, v in r_o.last_flags.items() if v]}; max|err| vs the CPU reference "
+          f"{err_o:.3e}, u8 diff {du8_o}; CPU reference retries {cpu.last_retries}")
+    if (r_o.last_retries != [["image_region_overflow: rerouted to fine_ref"]]
+            or len(ref_runs) != 2 or any(r_o.last_flags.values()) or not err_o <= IMG_TOL
+            or du8_o > 1 or not np.isfinite(img_o).all() or got_o["image_tap"] != 2
+            or ["image_region_overflow: rerouted to fine_ref"] not in cpu.last_retries):
+        _fail("the over-minified image frame did not render through the reference fine stage")
+
     for name, (scene, params) in scenes.items():
+        for aa in ("msaa8", "msaa16") if name == "config4" else ("msaa8",):
+            params_m = msaa_frames[f"{name}_{aa}"][1]
+            med, lo, hi, peak = _frame_ms(lambda: r.render_device(scene, params_m))
+            print(f"{name}_{aa}: render_device {med:.3f} ms/frame median of {FRAMES} "
+                  f"(min {lo:.3f}, max {hi:.3f}), peak device memory {peak:.1f} MiB, on {smi}")
         for what, fn in (("render_device", r.render_device),
                          ("render_surface", r.render_surface)):
             if name == "config2" and what == "render_surface":
@@ -1046,10 +1363,15 @@ def main():
     kernels = [
         entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",
               max(err_rows, err_a, err_a5), a_ms, a_plain_ms, a_bound, None),
+        # Kernel A's MSAA body, at config 4's coverage inputs.
+        entry("coverage_msaa8", "coverage.cu", "coverage_pallas.py:266", *res["A msaa8"],
+              counter="coverage_msaa", configs=[t for t in launches if "msaa8" in t]),
+        entry("coverage_msaa16", "coverage.cu", "coverage_pallas.py:266", *res["A msaa16"],
+              counter="coverage_msaa", configs=[t for t in launches if "msaa16" in t]),
         entry("fine_v2", "fine_v2.cu", "fine_v2.py:564", *res["B"]),
         # Kernel B again, at config 4's records: its clip-group pass.
         entry("fine_v2_groups", "fine_v2.cu", "fine_v2.py:564", *res["B groups"],
-              counter="fine_v2", configs=("config4", "config4_b8")),
+              counter="fine_v2", configs=[t for t in launches if t.startswith("config4")]),
         entry("monotone_land", "land.cu", "land_pallas.py:171", *res["C"]),
         entry("lockstep_walk", "lockstep.cu", "lockstep_pallas.py:198", *res["D"]),
         entry("expand_euler", "expand.cu", "expand_pallas.py:248", *res["E"]),

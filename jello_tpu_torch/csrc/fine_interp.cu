@@ -23,7 +23,9 @@
 // BeginClip does not set it, an EndClip sets it from its own row by the
 // nonzero rule, a rowless fill sets 1, a suppressed record leaves it; it
 // starts at 0) in registers. Coverage is one coalesced 1 KB row read at
-// index word 1. Gradients are kernel B's device code (paint.cuh); an
+// index word 1; with `resolved` set (an MSAA frame) the row is kernel A's
+// resolved coverage and is clipped to [0, 1] whatever the record's rule
+// and kind (fine_pallas.py:292-293, 767-768). Gradients are kernel B's device code (paint.cuh); an
 // image record gathers its four texels from the L2-resident planar atlas
 // as kernel F does, under the interpreter's own region contract: one
 // 64x256 window at x_lo = clip(rx0 / 128 * 128, 0, AWp - 256), y_lo =
@@ -81,6 +83,7 @@ struct Tables {
   const float* stops;
   const float* atlas;
   int n_rows, n_ramp_rows, row_w, BD, AHp, AWp;
+  int resolved;  // rows are resolved coverage (MSAA), not raw winding
 };
 
 // One record of one tile's tape, for this thread's pixel. `stack` points
@@ -101,7 +104,7 @@ __device__ __forceinline__ void record_step(const int* w, float gx, float gy, fl
     if (seg_raw > 0) {
       const int row = clamp_i(w[1], 0, tb.n_rows - 1);
       const float a = tb.rows[(size_t)row * kPixels + p];
-      area = fill_rule(a, (w[4] & 1) != 0 && !is_end);
+      area = tb.resolved ? resolved_coverage(a) : fill_rule(a, (w[4] & 1) != 0 && !is_end);
     } else {
       area = 1.0f;
     }
@@ -224,16 +227,17 @@ fine_interp_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
 // i32, base [4] f32, slab [n, MC, 16] i32, rows [n_rows, 256] f32, stops
 // [NR, W] f32, atlas [4, AHp, AWp] f32 or null, scratch [n, BD, 4, 256]
 // f32 or null (null: G's stack in shared memory), out [n, 4, 256] f32,
-// ovf [n] i32. batch != 0 launches H and needs n % 8 == 0 and a scratch.
+// ovf [n] i32. batch != 0 launches H and needs n % 8 == 0 and a scratch;
+// resolved != 0: the rows are resolved coverage.
 extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const void* base,
                                  const void* slab, const void* rows, const void* stops,
                                  const void* atlas, void* scratch, void* out, void* ovf,
                                  int n, int MC, int n_rows, int n_ramp_rows, int row_w,
                                  int wit, int BD, int AHp, int AWp, int batch,
-                                 void* stream) {
+                                 int resolved, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   Tables tb{(const float*)rows, (const float*)stops, (const float*)atlas,
-            n_rows, n_ramp_rows, row_w, BD, AHp, AWp};
+            n_rows, n_ramp_rows, row_w, BD, AHp, AWp, resolved};
   cudaStream_t s = (cudaStream_t)stream;
   if (batch != 0) {
     if (n % kBatchTiles != 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;

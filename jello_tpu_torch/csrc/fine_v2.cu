@@ -13,7 +13,9 @@
 // contiguous run [tile_start, tile_end) of the tile-sorted stream:
 //   - reads the record's coverage row and applies the fill rule on raw
 //     winding (even-odd |a - 2 rint(a/2)|, nonzero min(|a|, 1); a
-//     rowless record covers fully);
+//     rowless record covers fully); with `resolved` set (an MSAA frame)
+//     the row is kernel A's resolved coverage and is only clipped to
+//     [0, 1], whatever the record's rule (fine_v2.py:182-183);
 //   - evaluates the paint (paint.cuh): solid premultiplied color, or a
 //     linear, radial (strip / focal / cone, swapped post-flip) or sweep
 //     gradient from the stop table, with the sRGB EOTF as
@@ -38,7 +40,8 @@
 // the EndClip (bit 5) applies
 //     v = (1 - covc (1 - A_g)) v + covc B_g,
 // covc = min(|clip row|, 1) alpha (the nonzero rule, the row the EndClip
-// shares with its BeginClip), or for a rowless EndClip
+// shares with its BeginClip; the clipped row itself when `resolved`,
+// fine_v2.py:204-205), or for a rowless EndClip in either mode
 // min(|backdrop word 7|, 1) alpha: 0 for a group that covers nothing,
 // alpha for one that covers the tile. A record that leaves v alone still
 // writes the running composite at its own index. The group ids in flag
@@ -67,7 +70,7 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
                const int* __restrict__ tile_end,
                const float* __restrict__ base,
                const float* __restrict__ fg_tab, float* __restrict__ out,
-               int n_ramp_rows, int row_w, int wit, int n_fg_rows) {
+               int n_ramp_rows, int row_w, int wit, int n_fg_rows, int resolved) {
   __shared__ int w[16];
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -103,7 +106,9 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
     if (live) {
       const float a = cov[(size_t)i * kPixels + p];
       // A seg-less fill has no row: the tile is fully inside.
-      const float c = w[1] < 0 ? 1.0f : fill_rule(a, (flags & 1) != 0);
+      const float c = w[1] < 0 ? 1.0f
+                      : resolved ? resolved_coverage(a)
+                                 : fill_rule(a, (flags & 1) != 0);
       float fg[4];
       if (is_color) {
         fg[0] = f[5]; fg[1] = f[6]; fg[2] = f[7]; fg[3] = f[8];
@@ -139,8 +144,11 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
       A = 1.0f;
       B[0] = B[1] = B[2] = B[3] = 0.0f;
     } else if (end_group) {
-      const float covc_base = w[1] >= 0 ? fminf(fabsf(cov[(size_t)i * kPixels + p]), 1.0f)
-                                        : fminf(fabsf((float)w[7]), 1.0f);
+      float covc_base = fminf(fabsf((float)w[7]), 1.0f);
+      if (w[1] >= 0) {
+        const float a = cov[(size_t)i * kPixels + p];
+        covc_base = resolved ? resolved_coverage(a) : fill_rule(a, false);
+      }
       const float covc = covc_base * f[6];
       A = 1.0f - covc * (1.0f - Ag);
 #pragma unroll
@@ -167,12 +175,12 @@ extern "C" int jello_fine_v2(const void* rec, const void* cov, const void* stops
                              const void* tile_start, const void* tile_end,
                              const void* base, const void* fg_tab, void* out,
                              int n_tiles, int n_ramp_rows, int row_w, int wit,
-                             int n_fg_rows, void* stream) {
+                             int n_fg_rows, int resolved, void* stream) {
   if (n_tiles > 0) {
     fine_v2_kernel<<<n_tiles, kPixels, 0, (cudaStream_t)stream>>>(
         (const int*)rec, (const float*)cov, (const float*)stops,
         (const int*)tile_start, (const int*)tile_end, (const float*)base,
-        (const float*)fg_tab, (float*)out, n_ramp_rows, row_w, wit, n_fg_rows);
+        (const float*)fg_tab, (float*)out, n_ramp_rows, row_w, wit, n_fg_rows, resolved);
   }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // image tap F (image_tap.cu) and the per-tile interpreter G/H
 // (fine_interp.cu). One thread evaluates one pixel of a 16x16 tile.
 //
-//   - the fill rule on a raw winding value;
+//   - the fill rule on a raw winding value, and the clip to [0, 1] that
+//     takes its place on a row that arrives resolved (MSAA);
 //   - the three gradient kinds of a 16-word record against the stop
 //     table (jello_tpu/tpu/fine_v2.py:216-339, the same math as
 //     fine_pallas.py:313-396), premultiplied, the radial validity mask
@@ -60,6 +61,12 @@ __device__ __forceinline__ int floordiv_i(int a, int b) {
 // Coverage of a raw winding value under the even-odd or the nonzero rule.
 __device__ __forceinline__ float fill_rule(float a, bool even_odd) {
   return even_odd ? fabsf(a - 2.0f * rintf(0.5f * a)) : fminf(fabsf(a), 1.0f);
+}
+
+// Coverage of a row that kernel A already resolved per sample (MSAA): the
+// value as it is, no rule.
+__device__ __forceinline__ float resolved_coverage(float a) {
+  return clip_f(a, 0.0f, 1.0f);
 }
 
 __device__ __forceinline__ float extend_f(float t, int mode) {

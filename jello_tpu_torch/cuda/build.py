@@ -39,11 +39,14 @@ SIGNATURES = {
     # seg stream [SC, 8] f32, row_start [R] i32, row_end [R] i32,
     # row_bd [R] f32, out [R, 256] f32, R, stream
     "jello_coverage_area": [P, P, P, P, P, I, P],
+    # seg stream, row_start, row_end, row_bd as above, row_eo [R] i32,
+    # out [R, 256] f32, R, samples (8 or 16), stream
+    "jello_coverage_msaa": [P, P, P, P, P, P, I, I, P],
     # rec [PC, 16] i32, cov [>=PC, 256] f32, stops [NR, W] f32,
     # tile_start [GRID] i32, tile_end [GRID] i32, base [4] f32,
     # fg_tab [IRC, 1024] f32 or null, out [PC, 4, 256] f32, GRID, NR, W,
-    # wit, IRC, stream
-    "jello_fine_v2": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # wit, IRC, resolved (1: cov holds resolved MSAA rows), stream
+    "jello_fine_v2": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     # pos [R] i32, keep [R] bool, vals [K, R] f32, out [K, out_len] f32
     # (zeroed), R, K, out_len, stream
     "jello_monotone_land": [P, P, P, P, I, I, I, P],
@@ -67,8 +70,8 @@ SIGNATURES = {
     # rows [R, 256] f32, stops [NR, W] f32, atlas [4, AHp, AWp] f32 or null,
     # stack scratch [n, BD, 4, 256] f32 or null, out [n, 4, 256] f32, ovf
     # [n] i32, n, MC, R, NR, W, wit, BD, AHp, AWp, batch (0 kernel G, 1
-    # kernel H), stream
-    "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # kernel H), resolved (1: rows hold resolved MSAA coverage), stream
+    "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
 }
 
 

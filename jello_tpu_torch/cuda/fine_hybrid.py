@@ -31,7 +31,7 @@ import torch
 
 from ..pipeline import ops
 from ..pipeline.coarse import classify_legacy_tiles
-from ..pipeline.fine_interp import OVF_BLEND_DEPTH, OVF_IMAGE_REGION
+from ..pipeline.fine_interp import OVF_BLEND_DEPTH, OVF_IMAGE_REGION, build_records
 from ..pipeline.flatten import expand_by_counts
 from ..pipeline.image_tap import image_tap
 from ..pipeline.ops import I32
@@ -65,7 +65,9 @@ def pack_group_flags(cmds, caps):
 
 
 def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
-    """The fine stage of a frame with clip layers. Returns ((compact
+    """The fine stage of a frame with clip layers, in the antialiasing
+    mode of `caps["aa_mode"]` (under MSAA both kernels read kernel A's
+    resolved rows as they are). Returns ((compact
     [PC, 4, 256] un-premultiplied, record-indexed; tile2rank [GRID]),
     flags)."""
     GRID = caps["tile_grid_cap"]
@@ -74,13 +76,14 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
     tile = cmds["tile"]
     in_grid = tile < GRID
     wit = layout["width_in_tiles"]
+    resolved = caps.get("aa_mode", "area") != "area"
 
     flags_w, lt_flag, rec_legacy = pack_group_flags(cmds, caps)
     cmds = dict(cmds, flags=flags_w)
 
     area, area_row_rec, rows_overflow = compute_area_rows(cmds, counted, caps)
     cmds["area_row"] = area_row_rec
-    rec = kfine.build_records(cmds, caps)
+    rec = build_records(cmds, caps)
     flags = {"area_rows_overflow": rows_overflow}
     fg_tab = None
     tap_region = None
@@ -90,7 +93,7 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
 
     # Both kernel wrappers are looked up at call time.
     compact = kfine.composite_records(rec, area, ramps, layout["base_color"], cmds["tile_start"],
-                                      cmds["tile_end"], wit, fg_tab)
+                                      cmds["tile_end"], wit, fg_tab, resolved)
     tile2rank = kfine.tile_last_record(cmds["tile_start"], cmds["tile_end"])
 
     # Compact legacy tile list: slot s holds the s-th legacy tile.
@@ -121,7 +124,7 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
     counts = torch.cat([counts, counts.new_full((1,), int(wit))])
     legacy_out, ovf = kinterp.interpret_tiles(
         counts, legacy_ids, layout["base_color"], slab, area, ramps, atlas, wit,
-        caps["blend_depth"], bool(caps.get("_interp_batch")))
+        caps["blend_depth"], bool(caps.get("_interp_batch")), resolved)
     flags["blend_depth_overflow"] = ((ovf & OVF_BLEND_DEPTH) != 0).any()
     region = ((ovf & OVF_IMAGE_REGION) != 0).any()
     flags["image_region_overflow"] = region if tap_region is None else region | tap_region

@@ -23,14 +23,15 @@ H_TILES = 8
 
 
 def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend_depth,
-                    batch=False):
+                    batch=False, resolved=False):
     """Walk each slot's command tape over its tile's 256 pixels.
 
     counts [n + 1] i32: the slots' tape lengths, then the width in tiles
     (the scalar-prefetch layout of the Pallas call); tile_ids [n] i32 (a
     pad slot has count 0 and any id; jello_tpu gives it the grid size);
     base [4] f32 premultiplied base color; slab [n, MC, 16] i32 records; rows
-    [R, 256] f32 raw winding rows read at record word 1; stops [NR, W]
+    [R, 256] f32 raw winding rows read at record word 1 (with `resolved`,
+    an MSAA frame: rows of resolved coverage, taken as they are); stops [NR, W]
     f32; atlas [4, AHp, AWp] f32 premultiplied planar, or None for a
     frame without images (an image record then paints nothing);
     blend_depth: the blend stack's depth BD; batch: kernel H, which pads
@@ -57,7 +58,7 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
         raise ValueError(f"blend_depth {BD} < 1")
     if dev.type == "cpu":
         return plain.interpret_plain(counts[:n], tile_ids, base, slab, rows, stops, atlas,
-                                     int(wit), BD)
+                                     int(wit), BD, resolved)
     if batch:
         pad = -n % H_TILES
         if pad:
@@ -78,7 +79,7 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
         rows.data_ptr(), stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
         None if scratch is None else scratch.data_ptr(), out.data_ptr(), ovf.data_ptr(),
         n_run, MC, rows.shape[0], NR, W, int(wit), BD, AHp, AWp,
-        1 if batch else 0, stream_of(slab))
+        1 if batch else 0, 1 if resolved else 0, stream_of(slab))
     check("jello_fine_interp", err)
     if batch:
         interpret_tiles.launches_batch += 1
@@ -99,18 +100,18 @@ def fine_interp(cmds, counted, ramps, atlas, layout, caps):
     (`fine_hybrid`); this entry holds the kernels alone to the oracle.
     Returns (fine_out [4, GRID, 256] un-premultiplied, flags)."""
     from .coverage import compute_area_rows
-    from .fine_v2 import build_records
 
     GRID = caps["tile_grid_cap"]
     area, area_row_rec, rows_overflow = compute_area_rows(cmds, counted, caps)
-    rec = build_records(dict(cmds, area_row=area_row_rec), caps)
+    rec = plain.build_records(dict(cmds, area_row=area_row_rec), caps)
     slab, counts, slab_overflow = plain.build_cmd_slab(rec, cmds, caps)
     wit = layout["width_in_tiles"]
     counts = torch.cat([counts, counts.new_full((1,), int(wit))])
     tile_ids = torch.arange(GRID, dtype=I32, device=rec.device)
     out, ovf = interpret_tiles(counts, tile_ids, layout["base_color"], slab, area, ramps,
                                atlas, wit, caps["blend_depth"],
-                               batch=bool(caps.get("_interp_batch")))
+                               batch=bool(caps.get("_interp_batch")),
+                               resolved=caps.get("aa_mode", "area") != "area")
     flags = {
         "cmd_slab_overflow": slab_overflow,
         "area_rows_overflow": rows_overflow,

@@ -1,7 +1,8 @@
 """Record-stream fine stage (kernel B, `csrc/fine_v2.cu`).
 
 Counterparts in `jello_tpu`:
-  - `tpu/fine_pallas.py::build_records`: the 16-word record packing;
+  - `tpu/fine_pallas.py::build_records`: the 16-word record packing
+    (`pipeline/fine_interp.py::build_records`, plain torch, layout below);
   - `tpu/fine_v2.py::fine_v2`, standalone call (clip-free; with the
     image-tap stage inside when the frame has an atlas): coverage,
     records, image foregrounds, compositing; `cuda/fine_hybrid.py` calls
@@ -24,6 +25,11 @@ Record flags (word 4): bit 0 even-odd, bit 1 a record of a legacy tile
 (the identity; the interpreter renders that tile), bit 3 a non-affine
 blend, bit 4 a group's BeginClip and members, bit 5 its EndClip, bits
 8+ the group id (a record outside a group has an id of its own).
+
+Coverage rows arrive as raw winding in area mode, and the record's fill
+rule resolves them here; under MSAA kernel A has resolved them per
+sample, and `resolved` makes B take them as they are, clipped to [0, 1]
+(`tpu/fine_v2.py:182-183,204-205`).
 
 Output contract: compact [PC, 4, 256] f32, every record's
 un-premultiplied inclusive composite at its own index, and tile2rank
@@ -54,12 +60,13 @@ import torch
 from ..pipeline import ops
 from ..pipeline.coarse import (
     CMD_COLOR,
-    CMD_END_CLIP,
     CMD_IMAGE,
     CMD_LIN_GRAD,
     CMD_RAD_GRAD,
     CMD_SWEEP_GRAD,
 )
+from ..pipeline.coverage import resolved_coverage
+from ..pipeline.fine_interp import build_records
 from ..pipeline.image_tap import image_tap
 from ..pipeline.ops import F32, I32
 from ..pipeline.paint import gradient_fg
@@ -68,66 +75,13 @@ from .build import check, check_tensor, kernels, stream_of
 from .coverage import compute_area_rows
 
 
-def build_records(cmds, caps):
-    """Pack the sorted command stream into dense 16-word records [PC, 16]
-    (int32 bit patterns), tile order preserved. With `_image_tap` in caps
-    word 14 of an image record is its rank among the image records in
-    stream order (the predicate of `pipeline.image_tap.image_tap`'s
-    compaction)."""
-    kind = cmds["kind"]
-    drow = ops.gather_guarded(cmds["dtab"], cmds["draw"])
-
-    def sc_u(off):
-        return drow[:, off]
-
-    def info_u(off):
-        return drow[:, 3 + off]
-
-    z = torch.zeros_like(kind)
-    is_color = kind == CMD_COLOR
-    is_lin = kind == CMD_LIN_GRAD
-    is_rad = kind == CMD_RAD_GRAD
-    is_sweep = kind == CMD_SWEEP_GRAD
-    is_img = kind == CMD_IMAGE
-    is_end = kind == CMD_END_CLIP
-    is_grad = is_lin | is_rad | is_sweep
-    is_xf = is_rad | is_sweep | is_img
-    lin_xf = is_lin | is_xf
-
-    index_mode = sc_u(0)
-    w = [None] * 16
-    w[0] = kind
-    w[1] = cmds["area_row"]
-    w[2] = cmds["seg_count"]
-    w[3] = cmds["tile"]
-    w[4] = cmds["flags"]
-    w[5] = torch.where(is_color | is_end, index_mode,
-                       torch.where(is_grad, index_mode & 3, z))
-    x6 = torch.where(is_color, sc_u(1), z)
-    x6 = torch.where(lin_xf, info_u(1), x6)
-    w[6] = torch.where(is_end, sc_u(1), x6)
-    w[7] = torch.where(is_end, cmds["backdrop"],
-                       torch.where(is_color, sc_u(2), torch.where(lin_xf, info_u(2), z)))
-    w[8] = torch.where(is_color, sc_u(3), torch.where(lin_xf, info_u(3), z))
-    for k in (9, 10, 11):
-        w[k] = torch.where(is_xf, info_u(k - 5), z)
-    w[12] = torch.where(is_xf, info_u(7), z)
-    w[13] = torch.where(is_xf, info_u(8), z)
-    w[14] = torch.where(is_rad, info_u(9), z)
-    if caps.get("_image_tap"):
-        tile = cmds["tile"]
-        P = is_img & (tile < caps["tile_grid_cap"]) & (tile >= 0)
-        w[14] = torch.where(P, torch.cumsum(P.to(I32), 0, dtype=I32) - 1, w[14])
-    w[15] = torch.where(is_grad, ops.shr(index_mode, 2), z)
-    return torch.stack([v.to(I32) for v in w], dim=1)
-
-
 def tile_last_record(tile_start, tile_end):
     """tile2rank: each tile's last record index, -1 for an empty tile."""
     return torch.where(tile_end > tile_start, tile_end - 1, -1).to(I32)
 
 
-def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None):
+def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None,
+                            resolved=False):
     """Plain version of kernel B (same inputs and output as
     `composite_records`). The scan is keyed on the records' tile column;
     tile_start/tile_end only bound which tiles are in range."""
@@ -146,9 +100,12 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     live = valid & (is_color | is_grad | is_img) & ((flags & 2) == 0)
 
     a = cov[:PC]
-    eo = torch.abs(a - 2.0 * torch.round(0.5 * a))
-    nz = torch.clamp(torch.abs(a), max=1.0)
-    c = torch.where((flags & 1) != 0, eo, nz)
+    if resolved:
+        c = nz = resolved_coverage(a)
+    else:
+        eo = torch.abs(a - 2.0 * torch.round(0.5 * a))
+        nz = torch.clamp(torch.abs(a), max=1.0)
+        c = torch.where((flags & 1) != 0, eo, nz)
     c = torch.where(rec[:, 1:2] >= 0, c, torch.ones_like(c))
     c = c * live.to(F32)
 
@@ -198,8 +155,9 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
         A, B = scan(A, B, key)
         # The EndClip composes the group over the background as
         # (1 - covc (1 - A_g), covc B_g), covc its clip row by the nonzero
-        # rule, or, rowless, full when its tile backdrop (word 7) is not 0,
-        # times the group alpha; Begin and members become the identity.
+        # rule (a resolved row as it is), or, rowless, full when its tile
+        # backdrop (word 7) is not 0, times the group alpha; Begin and
+        # members become the identity.
         covc = torch.where(rec[:, 1:2] >= 0, nz,
                            torch.clamp(torch.abs(rec[:, 7:8].to(F32)), max=1.0)) * fr[:, 6:7]
         A = torch.where(end_t, 1.0 - covc * (1.0 - A), A)
@@ -213,11 +171,13 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     return torch.cat([v[:, :3] * inv_a[:, None], v[:, 3:]], dim=1)
 
 
-def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None):
+def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=None,
+                      resolved=False):
     """Kernel B for CUDA tensors, its plain version for CPU tensors.
 
     rec [PC, 16] i32 tile-sorted records; cov [>= PC, 256] f32
-    per-record coverage; stops [NR, W] f32, W = 1 + 5 * stops; base [4] f32
+    per-record coverage, raw winding, or with `resolved` the resolved
+    coverage of an MSAA frame; stops [NR, W] f32, W = 1 + 5 * stops; base [4] f32
     premultiplied base color; tile_start/tile_end [GRID] i32, each
     tile's run [start, end) of records (coarse's run boundaries); fg_tab
     [IRC, 1024] f32 or None, the image-tap table read by image records
@@ -238,13 +198,13 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=N
         check_tensor("fg_tab", fg_tab, F32, dev, (n_fg, 1024))
     if dev.type == "cpu":
         return composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit,
-                                       fg_tab)
+                                       fg_tab, resolved)
     out = torch.empty((PC, 4, 256), dtype=F32, device=dev)
     err = kernels().jello_fine_v2(
         rec.data_ptr(), cov.data_ptr(), stops.data_ptr(), tile_start.data_ptr(),
         tile_end.data_ptr(), base.data_ptr(),
         None if fg_tab is None else fg_tab.data_ptr(), out.data_ptr(), grid, NR, W,
-        int(wit), n_fg, stream_of(rec))
+        int(wit), n_fg, 1 if resolved else 0, stream_of(rec))
     check("jello_fine_v2", err)
     composite_records.launches += 1
     return out
@@ -254,7 +214,8 @@ composite_records.launches = 0
 
 
 def fine_v2(cmds, counted, ramps, atlas, layout, caps):
-    """The fine stage of a clip-free area-AA frame. With `_image_tap` in
+    """The fine stage of a clip-free frame, in the antialiasing mode of
+    `caps["aa_mode"]`. With `_image_tap` in
     caps and an atlas (f32 [4, AHp, AWp], `pipeline.image_tap.atlas_planar`)
     the image-tap stage runs here and image records paint from its table,
     as in jello_tpu's standalone `fine_v2` (`tpu/fine_v2.py:629-640`).
@@ -271,7 +232,8 @@ def fine_v2(cmds, counted, ramps, atlas, layout, caps):
         fg_tab, flags["image_region_overflow"], flags["img_recs_overflow"] = image_tap(
             rec, cmds, atlas, layout, caps)
     compact = composite_records(rec, area, ramps, layout["base_color"], cmds["tile_start"],
-                                cmds["tile_end"], layout["width_in_tiles"], fg_tab)
+                                cmds["tile_end"], layout["width_in_tiles"], fg_tab,
+                                caps.get("aa_mode", "area") != "area")
     tile2rank = tile_last_record(cmds["tile_start"], cmds["tile_end"])
     return (compact, tile2rank), flags
 

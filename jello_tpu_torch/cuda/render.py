@@ -10,14 +10,18 @@ runs again (the protocol of `tpu/render.py:445-461`). Overflow flags
 grow the implicated capacities (`grow_caps`) and retry. Flags are read
 on every frame.
 
-The port covers area-AA frames: fills and strokes with solid, gradient
-and image paints, clip layers and blend groups. A clip-free frame takes
-the record-stream fine stage (`fine_v2`) and the dense coarse branch, a
+Every single-device frame jello_tpu renders: fills and strokes with
+solid, gradient and image paints, clip layers and blend groups, under
+area antialiasing or MSAA8/16 (`RenderParams.antialiasing_method`; under
+MSAA the coverage kernel resolves its rows per sample and the fine
+kernels read them as they are). A clip-free frame takes the
+record-stream fine stage (`fine_v2`) and the dense coarse branch, a
 frame with clip layers the hybrid one (`fine_hybrid`: kernel B plus the
-per-tile interpreter). MSAA raises NotImplementedError naming the later
-slice, and so does a frame whose image minifies past the region windows
-of the tap or of the interpreter (jello_tpu reroutes it to its reference
-fine, which is not ported).
+per-tile interpreter). A frame whose image minifies past the region
+windows of the tap or of the interpreter raises `image_region_overflow`
+and runs again through the reference fine stage (`pipeline/fine_ref.py`,
+plain torch on any device), as jello_tpu reroutes it
+(`tpu/render.py:428-434`).
 """
 
 from __future__ import annotations
@@ -29,17 +33,18 @@ import torch
 
 from ..encoding.draw import DRAW_TAG_BEGIN_CLIP, DRAW_TAG_END_CLIP
 from ..gfx import premul32
+from ..pipeline.fine_ref import assemble_image
 from ..pipeline.gradient import stops_table_or_empty
+from ..pipeline.image_tap import atlas_planar
+from ..pipeline.render import render_frame
+from ..renderer.atlas import build_image_atlas
 from ..renderer.estimate import (
     calibrate_caps,
     caps_shrank,
     estimate_caps_from_scene,
     grow_caps,
 )
-from ..pipeline.image_tap import atlas_planar
-from ..pipeline.render import render_frame
-from ..renderer.atlas import build_image_atlas
-from ..renderer.params import AaConfig, RenderParams
+from ..renderer.params import RenderParams
 from ..renderer.resolve import Resolver
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
@@ -86,14 +91,6 @@ def upload(scene_u32, ld, ramps, caps, device):
     return scene.to(device), layout, ramps_t.to(device), dict(caps)
 
 
-def check_supported(params: RenderParams) -> None:
-    """Refuse frames outside the ported slices (host-side, from the
-    params)."""
-    if params.antialiasing_method != AaConfig.AREA:
-        raise NotImplementedError(
-            "MSAA is not ported yet: it arrives with ROADMAP slice 5")
-
-
 def clip_nesting_depth(scene_u32, layout) -> int:
     """The deepest nesting of the resolved scene's clip layers (host-side,
     from its draw tags): the trip count of `clips.clip_leaf_vectorized`."""
@@ -103,16 +100,19 @@ def clip_nesting_depth(scene_u32, layout) -> int:
     return int(np.cumsum(delta).max(initial=0))
 
 
-def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int) -> dict:
-    """jello_tpu's routing on its accelerator (`tpu/render.py:341-365`),
+def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
+                  aa_mode: str = "area") -> dict:
+    """jello_tpu's routing on its accelerator (`tpu/render.py:332-365`),
     set per frame and never kept in the class that calibrate_caps and
-    grow_caps see: the streaming expansions (kernels C, D, E) always; for
+    grow_caps see: the antialiasing mode ("area", "msaa8", "msaa16"), read
+    by the coverage and fine stages; the streaming expansions (kernels C,
+    D, E) always; for
     a scene with an atlas the image tap (kernel F); for a clip-free frame
     the dense coarse branch, and with it the record-stream fine stage
     alone (a frame with clip layers takes `fine_hybrid`); the 8-tile
     interpreter (kernel H) under JELLO_INTERP_BATCH=1, the reference's own
     switch. `clip_depth_cap` is the scene's own nesting depth."""
-    routing = {"_expand_pallas": True}
+    routing = {"_expand_pallas": True, "aa_mode": aa_mode}
     if has_atlas:
         routing["_image_tap"] = True
     if n_clips == 0:
@@ -122,6 +122,15 @@ def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int) -> dict:
         if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
             routing["_interp_batch"] = True
     return routing
+
+
+def assemble(fine_out, ld):
+    """A frame's fine output -> [H, W, 4] un-premultiplied image on its
+    device: (compact, tile2rank) of the record-stream stages, or the
+    dense [4, GRID, 256] of the reference fine stage."""
+    if isinstance(fine_out, tuple):
+        return assemble_compact(*fine_out, ld)
+    return assemble_image(fine_out, ld)
 
 
 def present(img, premul: bool = True, srgb: bool = True):
@@ -162,20 +171,21 @@ class Renderer:
         self.last_flags: dict = {}
         self.last_stats: dict = {}
         # What made each frame of the last render run again: the raised
-        # flags of a grown class, or ["calibrated"].
+        # flags of a grown class, ["calibrated"], or the reroute of an
+        # `image_region_overflow` frame to the reference fine stage.
         self.last_retries: list = []
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
-        (compact, tile2rank), ld = self.render_device(scene, params, max_retries)
-        return assemble_compact(compact, tile2rank, ld).cpu().numpy()
+        fine_out, ld = self.render_device(scene, params, max_retries)
+        return assemble(fine_out, ld).cpu().numpy()
 
     def render_surface(self, scene, params: RenderParams, premul: bool = True,
                        srgb: bool = True, max_retries: int = 4) -> np.ndarray:
         """Render to u8 [H, W, 4] surface pixels; assembly, premultiply,
         sRGB and quantization run on the device."""
-        (compact, tile2rank), ld = self.render_device(scene, params, max_retries)
-        return present(assemble_compact(compact, tile2rank, ld), premul, srgb).cpu().numpy()
+        fine_out, ld = self.render_device(scene, params, max_retries)
+        return present(assemble(fine_out, ld), premul, srgb).cpu().numpy()
 
     def _prepare(self, scene, params):
         """Resolve and upload (cached per scene revision and params)."""
@@ -187,7 +197,6 @@ class Renderer:
             if self._frame is not None and self._frame[0] == key:
                 return self._frame[2]
         enc = scene.encoding if hasattr(scene, "encoding") else scene
-        check_supported(params)
         layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
         ld = build_layout_dict(layout, params)
         est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
@@ -208,10 +217,13 @@ class Renderer:
         return frame
 
     def render_device(self, scene, params: RenderParams, max_retries: int = 4):
-        """Render and return ((compact, tile2rank) on the device, ld)."""
+        """Render and return (the fine output on the device, ld): (compact,
+        tile2rank), or the dense [4, GRID, 256] of a frame that was rerouted
+        to the reference fine stage (`assemble` takes either)."""
         est_key, ld, (scene_t, layout_t, ramps_t, atlas_t), clip_depth = self._prepare(
             scene, params)
-        routing = frame_routing(layout_t["n_clips"], atlas_t is not None, clip_depth)
+        routing = frame_routing(layout_t["n_clips"], atlas_t is not None, clip_depth,
+                                params.antialiasing_method.value)
         fine_impl = fine_v2 if routing.get("_coarse_dense") else fine_hybrid
         calibrated = self._calib_key == est_key
         flags = {}
@@ -226,12 +238,14 @@ class Renderer:
             stats = {k: int(v) for k, v in zip(skeys, vals[len(fkeys):].tolist())}
             self.last_flags, self.last_stats = flags, stats
             if flags.get("image_region_overflow"):
-                # No capacity to grow: jello_tpu renders such a frame
-                # through its reference fine (`tpu/render.py:428-434`).
-                raise NotImplementedError(
-                    "an image draw minifies beyond the fine kernels' region windows: the "
-                    "frame needs the reference-fine fallback, which is not ported yet "
-                    "(ROADMAP queue 1 item 18)")
+                # No capacity to grow: the frame runs again through the
+                # reference fine stage, as jello_tpu reroutes it
+                # (`tpu/render.py:428-434`). The decision lives in this
+                # call's `fine_impl` only (None: `render_frame` takes
+                # `fine_ref.fine`), never in the kept class.
+                self.last_retries.append(["image_region_overflow: rerouted to fine_ref"])
+                fine_impl = None
+                continue
             if any(flags.values()):
                 self.last_retries.append(sorted(k for k, v in flags.items() if v))
                 self._caps = grow_caps(self._caps, flags)

@@ -10,8 +10,9 @@ records (layout in `cuda/fine_v2.py`) over a premultiplied [4, 256] pixel
 state that starts at the base color:
 
   - a fill, gradient or image record reads its coverage row (word 1,
-    rowless when word 2 is 0), resolves it by the record's fill rule and
-    paints src-over;
+    rowless when word 2 is 0), resolves it by the record's fill rule
+    (with `resolved`, an MSAA frame, the row is resolved already and is
+    only clipped to [0, 1]) and paints src-over;
   - a BeginClip pushes the state on the blend stack and clears it; one
     whose word 2 is negative covers nothing, and suppresses every record
     up to its EndClip instead;
@@ -23,12 +24,15 @@ state that starts at the base color:
 BeginClip does not set it and a suppressed record leaves it. It starts
 at 0.
 
-`interpret_plain` steps all programs together, one pass over the record
-index with [n, 4, 256] state (H's lockstep shape over the whole grid), so
-that thousands of tiles cost `cmds_per_tile` steps and not one Python
-loop each. Each step works on the programs that hold a given record
-kind. G and H are one function of their inputs, so this is the plain
-version of both.
+`walk_tapes` is that program: it steps all tapes together, one pass over
+the record index with [n, 4, 256] state (H's lockstep shape over the
+whole grid), so that thousands of tiles cost `cmds_per_tile` steps and
+not one Python loop each. Each step works on the tapes that hold a given
+record kind. `interpret_plain` runs it on a slab with coverage from a row
+table. G and H are one function of their inputs, so this is the plain
+version of both. The reference fine stage (`pipeline/fine_ref.py`) runs
+the same program on the command stream itself, with coverage summed from
+the segments.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ from .coarse import (
     CMD_END_CLIP,
     CMD_IMAGE,
     CMD_LIN_GRAD,
+    CMD_RAD_GRAD,
     CMD_SWEEP_GRAD,
 )
+from .coverage import resolved_coverage
 from .image_tap import REGH, REGW, bilinear_taps, region_extent, tap_geometry
 from .ops import F32, I32
 from .paint import gradient_fg
@@ -56,6 +62,60 @@ from .paint import gradient_fg
 # MAX_WIN such windows.
 OVF_BLEND_DEPTH = 1
 OVF_IMAGE_REGION = 2
+
+
+def build_records(cmds, caps):
+    """Pack the sorted command stream into dense 16-word records [PC, 16]
+    (int32 bit patterns), tile order preserved. With `_image_tap` in caps
+    word 14 of an image record is its rank among the image records in
+    stream order (the predicate of `pipeline.image_tap.image_tap`'s
+    compaction)."""
+    kind = cmds["kind"]
+    drow = ops.gather_guarded(cmds["dtab"], cmds["draw"])
+
+    def sc_u(off):
+        return drow[:, off]
+
+    def info_u(off):
+        return drow[:, 3 + off]
+
+    z = torch.zeros_like(kind)
+    is_color = kind == CMD_COLOR
+    is_lin = kind == CMD_LIN_GRAD
+    is_rad = kind == CMD_RAD_GRAD
+    is_sweep = kind == CMD_SWEEP_GRAD
+    is_img = kind == CMD_IMAGE
+    is_end = kind == CMD_END_CLIP
+    is_grad = is_lin | is_rad | is_sweep
+    is_xf = is_rad | is_sweep | is_img
+    lin_xf = is_lin | is_xf
+
+    index_mode = sc_u(0)
+    w = [None] * 16
+    w[0] = kind
+    w[1] = cmds["area_row"]
+    w[2] = cmds["seg_count"]
+    w[3] = cmds["tile"]
+    w[4] = cmds["flags"]
+    w[5] = torch.where(is_color | is_end, index_mode,
+                       torch.where(is_grad, index_mode & 3, z))
+    x6 = torch.where(is_color, sc_u(1), z)
+    x6 = torch.where(lin_xf, info_u(1), x6)
+    w[6] = torch.where(is_end, sc_u(1), x6)
+    w[7] = torch.where(is_end, cmds["backdrop"],
+                       torch.where(is_color, sc_u(2), torch.where(lin_xf, info_u(2), z)))
+    w[8] = torch.where(is_color, sc_u(3), torch.where(lin_xf, info_u(3), z))
+    for k in (9, 10, 11):
+        w[k] = torch.where(is_xf, info_u(k - 5), z)
+    w[12] = torch.where(is_xf, info_u(7), z)
+    w[13] = torch.where(is_xf, info_u(8), z)
+    w[14] = torch.where(is_rad, info_u(9), z)
+    if caps.get("_image_tap"):
+        tile = cmds["tile"]
+        P = is_img & (tile < caps["tile_grid_cap"]) & (tile >= 0)
+        w[14] = torch.where(P, torch.cumsum(P.to(I32), 0, dtype=I32) - 1, w[14])
+    w[15] = torch.where(is_grad, ops.shr(index_mode, 2), z)
+    return torch.stack([v.to(I32) for v in w], dim=1)
 
 
 def build_cmd_slab(rec, cmds, caps):
@@ -76,34 +136,43 @@ def build_cmd_slab(rec, cmds, caps):
     return slab, torch.clamp(n, 0, MC).to(I32), (n > MC).any()
 
 
-def _image_fg(rec, tile, atlas, wit):
+def _image_fg(rec, tile, atlas, wit, one_window=True):
     """Premultiplied image paint of image records [m, 16] on tiles [m]:
-    (fg [m, 4, 256] with the in-bounds mask folded in, zero for a record
-    whose taps leave its one region window, `fine_pallas.py:429-439`; bad
-    [m] bool)."""
+    (fg [m, 4, 256] with the in-bounds mask folded in; bad [m] bool). With
+    `one_window`, the interpreter kernels' contract, a record whose taps
+    leave its one region window paints zero and is bad
+    (`fine_pallas.py:429-439`); without it no record is."""
     _, AHp, AWp = atlas.shape
     tap = rec.clone()
     tap[:, 3] = tile
     g = tap_geometry(tap, wit, 1 << 30)
-    rx1, ry1, x_lo, y_lo = region_extent(g, AHp, AWp)
-    bad = ((rx1 - x_lo) >= REGW) | ((ry1 - y_lo) >= REGH)
+    bad = torch.zeros(rec.shape[0], dtype=torch.bool, device=rec.device)
+    if one_window:
+        rx1, ry1, x_lo, y_lo = region_extent(g, AHp, AWp)
+        bad = ((rx1 - x_lo) >= REGW) | ((ry1 - y_lo) >= REGH)
     okf = (g["inb"] & ~bad[:, None]).to(F32)
     return (bilinear_taps(g, atlas) * okf).permute(1, 0, 2), bad
 
 
-def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend_depth):
-    """Plain version of kernels G and H (same inputs and outputs as
-    `cuda.fine_interp.interpret_tiles`).
+def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blend_depth,
+               one_window=True):
+    """Step n tapes together, record index by record index: the command
+    interpreter itself, shared by `interpret_plain` (tapes in a slab,
+    coverage from a row table) and `pipeline.fine_ref.fine` (tapes in the
+    command stream, coverage from the segments).
 
-    counts [n] i32 tape lengths; tile_ids [n] i32; base [4] f32
-    premultiplied; slab [n, MC, 16] i32;
-    rows [R, 256] f32 raw winding rows, indexed by record word 1; stops
-    [NR, W] f32; atlas [4, AHp, AWp] f32 premultiplied planar or None;
-    wit the width in tiles; blend_depth the stack depth BD.
+    fetch(ci) -> (rec [n, 16] i32, active [n] bool): each tape's record at
+    step ci, and whether the tape has one. coverage(ci, idx, rec [m, 16],
+    even_odd [m] bool) -> [m, 256] f32: the resolved coverage of the
+    records of tapes idx, which have segments (an EndClip comes with
+    even_odd False). tile_ids [n] i32; base [4] f32 premultiplied; stops
+    [NR, W] f32; atlas [4, AHp, AWp] f32 premultiplied planar or None; wit
+    the width in tiles; blend_depth the stack depth BD; one_window: the
+    interpreter kernels' image region contract (`_image_fg`).
     Returns (out [n, 4, 256] f32 un-premultiplied, ovf [n] i32: bit 0 a
     push past BD, bit 1 an image record past the region window)."""
-    dev = slab.device
-    n, MC, _ = slab.shape
+    n = tile_ids.shape[0]
+    dev = tile_ids.device
     BD = int(blend_depth)
     rgba = base.to(F32)[None, :, None].repeat(n, 1, 256)
     area = torch.zeros((n, 256), dtype=F32, device=dev)
@@ -112,20 +181,17 @@ def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
     blend_d = torch.zeros(n, dtype=I32, device=dev)
     zero_depth = torch.zeros(n, dtype=I32, device=dev)
     ovf = torch.zeros(n, dtype=I32, device=dev)
-    counts = torch.clamp(counts.to(I32), max=MC)
     tile_ids = tile_ids.to(I32)
-    n_rows = rows.shape[0]
 
     def over(idx, fg, cov):
         """src-over of fg [m, 4, 256] with coverage cov [m, 256]."""
         cur = rgba[idx]
         rgba[idx] = cur * (1.0 - fg[:, 3] * cov)[:, None] + fg * cov[:, None]
 
-    n_steps = int(counts.max()) if n else 0
     for ci in range(n_steps):
-        rec = slab[:, ci]
+        rec, active = fetch(ci)
         fr = rec.view(F32)
-        kind = torch.where(ci < counts, rec[:, 0], -1)
+        kind = torch.where(active, rec[:, 0], -1)
         seg_raw = rec[:, 2]
         sup = zero_depth > 0
         is_begin = kind == CMD_BEGIN_CLIP
@@ -133,15 +199,12 @@ def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
         paints = ~sup & (kind >= CMD_COLOR) & (kind <= CMD_IMAGE)
         fillish = paints | (~sup & is_end)
 
-        # Coverage: a record with segments resolves its row (an EndClip
+        # Coverage: a record with segments resolves its own (an EndClip
         # always by the nonzero rule), a rowless one covers fully.
         idx = torch.nonzero(fillish & (seg_raw > 0))[:, 0]
         if idx.numel():
-            a = rows[torch.clamp(rec[idx, 1], 0, n_rows - 1).long()]
-            eo = torch.abs(a - 2.0 * torch.round(0.5 * a))
-            nz = torch.clamp(torch.abs(a), max=1.0)
             use_eo = ((rec[idx, 4] & 1) != 0) & (kind[idx] != CMD_END_CLIP)
-            area[idx] = torch.where(use_eo[:, None], eo, nz)
+            area[idx] = coverage(ci, idx, rec[idx], use_eo)
         area[fillish & (seg_raw <= 0)] = 1.0
 
         idx = torch.nonzero(paints & (kind == CMD_COLOR))[:, 0]
@@ -153,7 +216,7 @@ def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
             over(idx, torch.stack(fg, dim=1), area[idx])
         idx = torch.nonzero(paints & (kind == CMD_IMAGE))[:, 0]
         if idx.numel() and atlas is not None:
-            fg, bad = _image_fg(rec[idx], tile_ids[idx], atlas, wit)
+            fg, bad = _image_fg(rec[idx], tile_ids[idx], atlas, wit, one_window)
             over(idx, fg, area[idx])
             ovf[idx] |= bad.to(I32) * OVF_IMAGE_REGION
 
@@ -186,3 +249,33 @@ def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
 
     a_inv = rdiv(1.0, torch.clamp(rgba[:, 3:4], min=1e-6))
     return torch.cat([rgba[:, :3] * a_inv, rgba[:, 3:4]], dim=1), ovf
+
+
+def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend_depth,
+                    resolved=False):
+    """Plain version of kernels G and H (same inputs and outputs as
+    `cuda.fine_interp.interpret_tiles`).
+
+    counts [n] i32 tape lengths; tile_ids [n] i32; base [4] f32
+    premultiplied; slab [n, MC, 16] i32;
+    rows [R, 256] f32 raw winding rows (resolved coverage rows with
+    `resolved`), indexed by record word 1; stops
+    [NR, W] f32; atlas [4, AHp, AWp] f32 premultiplied planar or None;
+    wit the width in tiles; blend_depth the stack depth BD.
+    Returns (out [n, 4, 256] f32 un-premultiplied, ovf [n] i32: bit 0 a
+    push past BD, bit 1 an image record past the region window)."""
+    n, MC, _ = slab.shape
+    counts = torch.clamp(counts.to(I32), max=MC)
+    n_rows = rows.shape[0]
+
+    def coverage(ci, idx, rec, even_odd):
+        a = rows[torch.clamp(rec[:, 1], 0, n_rows - 1).long()]
+        if resolved:
+            return resolved_coverage(a)
+        eo = torch.abs(a - 2.0 * torch.round(0.5 * a))
+        nz = torch.clamp(torch.abs(a), max=1.0)
+        return torch.where(even_odd[:, None], eo, nz)
+
+    return walk_tapes(int(counts.max()) if n else 0,
+                      lambda ci: (slab[:, ci], ci < counts), coverage, tile_ids, base, stops,
+                      atlas, wit, blend_depth)

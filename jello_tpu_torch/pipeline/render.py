@@ -18,7 +18,7 @@ from torch.profiler import record_function
 
 from ..encoding.draw import DRAW_TAG_NOP
 
-from . import clips, coarse, drawobjs, flatten, ops, tiling
+from . import clips, coarse, drawobjs, fine_ref, flatten, ops, tiling
 
 
 def geometry(scene, layout, caps):
@@ -108,11 +108,18 @@ def render_frame(scene, layout, ramps, atlas, caps, fine_impl):
     plus `base_color` (f32 [4] premultiplied, on the device); ramps: f32
     [NR, W] stop table; atlas: f32 [4, AHp, AWp] premultiplied planar
     image atlas, or None; caps: capacity dict; fine_impl(cmds, counted,
-    ramps, atlas, layout, caps) -> (fine_out, flags).
+    ramps, atlas, layout, caps) -> (fine_out, flags), or None for the
+    reference fine stage (`fine_ref.fine`, dense [4, GRID, 256] output,
+    `blend_depth_overflow` its only flag).
     Returns (fine_out, flags, stats)."""
     stages, flags, stats = geometry(scene, layout, caps)
     with record_function("fine"):
-        fine_out, fine_flags = fine_impl(stages["cmds"], stages["counted"], ramps, atlas,
-                                         layout, caps)
+        if fine_impl is None:
+            fine_out, depth_overflow = fine_ref.fine(stages["cmds"], stages["segs"], ramps,
+                                                     atlas, layout, caps)
+            fine_flags = {"blend_depth_overflow": depth_overflow}
+        else:
+            fine_out, fine_flags = fine_impl(stages["cmds"], stages["counted"], ramps, atlas,
+                                             layout, caps)
     flags.update(fine_flags)
     return fine_out, flags, stats

@@ -5,6 +5,9 @@ legacy tiles, the merge) against jello_tpu.
 
 Tolerance 8e-3 throughout, the tolerance of tests/test_fine_hybrid.py;
 the frames are expected within 1e-4 and the tests print what they find.
+Under MSAA (the resolved-coverage branch of plain B, G and H) the frames
+equal the oracle on float32 segments and leave the float64 oracle only at
+sample ties (`torch_reference.check_msaa_frame`).
 """
 
 import numpy as np
@@ -17,7 +20,16 @@ from jello_tpu.cpu import render_numpy
 from jello_tpu_torch.cuda import Renderer
 
 from .test_fine_hybrid import _run_hybrid
-from .torch_reference import CLIP_SCENES, _rect, check_frame, full_scene
+from .torch_reference import (
+    CLIP_SCENES,
+    _rect,
+    both,
+    check_frame,
+    check_msaa_frame,
+    full_scene,
+    render_checked,
+    with_aa,
+)
 
 TOL = 8e-3
 
@@ -220,20 +232,27 @@ def test_torch_first_frame_of_a_clip_scene_settles_inside_the_retry_loop():
     assert np.allclose(img[50, 50], 1.0) and img[700, 700, 0] < 0.9
 
 
-def test_torch_interpreter_region_overflow_is_refused():
-    """An image minified 20x inside a blend group: its tiles are legacy,
-    the interpreter's one region window cannot hold a tile's taps, and the
-    frame needs the reference-fine fallback, which is not ported."""
-    jt = jello_tpu_torch
-    rng = np.random.default_rng(3)
-    pix = (rng.random((400, 400, 4)) * 255).astype(np.uint8)
-    ident = jt.Affine.identity()
-    scene = jt.Scene()
-    scene.push_layer(jt.BlendMode(jt.Mix.SCREEN, jt.Compose.SRC_OVER), 1.0, ident,
-                     _rect(jt, 0, 0, 32, 32))
-    scene.fill(jt.Fill.NON_ZERO, jt.Affine.scale(1.0 / 20.0),
-               jt.ImageBrush(jt.Image(pixels=pix)), None, _rect(jt, 0, 0, 400, 400))
-    scene.pop_layer()
-    params = jt.RenderParams(width=32, height=32, base_color=jt.Color.rgba(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        Renderer(device="cpu").render(scene, params)
+# Under MSAA: kernel B's groups with alpha and rowless EndClips, a partial
+# clip edge, the interpreter's nested mix blends, and every record kind.
+MSAA_CLIP_SCENES = {
+    "alpha_groups": GROUP_SCENES["alpha_groups"][0],
+    "partial_coverage_edge": CLIP_SCENES["partial_coverage_edge"],
+    "mix_stack": CLIP_SCENES["mix_stack"],
+    "full_scene": full_scene,
+}
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+@pytest.mark.parametrize("name", sorted(MSAA_CLIP_SCENES))
+def test_torch_clip_frame_msaa_matches_oracle(name, aa):
+    r = Renderer(device="cpu")
+    check_msaa_frame(render_checked(r), with_aa(both(MSAA_CLIP_SCENES[name]), aa))
+    assert (r.last_stats["legacy_tiles"] > 0) == (name in ("mix_stack", "full_scene"))
+
+
+def test_torch_clip_frame_msaa_with_the_batched_interpreter(monkeypatch):
+    """JELLO_INTERP_BATCH=1 under msaa8: the same frame."""
+    _, (scene, params) = with_aa(both(CLIP_SCENES["mix_stack"]), "msaa8")
+    img = Renderer(device="cpu").render(scene, params)
+    monkeypatch.setenv("JELLO_INTERP_BATCH", "1")
+    assert np.abs(Renderer(device="cpu").render(scene, params) - img).max() <= 1e-6

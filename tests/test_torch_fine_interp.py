@@ -5,7 +5,8 @@ hand-built slabs of 16 programs and 16 records a tape that hold every
 record kind, clip depth up to BD and one past it, a clip-zero group, and
 an image record that trips the region bit. Premultiplied result within
 1e-5, overflow words equal. Also `build_cmd_slab` and the full-grid
-`fine_interp` against the numpy oracle's frame."""
+`fine_interp` against the numpy oracle's frame, in area mode and, through
+the resolved-coverage branch, under msaa8 and msaa16."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,7 @@ from jello_tpu_torch.pipeline.render import geometry
 
 from .torch_reference import (
     CLIP_SCENES,
+    check_msaa_frame,
     full_scene,
     hand_built_slab,
     interpret_args,
@@ -127,6 +129,64 @@ def test_torch_fine_interp_full_grid_matches_oracle(name):
         err = np.abs(img - ref).max()
         print(f"{name}: full-grid interpreter vs the oracle {err:.3e}")
         assert err <= 8e-3
+
+
+def test_torch_interpreter_resolved_switch_on_the_hand_built_slab():
+    """`resolved` on the hand-built slab, whose rows range over [-2.5,
+    2.5]: every row is clipped to [0, 1], whatever the record's rule and
+    kind, as jello_tpu's kernels do with `aa_mode` in their caps (G and H
+    in interpret mode, 1e-5); the frame differs from the one by the rules,
+    and the overflow words do not."""
+    h = hand_built_slab(seed=5)
+    got, ovf = interpret_tiles(*interpret_args(h), False, True)
+    by_rule, ovf_rule = interpret_tiles(*interpret_args(h))
+    assert torch.equal(ovf, ovf_rule) and np.isfinite(got.numpy()).all()
+    assert (got - by_rule).abs().max() > 0.1
+    # The same tapes over the rows clipped beforehand, read by the rules: a
+    # row in [0, 1] is its own coverage under either rule.
+    h01 = dict(h, rows=np.clip(h["rows"], 0.0, 1.0))
+    clipped, _ = interpret_tiles(*interpret_args(h01))
+    assert (got - clipped).abs().max() <= 1e-6
+    for batch in (False, True):
+        n, MC, _ = h["slab"].shape
+        NR, W = h["stops"].shape
+        caps = {"tile_grid_cap": h["grid"], "cmds_per_tile": MC, "blend_depth": h["BD"],
+                "max_stops": (W - 1) // 5, "aa_mode": "msaa8"}
+        make = fine_pallas.make_fine_kernel_b8 if batch else fine_pallas.make_fine_kernel
+        call = make(caps, tuple(h["atlas"].shape[1:]), interpret=True, n_ramp_rows=NR,
+                    n_programs=n)
+        stops_pad = np.zeros((NR, 128), np.float32)
+        stops_pad[:, :W] = h["stops"]
+        counts = np.concatenate([h["counts"], [h["wit"]]]).astype(np.int32)
+        want, _ = call(jnp.asarray(counts), jnp.asarray(h["tile_ids"]), jnp.asarray(h["base"]),
+                       jnp.asarray(h["slab"]), jnp.asarray(h["rows"]), jnp.asarray(stops_pad),
+                       jnp.asarray(h["atlas"]))
+        err = np.abs(_premul(got.numpy()) - _premul(want)).max()
+        print(f"resolved branch, plain vs Pallas interpret ({'H' if batch else 'G'}): {err:.3e}")
+        assert err <= TOL
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+def test_torch_fine_interp_full_grid_msaa_matches_oracle(aa):
+    """The interpreter alone as the whole fine stage of an MSAA frame (G's
+    and H's plain version, the resolved branch) against the numpy oracle."""
+    scene_j, params_j = full_scene(jello_tpu)
+    params_j.antialiasing_method = jello_tpu.AaConfig(aa)
+
+    def render(scene, params, batch=False):
+        s, ld, ramps, atlas, caps = prepare_with_atlas(scene, params)
+        caps = dict(caps, _expand_pallas=True, cmds_per_tile=16, aa_mode=aa,
+                    _interp_batch=batch)
+        scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, caps, "cpu")
+        stages, flags, _ = geometry(scene_t, layout_t, caps)
+        out, fl = fine_interp(stages["cmds"], stages["counted"], ramps_t,
+                              upload_atlas(atlas, "cpu"), layout_t, caps)
+        assert not any(bool(v) for v in {**flags, **fl}.values())
+        t2r = torch.arange(caps["tile_grid_cap"], dtype=torch.int32)
+        return assemble_compact(out.permute(1, 0, 2).contiguous(), t2r, ld).numpy()
+
+    img, _ = check_msaa_frame(render, ((scene_j, params_j), (scene_j, params_j)))
+    assert np.abs(render(scene_j, params_j, batch=True) - img).max() <= 1e-6
 
 
 def test_torch_build_cmd_slab_places_records_and_flags_long_tapes():

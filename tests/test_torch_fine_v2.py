@@ -1,7 +1,8 @@
 """The port's record-stream fine stage (plain version on the CPU): record
 packing vs jello_tpu's, the assembled image vs the numpy oracle
-(render_numpy) within 2e-3, and the segmented scan vs a record-by-record
-walk."""
+(render_numpy) within 2e-3, the segmented scan vs a record-by-record
+walk, and the resolved-coverage branch (an MSAA frame's rows, read as they
+are) vs the oracle under msaa8 and msaa16."""
 
 import numpy as np
 import pytest
@@ -22,7 +23,14 @@ from jello_tpu_torch.cuda.fine_v2 import (
 from jello_tpu_torch.cuda.render import upload
 from jello_tpu_torch.pipeline.render import geometry
 
-from .torch_reference import as_np, numpy_geometry, prepare, tree_to_torch, u32
+from .torch_reference import (
+    as_np,
+    check_msaa_frame,
+    numpy_geometry,
+    prepare,
+    tree_to_torch,
+    u32,
+)
 
 IDENT = jt.Affine.identity()
 WHITE = jt.Color.rgba(1, 1, 1, 1)
@@ -112,7 +120,10 @@ CASES = {
 
 
 def _port_fine(scene, params):
+    """The port's stages and `fine_v2` on a jello_tpu scene, in the
+    antialiasing mode of its params."""
     s, ld, ramps, caps = prepare(scene, params)
+    caps["aa_mode"] = params.antialiasing_method.value
     scene_t, layout_t, ramps_t, caps = upload(s, ld, ramps, caps, "cpu")
     stages, flags, _ = geometry(scene_t, layout_t, caps)
     (compact, t2r), fflags = fine_v2(stages["cmds"], stages["counted"], ramps_t, None,
@@ -145,6 +156,49 @@ def test_torch_build_records_matches_jello_tpu(name):
         want = np_build_records(np, cmds, s, ref["info"], caps)
     got = build_records(tree_to_torch(cmds), caps)
     np.testing.assert_array_equal(u32(as_np(got)), u32(want))
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+@pytest.mark.parametrize("name", ["solid_rules", "grad_reflect"])
+def test_torch_fine_plain_resolved_matches_oracle(name, aa):
+    """Plain kernel B's resolved branch on the plain MSAA rows: both fill
+    rules (an even-odd star whose winding reaches 2), and gradient paints.
+    The port's stages take jello_tpu's scene words here, so one scene
+    serves both sides."""
+    scene, params = CASES[name]()
+    params.antialiasing_method = jt.AaConfig(aa)
+    built = ((scene, params), (scene, params))
+    img, _ = check_msaa_frame(_port_fine, built)
+    params_area = CASES[name]()[1]
+    assert np.abs(img - _port_fine(scene, params_area)).max() > 0.05
+
+
+def test_torch_fine_resolved_switch_clips_rows_and_applies_no_rule():
+    """`resolved` on hand-made rows that leave [0, 1]: coverage is the row
+    clipped to [0, 1] whatever the record's rule; a rowless record still
+    covers fully. (On a row inside [0, 1] both rules and the clip agree, so
+    a real MSAA frame cannot show that the switch is read.)"""
+    rng = np.random.default_rng(8)
+    PC = 12
+    rec = np.zeros((PC, 16), np.int32)
+    rec[:, 0] = 1
+    rec[:, 1] = np.where(np.arange(PC) % 4 == 3, -1, np.arange(PC))
+    rec[:, 3] = np.arange(PC)  # one record a tile
+    rec[:, 4] = np.arange(PC) % 2  # even-odd on every other record
+    rgba = np.array([0.2, 0.4, 0.6, 0.8], np.float32)
+    rec[:, 5:9] = rgba.view(np.int32)
+    cov = ((rng.random((PC, 256)) - 0.4) * 4).astype(np.float32)
+    base = np.array([0.0, 0.0, 0.0, 0.0], np.float32)
+    start = torch.arange(PC, dtype=torch.int32)
+    out = composite_records(torch.from_numpy(rec), torch.from_numpy(cov),
+                            torch.zeros((1, 11)), torch.from_numpy(base), start, start + 1, 4,
+                            None, True)
+    c = np.where(rec[:, 1:2] >= 0, np.clip(cov, 0.0, 1.0), 1.0)
+    np.testing.assert_allclose(as_np(out)[:, 3], rgba[3] * c, atol=1e-6)
+    by_rule = composite_records(torch.from_numpy(rec), torch.from_numpy(cov),
+                                torch.zeros((1, 11)), torch.from_numpy(base), start, start + 1,
+                                4)
+    assert (out - by_rule).abs().max() > 0.1
 
 
 def test_torch_fine_scan_matches_record_walk():

@@ -182,3 +182,33 @@ def test_torch_native_library_is_built_outside_the_sources():
     lib = Path(native._LIB_PATH)
     assert lib.parent.name == "_build" and lib.exists()
     assert not list(Path(native.__file__).parent.glob("*.so"))
+
+
+def test_torch_mask_tables_match_jello_tpu():
+    """`renderer/mask.py`, the port's copy: the two sample patterns (which
+    the coverage stage's sample offsets are built from) and both half-plane
+    mask tables equal jello_tpu's."""
+    from jello_tpu.renderer import mask as np_mask
+    from jello_tpu_torch.renderer import mask
+
+    assert mask._MASK8_PATTERN == np_mask._MASK8_PATTERN
+    assert mask._MASK16_PATTERN == np_mask._MASK16_PATTERN
+    for name in ("mask_lut_8", "mask_lut_16"):
+        got, want = getattr(mask, name)(), getattr(np_mask, name)()
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert mask.mask_lut_8().shape == (32 * 32,) and mask.mask_lut_16().shape == (64 * 64,)
+
+
+@pytest.mark.parametrize("premul", [True, False])
+@pytest.mark.parametrize("srgb", [True, False])
+def test_torch_surface_helpers_match_jello_tpu(premul, srgb):
+    """`renderer/surface.py`, the port's copy: `premultiply` and `to_rgba8`
+    equal jello_tpu's on seeded pixels that leave [0, 1]."""
+    from jello_tpu.renderer import surface as np_surface
+    from jello_tpu_torch.renderer import surface
+
+    img = (np.random.default_rng(4).random((9, 7, 4)) * 1.2 - 0.1).astype(np.float32)
+    assert np.array_equal(surface.premultiply(img), np_surface.premultiply(img))
+    got = surface.to_rgba8(img, premul=premul, srgb=srgb)
+    assert got.dtype == np.uint8
+    assert np.array_equal(got, np_surface.to_rgba8(img, premul=premul, srgb=srgb))

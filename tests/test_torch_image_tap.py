@@ -5,8 +5,10 @@ against jello_tpu's Pallas kernel in interpret mode, on the same numpy
 records and atlas: the fg table within 1e-5 (the two sum the bilinear
 terms in another order), both flags equal. Then whole frames against the
 numpy oracle within 8e-3, the tolerance of jello_tpu's own tap tests
-(about 1e-4 is expected, and printed), and the refusal of a frame whose
-image minifies past the tap's region windows.
+(about 1e-4 is expected, and printed), under area antialiasing and, for
+jello_tpu's own MSAA tap scene, under msaa8. (A frame whose image
+minifies past the tap's region windows renders through the reference
+fine stage: tests/test_torch_fine_ref.py.)
 """
 
 import numpy as np
@@ -22,16 +24,20 @@ from jello_tpu.tpu.image_tap import image_tap as jax_image_tap
 from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.cuda.fine_v2 import build_records
 from jello_tpu_torch.cuda.render import upload, upload_atlas
-from jello_tpu_torch.pipeline.image_tap import MAX_WIN, atlas_planar, image_tap
+from jello_tpu_torch.pipeline.image_tap import atlas_planar, image_tap
 
 from .torch_reference import (
     as_np,
     both,
     check_frame,
+    check_msaa_frame,
     numpy_geometry,
+    over_minified,
     prepare_with_atlas,
+    render_checked,
     tree_to_torch,
     u32,
+    with_aa,
 )
 
 TAP_TOL = 1e-5
@@ -80,22 +86,12 @@ def _minified(jt):
     return s, _params(jt, 64, 64)
 
 
-def _over_minified(jt):
-    """A 512x512 source at 1/32 scale: the first tile spans 8 x 2 region
-    windows, past MAX_WIN."""
-    s = jt.Scene()
-    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(1, 1) @ jt.Affine.scale(1.0 / 32.0),
-           jt.ImageBrush(_image(jt, seed=2, size=512, alpha=255)), None,
-           _rect(jt, 0, 0, 512, 512))
-    return s, _params(jt, 32, 32)
-
-
 TAP_CASES = {
     # name: (scene, img_recs_cap, image_region_overflow, img_recs_overflow)
     "upscaled": (_upscaled, 16, False, False),
     "rotated_translucent": (_rotated_translucent, 16, False, False),
     "minified_multi_window": (_minified, 8, False, False),
-    "over_minified": (_over_minified, 8, True, False),
+    "over_minified": (over_minified, 8, True, False),
     "table_too_small": (_upscaled, 8, False, True),
 }
 
@@ -280,13 +276,27 @@ def test_torch_image_frame_matches_oracle(name):
     assert 0 < r.last_stats["img_recs"] <= r._caps["img_recs_cap"]
 
 
-def test_torch_renderer_refuses_an_over_minified_image():
-    """More than MAX_WIN region windows under one tile: jello_tpu reroutes
-    the frame to its reference fine; the port, which has none yet, says so
-    and renders nothing."""
-    assert MAX_WIN == 12
-    _, (scene, params) = both(_over_minified)
+def _dark_image_triangle(jt):
+    """tests/test_image_tap.py::test_image_tap_msaa8's scene: a dark image
+    scaled 16x through a triangle with diagonal edges, where msaa8 and
+    area coverage differ by ~0.15."""
+    pix = np.full((8, 8, 4), 255, np.uint8)
+    pix[..., :3] = 20
+    s = 1.0 / 16.0
+    tri = (jt.BezPath().move_to(18.5 * s, 12.2 * s).line_to(112.7 * s, 44.3 * s)
+           .line_to(52.1 * s, 118.6 * s).close())
+    scene = jt.Scene()
+    scene.fill(jt.Fill.NON_ZERO, jt.Affine.scale(16), jt.ImageBrush(jt.Image(pixels=pix)), None,
+               tri)
+    return scene, _params(jt)
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+def test_torch_image_frame_msaa_matches_oracle(aa):
+    """Image paints under MSAA: kernel A's resolved rows (plain version)
+    modulate the tapped foreground in plain kernel B's resolved branch."""
     r = Renderer(device="cpu")
-    with pytest.raises(NotImplementedError, match="reference-fine fallback"):
-        r.render(scene, params)
-    assert r.last_flags["image_region_overflow"] is True
+    img, _ = check_msaa_frame(render_checked(r), with_aa(both(_dark_image_triangle), aa))
+    assert r.last_stats["img_recs"] > 0 and r.last_flags["image_region_overflow"] is False
+    area, _, _ = check_frame(Renderer(device="cpu"), _dark_image_triangle, tol=FRAME_TOL)
+    assert np.abs(img - area).max() > 0.05  # the scene tells the two modes apart

@@ -43,6 +43,7 @@ from .torch_reference import (
     full_scene,
     hand_built_slab,
     interpret_args,
+    over_minified,
     prepare,
     prepare_with_atlas,
 )
@@ -226,7 +227,7 @@ def test_torch_expand_kernel_matches_plain(cuda, monkeypatch, body):
 def test_torch_coverage_kernel_matches_plain(cuda):
     stages, _, _, caps, _ = _inputs(cuda)
     cmds, counted = stages["cmds"], stages["counted"]
-    stream, rs, re_, bd, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
+    stream, rs, re_, bd, _, _, _ = plain_cov.slot_rank_rows(cmds, counted, caps)
     n0 = coverage_rows.launches
     got = coverage_rows(stream, rs, re_, bd)
     assert coverage_rows.launches == n0 + 1
@@ -238,6 +239,56 @@ def test_torch_coverage_kernel_matches_plain(cuda):
     assert torch.equal(ids, ids_p) and not bool(ovf)
     assert not torch.isnan(area).any()
     assert (area - area_p).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+def test_torch_coverage_msaa_kernel_matches_plain(cuda, aa):
+    """Kernel A's MSAA body: resolved rows equal to the plain version's
+    (the per-sample sums are small integers, exact in any order; 1e-6
+    allowed), multiples of 1 / samples, and only the MSAA entry counts."""
+    stages, _, _, caps, _ = _inputs(cuda)
+    cmds, counted = stages["cmds"], stages["counted"]
+    stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(cmds, counted,
+                                                             dict(caps, aa_mode=aa))
+    assert bool(eo.any()) and not bool(eo.all())
+    offsets = plain_cov.sample_offsets(aa)
+    n0, n1 = coverage_rows.launches, coverage_rows.launches_msaa
+    got = coverage_rows(stream, rs, re_, bd, offsets, eo)
+    assert (coverage_rows.launches, coverage_rows.launches_msaa) == (n0, n1 + 1)
+    want = plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+    n = len(offsets)
+    assert torch.equal(got * n, torch.round(got * n)) and 0 <= got.min() and got.max() <= 1
+    assert 0 < float(got[re_ > rs].mean()) < 1
+    area, ids, ovf = compute_area_rows(cmds, counted, dict(caps, aa_mode=aa))
+    area_p, ids_p, _ = plain_cov.compute_area_rows(cmds, counted, dict(caps, aa_mode=aa))
+    assert torch.equal(ids, ids_p) and not bool(ovf)
+    assert (area - area_p).abs().max().item() <= 1e-6
+
+
+def test_torch_fine_kernel_resolved_matches_plain(cuda):
+    """Kernel B's resolved branch on an MSAA frame's resolved rows, and on
+    rows made negative wherever a path covers: a row in [0, 1] reads the
+    same under either rule and under none, so only rows that leave [0, 1]
+    show that the switch is read."""
+    stages, layout_t, ramps_t, caps, ld = _inputs(cuda)
+    cmds, counted = stages["cmds"], stages["counted"]
+    t2r = tile_last_record(cmds["tile_start"], cmds["tile_end"])
+    for mode in ("msaa8", "area"):
+        area, ids, _ = compute_area_rows(cmds, counted, dict(caps, aa_mode=mode))
+        if mode == "area":
+            area = -1.5 * area.abs()
+        rec = build_records(dict(cmds, area_row=ids), caps)
+        args = (rec, area, ramps_t, layout_t["base_color"], cmds["tile_start"],
+                cmds["tile_end"], layout_t["width_in_tiles"], None)
+        img = assemble_compact(composite_records(*args, True), t2r, ld)
+        img_p = assemble_compact(composite_records_plain(*args, True), t2r, ld)
+        by_rule = assemble_compact(composite_records(*args, False), t2r, ld)
+        torch.cuda.synchronize()
+        assert not torch.isnan(img).any()
+        assert (img - img_p).abs().max().item() <= 1e-4
+        assert ((img - by_rule).abs().max().item() > 1e-3) == (mode == "area")
 
 
 def test_torch_fine_kernel_matches_plain(cuda):
@@ -345,6 +396,23 @@ def test_torch_interpreter_kernels_match_plain(cuda, depth):
     assert (premul(got_h) - premul(got_g)).abs().max().item() <= 1e-6
 
 
+def test_torch_interpreter_kernels_resolved_match_plain(cuda):
+    """The resolved branch of G and H on the hand-built slab, whose rows
+    range over [-2.5, 2.5]: a row is clipped to [0, 1] whatever the rule
+    and the kind."""
+    args = interpret_args(hand_built_slab(seed=5), cuda)
+    got_g, ovf_g = kint.interpret_tiles(*args, False, True)
+    got_h, ovf_h = kint.interpret_tiles(*args, True, True)
+    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:], resolved=True)
+    by_rule, _ = kint.interpret_tiles(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ovf_g, ovf_p) and torch.equal(ovf_h, ovf_p)
+    assert not torch.isnan(got_g).any()
+    assert (got_g - want).abs().max().item() <= 1e-4
+    assert (got_h - got_g).abs().max().item() <= 1e-6
+    assert (got_g - by_rule).abs().max().item() > 1e-2
+
+
 def _clip_inputs(cuda, build):
     """Stages of a clip scene on the card, with the calls of the two fine
     kernels recorded from one pass of the hybrid fine stage."""
@@ -422,9 +490,45 @@ def test_torch_cuda_renderer_matches_oracle(cuda, case, monkeypatch):
     assert np.abs(img - ref).max() <= 2e-3
 
 
+@pytest.mark.parametrize("aa", ["MSAA8", "MSAA16"])
+@pytest.mark.parametrize("case", ["gradients", "images_and_stroke", "clips_and_blends"])
+def test_torch_cuda_renderer_msaa_matches_plain(cuda, case, aa):
+    """An MSAA frame on the card against `Renderer(device="cpu")`, the
+    plain versions: 2e-3 (the paints' transcendentals; coverage is equal).
+    Kernel A's MSAA entry runs, the area entry does not."""
+    build = {"gradients": _gradient_scene, "images_and_stroke": _image_scene,
+             "clips_and_blends": full_scene}[case]
+    scene, params = build(jello_tpu_torch)
+    params.antialiasing_method = getattr(jello_tpu_torch.AaConfig, aa)
+    ref = Renderer(device="cpu").render(scene, params)
+    n0, n1 = coverage_rows.launches, coverage_rows.launches_msaa
+    r = Renderer(device="cuda")
+    img = r.render(scene, params)
+    assert not any(r.last_flags.values())
+    assert coverage_rows.launches == n0 and coverage_rows.launches_msaa > n1
+    assert np.abs(img - ref).max() <= 2e-3
+
+
+def test_torch_cuda_renderer_reroutes_an_over_minified_image(cuda):
+    """`image_region_overflow` on the card: the frame runs again through
+    the reference fine stage and matches the CPU's."""
+    scene, params = over_minified(jello_tpu_torch)
+    ref = Renderer(device="cpu").render(scene, params)
+    r = Renderer(device="cuda")
+    img = r.render(scene, params)
+    assert ["image_region_overflow: rerouted to fine_ref"] in r.last_retries
+    assert not any(r.last_flags.values())
+    assert np.abs(img - ref).max() <= 2e-3
+
+
 def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
     stages, layout_t, ramps_t, caps, _ = _inputs(cuda)
-    stream, rs, re_, bd, _, _ = plain_cov.slot_rank_rows(stages["cmds"], stages["counted"], caps)
+    stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(
+        stages["cmds"], stages["counted"], dict(caps, aa_mode="msaa8"))
+    with pytest.raises(ValueError):  # only the two built-in sample patterns
+        coverage_rows(stream, rs, re_, bd, [(0.5, 0.5)], eo)
+    with pytest.raises(ValueError):
+        coverage_rows(stream, rs, re_, bd, plain_cov.sample_offsets("msaa8"), eo.float())
     with pytest.raises(ValueError):
         coverage_rows(stream.double(), rs, re_, bd)
     with pytest.raises(ValueError):

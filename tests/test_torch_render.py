@@ -1,8 +1,9 @@
 """Renderer(device="cpu") of jello_tpu_torch, end to end, vs the numpy
 oracle: images within 2e-3, no flags, u8 present math, capacity
-calibration and overflow retries, and the refusal of MSAA, the one kind
-of scene still outside the ported slices. Each scene is built twice, through jello_tpu for the
-oracle and through jello_tpu_torch for the port."""
+calibration and overflow retries, and MSAA8/16 frames (8e-3, the
+tolerance of jello_tpu's MSAA tests; every pixel off the oracle shown to
+be a float32 sample tie). Each scene is built twice, through jello_tpu
+for the oracle and through jello_tpu_torch for the port."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ from jello_tpu.renderer.surface import to_rgba8
 from jello_tpu_torch.cuda import Renderer, upload
 from jello_tpu_torch.cuda.render import build_layout_dict, present
 
+from .torch_reference import both, check_msaa_frame, prepare, render_checked, with_aa
 from .torch_reference import check_frame as _check
-from .torch_reference import prepare
 
 
 def config1(jt=jello_tpu):
@@ -152,25 +153,116 @@ def _image_scene(jt=jello_tpu):
     return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def _msaa_scene(jt=jello_tpu):
-    scene, _ = jt.scenes.config1()
-    return scene, jt.RenderParams(width=256, height=256,
-                                  antialiasing_method=jt.AaConfig.MSAA8)
-
-
-@pytest.mark.parametrize("case, slice_no", [("clip", "slice 6"), ("msaa", "slice 5")])
+@pytest.mark.parametrize("case, slice_no", [("clip", "slice 6")])
 def test_torch_renderer_refuses_scenes_outside_the_slice(case, slice_no):
-    """MSAA is still refused, by the name of its slice; the clip layer that
-    slice 6 used to refuse renders now, on the hybrid fine stage, and
-    matches the oracle."""
-    if case == "clip":
-        r = Renderer(device="cpu")
-        _check(r, _clip_scene)
-        assert "legacy_overflow" in r.last_flags  # the hybrid stage's flag set
-        return
-    scene, params = _msaa_scene(jello_tpu_torch)
-    with pytest.raises(NotImplementedError, match=slice_no):
-        Renderer(device="cpu").render(scene, params)
+    """No scene is outside the ported slices any more: the clip layer that
+    slice 6 used to refuse renders on the hybrid fine stage and matches
+    the oracle (the MSAA frames that slice 5 used to refuse are held in
+    test_torch_renderer_msaa_matches_oracle)."""
+    r = Renderer(device="cpu")
+    _check(r, _clip_scene)
+    assert "legacy_overflow" in r.last_flags  # the hybrid stage's flag set
+
+
+def _one_fill(path, rule, rgba=(0, 1, 0, 1), base=(0, 0, 0, 0)):
+    def build(jt):
+        s = jt.Scene()
+        s.fill(getattr(jt.Fill, rule), jt.Affine.identity(),
+               jt.SolidBrush(jt.Color.rgba(*rgba)), None, path(jt))
+        return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(*base))
+    return build
+
+
+def _diamond(jt):
+    return (jt.BezPath().move_to(128, 28).line_to(228, 128).line_to(128, 228)
+            .line_to(28, 128).close())
+
+
+def _ring(jt):
+    return (jt.BezPath()
+            .move_to(40, 40).line_to(200, 40).line_to(200, 200).line_to(40, 200).close()
+            .move_to(80, 80).line_to(160, 80).line_to(160, 160).line_to(80, 160).close())
+
+
+def _msaa_scene(jt):
+    """config 1's cubic fill on a transparent ground (alpha = coverage)."""
+    scene, _ = jt.scenes.config1()
+    return scene, jt.RenderParams(width=256, height=256)
+
+
+def _three_kinds(jt):
+    """tests/test_coverage_pallas.py::_scene: a nonzero cubic fill, a
+    translucent even-odd triangle over it and a round-capped stroke."""
+    scene = jt.Scene()
+    ident = jt.Affine.identity()
+    path = jt.BezPath().move_to(30, 40).cubic_to(90, 10, 150, 220, 200, 240).close()
+    scene.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(1, 0, 0, 1)), None, path)
+    tri = jt.BezPath().move_to(10, 10).line_to(200, 30).line_to(60, 200).close()
+    scene.fill(jt.Fill.EVEN_ODD, ident, jt.SolidBrush(jt.Color.rgba(0, 0, 1, 0.5)), None, tri)
+    st = jt.Stroke(width=3.0, join=jt.Join.ROUND, start_cap=jt.Cap.ROUND, end_cap=jt.Cap.ROUND)
+    wavy = jt.BezPath().move_to(20, 200).cubic_to(80, 120, 160, 260, 240, 180)
+    scene.stroke(st, ident, jt.SolidBrush(jt.Color.rgba(0, 0.5, 0, 1)), None, wavy)
+    return scene, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+# The scenes of tests/test_msaa.py and of tests/test_coverage_pallas.py, and
+# the frames this file holds in area mode.
+MSAA_SCENES = {
+    "diamond": _one_fill(_diamond, "NON_ZERO"),
+    "ring_even_odd": _one_fill(_ring, "EVEN_ODD"),
+    "config1_fill": _msaa_scene,
+    "three_kinds": _three_kinds,
+    "gradient_blobs": _gradient_blobs,
+    "image": _image_scene,
+    "clip": _clip_scene,
+}
+
+
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+@pytest.mark.parametrize("name", sorted(MSAA_SCENES))
+def test_torch_renderer_msaa_matches_oracle(name, aa):
+    r = Renderer(device="cpu")
+    img, ref = check_msaa_frame(render_checked(r), with_aa(both(MSAA_SCENES[name]), aa))
+    if name in ("diamond", "ring_even_odd", "config1_fill"):
+        # One opaque fill on a transparent ground: alpha is the coverage,
+        # a whole number of samples, as tests/test_msaa.py holds the oracle.
+        n = int(aa[4:])
+        a = img[..., 3]
+        assert np.array_equal(a * n, np.round(a * n)) and a.min() == 0.0 and a.max() == 1.0
+    if name == "ring_even_odd":  # edges on the pixel grid: no partial pixel
+        assert img[120, 120, 3] == 0.0 and img[60, 120, 3] == 1.0
+        assert a.sum() == 160 * 160 - 80 * 80
+    elif name in ("diamond", "config1_fill"):
+        assert 0 < ((a > 0) & (a < 1)).sum() < a.size // 10
+    if name == "diamond":
+        area, _, _ = _check(Renderer(device="cpu"), MSAA_SCENES[name])
+        assert abs(a.sum() - area[..., 3].sum()) / area[..., 3].sum() < 0.02
+        assert np.abs(a - area[..., 3]).max() <= 0.5 + 1.0 / n
+
+
+def test_torch_renderer_area_frames_are_unchanged_by_msaa():
+    """One renderer alternating between the modes: the antialiasing mode
+    rides the frame's routing and the frame cache key, never the kept
+    capacity class, so an area frame after an MSAA frame equals a fresh
+    renderer's bit for bit, and so does the MSAA frame after it."""
+    scene, params = _three_kinds(jello_tpu_torch)
+    params_m = _three_kinds(jello_tpu_torch)[1]
+    params_m.antialiasing_method = jello_tpu_torch.AaConfig.MSAA8
+    fresh_area = Renderer(device="cpu").render(scene, params)
+    fresh_msaa = Renderer(device="cpu").render(scene, params_m)
+    r = Renderer(device="cpu")
+    assert np.array_equal(r.render(scene, params_m), fresh_msaa)
+    assert "aa_mode" not in r._caps
+    assert np.array_equal(r.render(scene, params), fresh_area)
+    assert np.array_equal(r.render(scene, params_m), fresh_msaa)
+    assert np.abs(fresh_msaa - fresh_area).max() > 0.05
+
+
+def test_torch_frame_routing_carries_the_aa_mode():
+    from jello_tpu_torch.cuda.render import frame_routing
+
+    assert frame_routing(0, False, 0)["aa_mode"] == "area"
+    assert frame_routing(2, True, 3, "msaa16")["aa_mode"] == "msaa16"
 
 
 @pytest.mark.parametrize("case", ["stroke", "image"])

@@ -8,6 +8,7 @@ the port side gets them through `jello_tpu_torch.cuda.upload`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -16,7 +17,9 @@ import torch
 import jello_tpu
 import jello_tpu_torch
 from jello_tpu.cpu.pipeline import build_image_atlas, build_layout_dict
+from jello_tpu import pmath as np_pmath
 from jello_tpu.pipeline import clips, coarse, drawobjs, flatten, tiling
+from jello_tpu.pipeline import fine_ref as np_fine_ref
 from jello_tpu.pipeline import ops as np_ops
 from jello_tpu.pipeline.gradient import stops_table_or_empty
 from jello_tpu.pipeline.render import _draw_tags
@@ -68,6 +71,118 @@ def check_frame(r, build, tol=2e-3, **kw):
     print(f"{getattr(build, '__name__', build)}: max abs error vs the oracle {err:.3e}")
     assert err <= tol
     return img, ref, (scene_t, params_t)
+
+
+def with_aa(built, aa):
+    """`both(...)`'s pair with the antialiasing method set on both params:
+    "area", "msaa8" or "msaa16"."""
+    (scene_j, params_j), (scene_t, params_t) = built
+    params_j.antialiasing_method = jello_tpu.AaConfig(aa)
+    params_t.antialiasing_method = jello_tpu_torch.AaConfig(aa)
+    return (scene_j, params_j), (scene_t, params_t)
+
+
+@contextlib.contextmanager
+def oracle_cbrt():
+    """While entered, the port's cbrt returns jello_tpu's values (numpy's
+    float32 exp/log seed), so that both packages flatten a curve to the
+    same lines: with its own cbrt the port's end points move by up to
+    ~1e-3 px (tests/test_torch_stages.py), which under MSAA carries a
+    sample across an edge now and then."""
+    from jello_tpu_torch import pmath as pm
+
+    def cbrt(x):
+        with np.errstate(all="ignore"):
+            return torch.from_numpy(np.asarray(np_pmath.cbrt(np, x.numpy()), dtype=np.float32))
+
+    own, pm.cbrt = pm.cbrt, cbrt
+    try:
+        yield
+    finally:
+        pm.cbrt = own
+
+
+def render_numpy_f32_segments(scene, params):
+    """jello_tpu's numpy oracle twice over one scene: (frame, the frame
+    with the tile segments rounded to float32 before the fine stage).
+    Under numpy `path_tiling` leaves float64 segments and the oracle's
+    coverage runs in float64; the port's coverage kernel, like jello_tpu's
+    on its device route, reads float32. Under MSAA a sample that lies
+    within an ulp of an edge then falls on the other side, a whole 1/8 or
+    1/16 of coverage: the second frame has the port's ties."""
+    from jello_tpu.cpu import render_numpy
+
+    fine = np_fine_ref.fine
+    frames = []
+    for rounded in (False, True):
+        def fine_on(xp, scene_, cmds, segs, *rest, **kw):
+            if rounded:
+                segs = {k: np.asarray(v).astype(np.float32) for k, v in segs.items()}
+            return fine(xp, scene_, cmds, segs, *rest, **kw)
+
+        np_fine_ref.fine = fine_on
+        try:
+            with np.errstate(all="ignore"):
+                img, flags, _ = render_numpy(scene, params)
+        finally:
+            np_fine_ref.fine = fine
+        assert not any(bool(v) for v in flags.values()), flags
+        frames.append(img)
+    return tuple(frames)
+
+
+def render_checked(r):
+    """`render(scene, params) -> image` through the renderer `r`, no flag
+    left raised."""
+    def render(scene, params):
+        img = r.render(scene, params)
+        assert not any(r.last_flags.values()), r.last_flags
+        return img
+    return render
+
+
+def check_msaa_frame(render, built, tol=8e-3):
+    """Render `with_aa(both(...), aa)` through the port (`render(scene,
+    params) -> image`, e.g. `render_checked(r)`) and hold it to the numpy
+    oracle, twice.
+
+    As shipped, with the port's own cbrt: within `tol` (8e-3, the
+    tolerance of jello_tpu's own MSAA tests) of the oracle on
+    float32-rounded segments on all but at most 1 pixel in 10,000, and on
+    those off by one sample at most: the port's flatten moves a curve's
+    end points by up to ~1e-3 px, which carries a sample across an edge
+    now and then (found: 0 or 1 pixel a frame, printed).
+
+    Fed the oracle's cbrt, so that both flatten to the same lines: within
+    `tol` (~1e-6 expected, printed) of the oracle on float32-rounded
+    segments everywhere, and off the float64 oracle by more than 1e-5 only
+    where that rounding moves the oracle itself, which shows each such
+    pixel to be a float32 sample tie. Returns (that image, the float64
+    oracle's image)."""
+    (scene_j, params_j), (scene_t, params_t) = built
+    shipped = render(scene_t, params_t)
+    with oracle_cbrt():
+        img = render(scene_t, params_t)
+    ref64, ref32 = render_numpy_f32_segments(scene_j, params_j)
+    aa = params_t.antialiasing_method.value
+    assert shipped.shape == ref64.shape and np.isfinite(shipped).all()
+    err_own = np.abs(shipped - ref32).max(-1)
+    print(f"{aa}, the port's own flatten: max abs error vs the oracle on float32 segments "
+          f"{err_own.max():.3e}, {int((err_own > tol).sum())} of {err_own.size} pixels over "
+          f"{tol}")
+    assert (err_own > tol).mean() <= 1e-4
+    assert err_own.max() <= max(tol, 1.0 / int(aa[4:]) + 1e-6)
+    assert img.shape == ref64.shape and np.isfinite(img).all()
+    err32 = np.abs(img - ref32).max()
+    off = (np.abs(img - ref64) > 1e-5).any(-1)
+    tie = (np.abs(ref32 - ref64) > 1e-6).any(-1)
+    print(f"{aa}, the oracle's flatten: max abs error vs the oracle on float32 "
+          f"segments {err32:.3e}, vs the float64 oracle {np.abs(img - ref64).max():.3e} on "
+          f"{int(off.sum())} pixels, {int(tie.sum())} float32 ties")
+    assert err32 <= tol
+    assert not (off & ~tie).any()
+    assert off.mean() <= 2e-3
+    return img, ref64
 
 
 def prepare_with_atlas(scene, params):
@@ -295,6 +410,36 @@ def full_scene(jt):
              jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)), None,
              jt.BezPath().move_to(10, 30).cubic_to(80, 5, 170, 60, 246, 25))
     return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _noise_image(jt, seed, size):
+    rng = np.random.default_rng(seed)
+    pix = (rng.random((size, size, 4)) * 255).astype(np.uint8)
+    pix[..., 3] = 255
+    return jt.Image(pixels=pix)
+
+
+def over_minified(jt):
+    """A 512x512 source at 1/32 scale: the first tile spans 8 x 2 region
+    windows of the image tap, past its MAX_WIN, so the frame raises
+    `image_region_overflow`."""
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.translate(1, 1) @ jt.Affine.scale(1.0 / 32.0),
+           jt.ImageBrush(_noise_image(jt, 2, 512)), None, _rect(jt, 0, 0, 512, 512))
+    return s, jt.RenderParams(width=32, height=32, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def over_minified_in_a_group(jt):
+    """An image minified 20x inside a SCREEN group: its tiles are legacy,
+    and the interpreter's one region window cannot hold a tile's taps."""
+    ident = jt.Affine.identity()
+    s = jt.Scene()
+    s.push_layer(jt.BlendMode(jt.Mix.SCREEN, jt.Compose.SRC_OVER), 1.0, ident,
+                 _rect(jt, 0, 0, 32, 32))
+    s.fill(jt.Fill.NON_ZERO, jt.Affine.scale(1.0 / 20.0),
+           jt.ImageBrush(_noise_image(jt, 3, 400)), None, _rect(jt, 0, 0, 400, 400))
+    s.pop_layer()
+    return s, jt.RenderParams(width=32, height=32, base_color=jt.Color.rgba(0.2, 0.3, 0.5, 1))
 
 
 # ---- hand-built interpreter slabs (kernels G and H) --------------------------
