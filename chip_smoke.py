@@ -13,12 +13,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      which path encoder runs (native or its Python twin); exits non-zero
      when CUDA is not available;
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
-     nvcc per source, all at once;
+     nvcc per source, all at once, and prints ptxas's registers and
+     spills for kernels A and C and kernel A's persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
      kernel wrappers C, D, E, E' and E'' recorded;
   4. kernel A (coverage) vs its plain version on config 3's coverage
-     inputs (max abs diff <= 1e-5);
+     inputs (max abs diff <= 1e-5; the MSAA body's rows equal), each of
+     its three modes timed beside its bound;
   5. kernel B (record-stream fine) vs its plain version on config 3's
      records (max abs diff <= 1e-4 on the assembled image: sums run in
      another order and un-premultiplying magnifies that near alpha 0);
@@ -28,12 +30,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (tile crossings) and E'' (backdrop rows: integer outputs equal,
      segments within 1e-5) vs their plain versions on the recorded
      inputs; C also beside the one PyTorch call that lands the same rows
-     (scatter_ into a zeroed tensor), as a yardstick only;
+     (scatter_ into a zeroed tensor), as a yardstick only, and beside its
+     bare C entry on prepared buffers, with the device operations (kernels,
+     memsets, copies) a call puts on the card at each call site;
   7. config 5 (10,000 paths at 1920x1080: long fills, thin round-capped
      strokes, even-odd glyphs, gradients, image fills) at its calibrated
      class: kernels C, D, E, E', E'' (now with stroke offsets) and A held
      to their plain versions on this frame's recorded inputs as in 4 and
-     6, untimed; kernel F (image tap) vs its plain version on the frame's
+     6 and timed (D, E, E', E'' and A's three modes, beside their bounds),
+     with the histogram of the coverage rows' run lengths; kernel F
+     (image tap) vs its plain version on the frame's
      real image records, recorded from the tap stage (max abs diff <= 1e-6:
      the same products and sums, not contracted; region flag equal), and
      kernel B with the tap's table vs its plain version on config 5's
@@ -51,7 +57,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      overflow words equal); kernel H (eight tiles a CTA) vs G on the same
      slab (real slots within 1e-6, overflow words equal) and vs plain;
      kernel B with clip groups vs its plain version on config 4's records
-     (<= 1e-4 on the assembled image); kernel A's MSAA body vs plain on
+     (<= 1e-4 on the assembled image); kernel A's three modes vs plain on
      config 4's coverage inputs, timed (the JSON line's two MSAA entries);
      the resolved branch of G, H and B with groups on the inputs the fine
      stage records under msaa8 (same tolerances) and of G and H on
@@ -85,8 +91,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      no kernel launched meanwhile; --config5-cpu-reference also renders
      and times config 5's CPU reference. Then steady-state ms/frame
      (median after 2 warm-ups) and the peak device memory those frames
-     allocate, each config's MSAA frames beside its area frame. Kernel times are CUDA-event means over repeated calls on
-     the same inputs, the kernel's wrapper beside its plain version;
+     allocate, each config's MSAA frames beside its area frame, and a
+     profiled frame (kernels, copies and memsets a frame, busy time,
+     kernel C's kernel a frame). Kernel times are CUDA-event means over
+     repeated calls on the same inputs, the kernel's wrapper beside its
+     plain version;
  10. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
      call: the larger of its bytes (each input read once, each output
@@ -171,14 +180,15 @@ def _frame_ms(fn, frames=FRAMES):
     return statistics.median(times), min(times), max(times), peak
 
 
-def _profile(fn, frames=3):
+def _profile(fn, frames=3, count=()):
     """torch.profiler over `frames` calls of fn: per frame, the kernels
     launched, the copies and memsets, the device's busy ms (the union of
-    the kernels' intervals), and the five kernel names with the most
-    summed time as [(name, ms a frame, launches a frame)]. The pipeline's
-    record_function spans also come back as device-side events that cover
-    the frame; they carry the name of a host-side event and are left
-    out."""
+    the kernels' intervals), the five kernel names with the most summed
+    time as [(name, ms a frame, launches a frame)], and for each name
+    fragment in `count` the launches a frame of the kernels whose name
+    holds it. The pipeline's record_function spans also come back as
+    device-side events that cover the frame; they carry the name of a
+    host-side event and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,7 +215,47 @@ def _profile(fn, frames=3):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return len(spans) / frames, len(copies) / frames, busy_us / 1e3 / frames, top
+    counted = {k: sum(n for name, (_, n) in by_name.items() if k in name) / frames
+               for k in count}
+    return len(spans) / frames, len(copies) / frames, busy_us / 1e3 / frames, top, counted
+
+
+def _device_ops(fn, calls=5):
+    """(kernels, memsets and copies) that `calls` calls of fn put on the
+    device, per call, by torch.profiler (after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
+    return (len(device) - copies) / calls, copies / calls
+
+
+def _ptxas_summary(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    entry function in one source's `-Xptxas -v` output."""
+    import re
+
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + spills)
+            name, spills = None, (0, 0)
+    return out
 
 
 def _record_calls(wrappers, run):
@@ -415,6 +465,7 @@ def main():
 
     from jello_tpu_torch import native
     from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.cuda import coverage as kcov
     from jello_tpu_torch.cuda import expand as kx
     from jello_tpu_torch.cuda import fine_hybrid as khybrid
     from jello_tpu_torch.cuda import fine_interp as kint
@@ -447,9 +498,125 @@ def main():
                               else "the Python twin (no native library)"))
     # ---- 2. build --------------------------------------------------------
     t = time.perf_counter()
-    build.build(verbose=True)
+    build.build(verbose=True, force=True)
     build.kernels()
     print(f"build: {time.perf_counter() - t:.1f} s")
+    # Kernels A and C as ptxas built them: registers and spills a thread,
+    # and A's persistent grid (resident CTAs a multiprocessor times the
+    # multiprocessors, from those registers and its shared memory).
+    for src in ("coverage.cu", "land.cu"):
+        for name, regs, st, ld in _ptxas_summary(build.LOG[src]):
+            print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for samples, body in ((0, "area"), (8, "msaa8"), (16, "msaa16")):
+        n = kcov.persistent_ctas(samples)
+        print(f"kernel A, {body} body: {n} persistent CTAs ({n / sms:g} a multiprocessor, "
+              f"{sms} multiprocessors)")
+
+    def hold_msaa_rows(aa, stream, rs, re_, bd, eo, tag):
+        """Kernel A's MSAA body against its plain version on one frame's
+        coverage inputs: the resolved rows must be equal (MSAA_TOL), in
+        [0, 1] and multiples of 1 / samples. Returns the max abs diff."""
+        offsets = plain_cov.sample_offsets(aa)
+        got = coverage_rows(stream, rs, re_, bd, offsets, eo)
+        want = plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo)
+        torch.cuda.synchronize()
+        err = _max_diff(got, want)
+        n = len(offsets)
+        live = got[re_ > rs]
+        quantized = torch.equal(got * n, torch.round(got * n))
+        print(f"{tag}: kernel A, {aa}: {live.shape[0]} rows, {int(eo.sum())} of them "
+              f"even-odd, max|row diff| {err:.3e}, mean coverage {float(live.mean()):.4f}, "
+              f"multiples of 1/{n}: {quantized}")
+        if (not err <= MSAA_TOL or not quantized or torch.isnan(got).any()
+                or float(got.min()) < 0.0 or float(got.max()) > 1.0
+                or not 0.0 < float(live.mean()) < 1.0):
+            _fail(f"{tag}: kernel A's {aa} body disagrees with its plain version")
+        return err
+
+    def run_segments(stream, rs, re_):
+        """The segments of the stream that lie in some row's run."""
+        nonempty = re_ > rs
+        edges = torch.zeros(stream.shape[0] + 1, dtype=torch.int32, device=stream.device)
+        ones = torch.ones_like(rs[nonempty])
+        edges.index_add_(0, rs[nonempty].long(), ones)
+        edges.index_add_(0, re_[nonempty].long(), -ones)
+        return stream[torch.cumsum(edges, 0)[:-1] > 0]
+
+    def report_a(body, tag, run_seg, nonempty, R, ms, plain_ms, bound, what):
+        print(f"kernel A, {body}, {tag}: {run_seg.shape[0]} segments in {nonempty} rows of "
+              f"{R}, {what}: {ms:.4f} ms"
+              + (f" vs plain {plain_ms:.3f} ms" if plain_ms is not None else "")
+              + f", bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), "
+              f"on {smi}")
+
+    def time_area_rows(stream, rs, re_, bd, tag, n_plain):
+        """Kernel A's area body timed on one frame's coverage inputs, beside
+        its plain version (n_plain calls; 0: not timed) and its bound.
+        Returns (ms, plain ms or None, (bound_ms, bound_by)).
+
+        The bound counts what the function needs, as the MSAA body's does:
+        the terms that depend on the segment and the pixel row only (y,
+        the two clips, dyc, the two divisions and their products, the
+        y_edge term: 12 operations) once a (segment, pixel row); the rest
+        once a (segment, pixel): about 20 (startx, x0, x1, the min/max
+        and clamps, the trapezoid and its division, the products and
+        sums) where the segment crosses part of the pixel's row (dyc !=
+        0, counted from this run's segments), 2 (the y_edge term's sum)
+        where it does not. Bytes: the inputs once and the [R, 256] rows
+        written."""
+        run_seg = run_segments(stream, rs, re_)
+        y = run_seg[:, 1:2] - torch.arange(16, device=stream.device, dtype=torch.float32)
+        dyc = y.clamp(0, 1) - (y + (run_seg[:, 3:4] - run_seg[:, 1:2])).clamp(0, 1)
+        spans = int((dyc != 0).sum())
+        pairs = run_seg.shape[0] * 16
+        bound = _bound(_nbytes(stream, rs, re_, bd) + rs.shape[0] * 1024,
+                       pairs * 12 + spans * 16 * 20 + (pairs - spans) * 16 * 2)
+        ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd), 20)
+        plain_ms = None
+        if n_plain:
+            plain_ms = _time_ms(lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd),
+                                n_plain)
+        report_a("area", tag, run_seg, int((re_ > rs).sum()), rs.shape[0], ms, plain_ms, bound,
+                 f"{spans} of {pairs} (segment, pixel row) pairs with dyc != 0")
+        return ms, plain_ms, bound
+
+    def time_msaa_rows(aa, stream, rs, re_, bd, eo, tag, n_plain):
+        """Kernel A's MSAA body timed on one frame's coverage inputs, beside
+        its plain version (n_plain calls; 0: not timed) and its bound.
+        Returns (ms, plain ms or None, (bound_ms, bound_by)).
+
+        The bound is by float operations unless the rows are few, and it
+        counts what the function needs, not what this kernel spends: the
+        crossing test, the crossing's x and the y_edge term depend on the
+        segment, the pixel row and the sample only, not on the pixel, so
+        they are counted once for each (segment, pixel row, sample): two
+        comparisons, the y_edge comparison, its product and the valid
+        product (5), and where the segment crosses the sample row a
+        difference, a division, a product, a sum and the winding's sign
+        (5 more); the crossed ones are counted from this run's segments.
+        For each (segment, pixel, sample) only `xi < xs` and the
+        accumulation are left (2). Bytes: the inputs once and 1 KB for
+        every row of the table."""
+        offsets = plain_cov.sample_offsets(aa)
+        n_s = len(offsets)
+        run_seg = run_segments(stream, rs, re_)
+        ys = (torch.arange(16, device=stream.device)[:, None]
+              + (torch.arange(n_s, device=stream.device)[None, :] + 0.5) / n_s).reshape(1, -1)
+        crossed = int(((run_seg[:, 1:2] <= ys) != (run_seg[:, 3:4] <= ys)).sum())
+        sample_rows = run_seg.shape[0] * 16 * n_s
+        triples = sample_rows * 16
+        bound = _bound(_nbytes(stream, rs, re_, bd, eo) + rs.shape[0] * 1024,
+                       triples * 2 + sample_rows * 5 + crossed * 5)
+        ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd, offsets, eo), 20)
+        plain_ms = None
+        if n_plain:
+            plain_ms = _time_ms(
+                lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo), n_plain)
+        report_a(aa, tag, run_seg, int((re_ > rs).sum()), rs.shape[0], ms, plain_ms, bound,
+                 f"{crossed} crossed (segment, pixel row, sample) triples of {sample_rows}")
+        return ms, plain_ms, bound
 
     # ---- 3. config 3's real inputs ---------------------------------------
     # Settle config 3's capacity class, then run its geometry once on the
@@ -490,17 +657,16 @@ def main():
         _fail("kernel A disagrees with its plain version")
     if not torch.equal(ids_k, ids_p) or bool(ovf_k):
         _fail("kernel A record ids or overflow flag wrong")
-    a_ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd), 20)
-    a_plain_ms = _time_ms(lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd), 5)
+    a_ms, a_plain_ms, a_bound = time_area_rows(stream, rs, re_, bd, "config 3", 5)
     as_ms = _time_ms(lambda: compute_area_rows(cmds, counted, caps), 20)
     as_plain_ms = _time_ms(lambda: plain_cov.compute_area_rows(cmds, counted, caps), 5)
-    # Bound: the stream, the run boundaries and backdrops read, 1 KB a row
-    # written; ~40 float operations per (segment of the row's run, pixel).
-    run_segs = int((re_ - rs).clamp(min=0).sum())
-    a_bound = _bound(_nbytes(stream, rs, re_, bd, rows_k), run_segs * 256 * 40)
-    print(f"kernel A: {a_ms:.3f} ms vs plain {a_plain_ms:.3f} ms (bound "
-          f"{a_bound[0]:.4f} ms by {a_bound[1]}, {run_segs} segments in runs); whole "
-          f"coverage stage: {as_ms:.3f} ms vs plain {as_plain_ms:.3f} ms")
+    print(f"whole coverage stage, config 3: {as_ms:.3f} ms vs plain {as_plain_ms:.3f} ms")
+    # The MSAA body on the same rows (with the rows' rules), held and timed.
+    eo3 = plain_cov.slot_rank_rows(cmds, counted, dict(caps, aa_mode="msaa8"))[4]
+    err_msaa3 = {}
+    for aa in ("msaa8", "msaa16"):
+        err_msaa3[aa] = hold_msaa_rows(aa, stream, rs, re_, bd, eo3, "config 3")
+        time_msaa_rows(aa, stream, rs, re_, bd, eo3, "config 3", 0)
 
     # ---- 5. kernel B vs plain --------------------------------------------
     rec = build_records(dict(cmds, area_row=ids_k), caps)
@@ -580,71 +746,6 @@ def main():
             held["E''"] = (max(_max_diff(got[i], want[i]) for i in (0, 1)), got, want)
         return held
 
-    def hold_msaa_rows(aa, stream, rs, re_, bd, eo, tag):
-        """Kernel A's MSAA body against its plain version on one frame's
-        coverage inputs: the resolved rows must be equal (MSAA_TOL), in
-        [0, 1] and multiples of 1 / samples. Returns the max abs diff."""
-        offsets = plain_cov.sample_offsets(aa)
-        got = coverage_rows(stream, rs, re_, bd, offsets, eo)
-        want = plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo)
-        torch.cuda.synchronize()
-        err = _max_diff(got, want)
-        n = len(offsets)
-        live = got[re_ > rs]
-        quantized = torch.equal(got * n, torch.round(got * n))
-        print(f"{tag}: kernel A, {aa}: {live.shape[0]} rows, {int(eo.sum())} of them "
-              f"even-odd, max|row diff| {err:.3e}, mean coverage {float(live.mean()):.4f}, "
-              f"multiples of 1/{n}: {quantized}")
-        if (not err <= MSAA_TOL or not quantized or torch.isnan(got).any()
-                or float(got.min()) < 0.0 or float(got.max()) > 1.0
-                or not 0.0 < float(live.mean()) < 1.0):
-            _fail(f"{tag}: kernel A's {aa} body disagrees with its plain version")
-        return err
-
-    def time_msaa_rows(aa, stream, rs, re_, bd, eo, tag, n_plain):
-        """Kernel A's MSAA body timed on one frame's coverage inputs, beside
-        its plain version (n_plain calls; 0: not timed) and its bound.
-        Returns (ms, plain ms or None, (bound_ms, bound_by)).
-
-        The bound is by float operations unless the rows are few, and it
-        counts what the function needs, not what this kernel spends: the
-        crossing test, the crossing's x and the y_edge term depend on the
-        segment, the pixel row and the sample only, not on the pixel, so
-        they are counted once for each (segment, pixel row, sample): two
-        comparisons, the y_edge comparison, its product and the valid
-        product (5), and where the segment crosses the sample row a
-        difference, a division, a product, a sum and the winding's sign
-        (5 more); the crossed ones are counted from this run's segments.
-        For each (segment, pixel, sample) only `xi < xs` and the
-        accumulation are left (2). Bytes: the inputs once and 1 KB for
-        every row of the table."""
-        offsets = plain_cov.sample_offsets(aa)
-        n_s = len(offsets)
-        nonempty = re_ > rs
-        edges = torch.zeros(stream.shape[0] + 1, dtype=torch.int32, device=stream.device)
-        ones = torch.ones_like(rs[nonempty])
-        edges.index_add_(0, rs[nonempty].long(), ones)
-        edges.index_add_(0, re_[nonempty].long(), -ones)
-        run_seg = stream[torch.cumsum(edges, 0)[:-1] > 0]
-        ys = (torch.arange(16, device=stream.device)[:, None]
-              + (torch.arange(n_s, device=stream.device)[None, :] + 0.5) / n_s).reshape(1, -1)
-        crossed = int(((run_seg[:, 1:2] <= ys) != (run_seg[:, 3:4] <= ys)).sum())
-        sample_rows = run_seg.shape[0] * 16 * n_s
-        triples = sample_rows * 16
-        bound = _bound(_nbytes(stream, rs, re_, bd, eo) + rs.shape[0] * 1024,
-                       triples * 2 + sample_rows * 5 + crossed * 5)
-        ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd, offsets, eo), 20)
-        plain_ms = None
-        if n_plain:
-            plain_ms = _time_ms(
-                lambda: plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo), n_plain)
-        print(f"kernel A, {aa}, {tag}: {run_seg.shape[0]} segments in {int(nonempty.sum())} "
-              f"rows of {rs.shape[0]}, {crossed} crossed (segment, pixel row, sample) triples "
-              f"of {sample_rows}: {ms:.3f} ms"
-              + (f" vs plain {plain_ms:.3f} ms" if n_plain else "")
-              + f", bound {bound[0]:.4f} ms by {bound[1]}")
-        return ms, plain_ms, bound
-
     geometry_wrappers = [(kland, "monotone_land"), (kwalk, "lockstep_walk"),
                          (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows")]
     held3 = hold_geometry_kernels(calls, "config 3")
@@ -671,67 +772,107 @@ def main():
                 _time_ms(lambda: plain_land.monotone_land(*land_runs), 20),
                 _bound(_nbytes(l_pos, l_keep, l_v, got), l_pos.shape[0]),
                 _time_ms(land_library, 20))
+    # The bare C entry on prepared buffers: no checks, no allocation, no
+    # list of rows; what the wrapper adds is the difference.
+    lib = build.kernels()
+    l_out = torch.empty((len(l_vals), l_len), dtype=torch.float32, device=l_pos.device)
+    l_ptrs = [v.data_ptr() for v in l_vals] + [None] * (3 - len(l_vals))
+    l_codes = [0 if v.dtype == torch.int32 else 1 for v in l_vals] + [0] * (3 - len(l_vals))
+    l_stream = torch.cuda.current_stream().cuda_stream
+
+    def land_bare():
+        build.check("jello_monotone_land", lib.jello_monotone_land(
+            l_pos.data_ptr(), l_keep.data_ptr(), *l_ptrs, *l_codes, l_out.data_ptr(),
+            l_pos.shape[0], len(l_vals), l_len, l_stream))
+
+    land_bare()
+    if not torch.equal(l_out, torch.stack(got)):
+        _fail("kernel C's bare entry differs from its wrapper")
+    c_bare_ms = _time_ms(land_bare, 20)
     print(f"kernel C: {len(calls['monotone_land'])} calls equal; sorted-run landing "
-          f"{land_runs[0].shape[0]} rows -> {land_runs[3]}: {res['C'][1]:.3f} ms vs plain "
-          f"{res['C'][2]:.3f} ms, library scatter_ {res['C'][4]:.3f} ms, bound "
-          f"{res['C'][3][0]:.5f} ms")
+          f"{land_runs[0].shape[0]} rows -> {land_runs[3]}: {res['C'][1]:.4f} ms (the bare C "
+          f"entry {c_bare_ms:.4f} ms) vs plain {res['C'][2]:.3f} ms, library scatter_ "
+          f"{res['C'][4]:.4f} ms, bound {res['C'][3][0]:.5f} ms, on {smi}")
+    if res["C"][1] > res["C"][4]:
+        print("kernel C: NOTE slower than the library scatter_ in this run")
+    # Device operations a landing, at each recorded call site.
+    for args in calls["monotone_land"]:
+        n_k, n_c = _device_ops(lambda: kland.monotone_land(*args))
+        print(f"kernel C, K={len(args[2])}, {args[0].shape[0]} rows -> {args[3]}: {n_k:g} "
+              f"kernels and {n_c:g} memsets or copies a call")
+        if n_k != 1 or n_c > 1:
+            _fail("kernel C: a landing is more than one kernel and one memset")
 
-    (w_args,) = calls["lockstep_walk"]
-    err_d, got, want = held3["D"]
-    # Bound: the work table read, the records, counts and flags written.
-    # An item that emits L segments walks a binary subdivision tree of L
-    # leaves, 2L - 1 iterations, plus the one that finds it done; ~400
-    # float operations an iteration.
-    emits = int((got[0][2] != 0).sum())
-    walk_iters = 2 * emits + int(w_args[1].sum())
-    res["D"] = (err_d, _time_ms(lambda: kwalk.lockstep_walk(*w_args), 20),
-                _time_ms(lambda: plain_walk.lockstep_walk(*w_args), 3),
-                _bound(_nbytes(w_args[0], w_args[1], got), walk_iters * 400), None)
-    print(f"kernel D: {w_args[0].shape[0]} work rows, IT {w_args[2]}, iters "
-          f"{int(got[3])}, lines {int(got[1].sum())}, segments {emits}, all equal; "
-          f"{res['D'][1]:.3f} ms vs plain {res['D'][2]:.3f} ms, bound "
-          f"{res['D'][3][0]:.4f} ms by {res['D'][3][1]}")
+    def time_geometry_kernels(calls, held, tag, n_plain):
+        """Kernels D, E, E' and E'' timed on one frame's recorded calls,
+        each beside its plain version (n_plain calls of it; 0: not timed)
+        and its bound. Returns {kernel: (max abs diff, ms, plain ms or
+        None, (bound_ms, bound_by), None)}."""
+        def plain_time(fn, n):
+            return _time_ms(fn, n) if n_plain else None
 
-    (e_args,) = calls["expand_euler"]
-    table, recs, counts, EC, sentinel = e_args
-    incl, _ = plain_expand.expand_prefix(counts)
-    err_e, got, want = held3["E"]
-    # Bound: table, records and counts read, six outputs a slot written;
-    # two line evaluations of ~120 float operations for each live line.
-    res["E"] = (err_e, _time_ms(lambda: kx.expand_euler(*e_args), 20),
-                _time_ms(lambda: plain_expand.euler_lines(table, recs, incl, counts, EC,
-                                                          sentinel), 3),
-                _bound(_nbytes(table, recs, counts, got[:6]), int(want[5].sum()) * 240),
-                None)
-    print(f"kernel E: {EC} slots, {int(want[5].sum())} lines, max|end point diff| "
-          f"{err_e:.3e}; {res['E'][1]:.3f} ms vs plain {res['E'][2]:.3f} ms")
+        out = {}
+        (w_args,) = calls["lockstep_walk"]
+        err_d, got, _ = held["D"]
+        # Bound: the work table read, the records, counts and flags
+        # written. An item that emits L segments walks a binary
+        # subdivision tree of L leaves, 2L - 1 iterations, plus the one
+        # that finds it done; ~400 float operations an iteration.
+        emits = int((got[0][2] != 0).sum())
+        walk_iters = 2 * emits + int(w_args[1].sum())
+        out["D"] = (err_d, _time_ms(lambda: kwalk.lockstep_walk(*w_args), 20),
+                    plain_time(lambda: plain_walk.lockstep_walk(*w_args), 3),
+                    _bound(_nbytes(w_args[0], w_args[1], got), walk_iters * 400), None)
+        print(f"kernel D, {tag}: {w_args[0].shape[0]} work rows, IT {w_args[2]}, iters "
+              f"{int(got[3])}, lines {int(got[1].sum())}, segments {emits}")
 
-    (c_args,) = calls["expand_crossings"]
-    Pc, ncc, SC, T = c_args
-    incl_c, _ = plain_expand.expand_prefix(ncc, assume_compact=True)
-    err_c, got, want = held3["E'"]
-    # Bound: the line table and counts read, five float64 and three
-    # int32 a slot written; ~60 operations a crossing (float64 here,
-    # held to the float32 rate, so the bound errs low).
-    res["E'"] = (err_c, _time_ms(lambda: kx.expand_crossings(*c_args), 20),
-                 _time_ms(lambda: plain_expand.tile_crossings(Pc, incl_c, ncc, SC, T), 5),
-                 _bound(_nbytes(Pc, ncc, got[:4]), int(ncc.sum()) * 60), None)
-    print(f"kernel E': {Pc.shape[0]} lines -> {SC} slots ({int(ncc.sum())} crossings), "
-          f"max|segment diff| {err_c:.3e}; {res["E'"][1]:.3f} ms vs plain "
-          f"{res["E'"][2]:.3f} ms")
+        (e_args,) = calls["expand_euler"]
+        table, recs, counts, EC, sentinel = e_args
+        incl, _ = plain_expand.expand_prefix(counts)
+        err_e, got, want = held["E"]
+        # Bound: table, records and counts read, six outputs a slot
+        # written; two line evaluations of ~120 float operations for each
+        # live line.
+        out["E"] = (err_e, _time_ms(lambda: kx.expand_euler(*e_args), 20),
+                    plain_time(lambda: plain_expand.euler_lines(table, recs, incl, counts, EC,
+                                                                sentinel), 3),
+                    _bound(_nbytes(table, recs, counts, got[:6]), int(want[5].sum()) * 240),
+                    None)
+        print(f"kernel E, {tag}: {EC} slots, {int(want[5].sum())} lines, max|end point diff| "
+              f"{err_e:.3e}")
 
-    (r_args,) = calls["expand_rows"]
-    PRTc, nrr, RC, T = r_args
-    incl_r, _ = plain_expand.expand_prefix(nrr, assume_compact=True)
-    err_r, got, want = held3["E''"]
-    # Bound: the line table and counts read, two int32 a slot written; ~10
-    # operations a row.
-    res["E''"] = (err_r, _time_ms(lambda: kx.expand_rows(*r_args), 20),
-                  _time_ms(lambda: plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T), 5),
-                  _bound(_nbytes(PRTc, nrr, got[:2]), int(nrr.sum()) * 10), None)
-    print(f"kernel E'': {PRTc.shape[0]} lines -> {RC} slots ({int(nrr.sum())} rows), "
-          f"equal; {res["E''"][1]:.3f} ms vs plain {res["E''"][2]:.3f} ms")
-    del calls, held3, w_args, e_args, c_args, r_args, got, want, warm
+        (c_args,) = calls["expand_crossings"]
+        Pc, ncc, SC, T = c_args
+        incl_c, _ = plain_expand.expand_prefix(ncc, assume_compact=True)
+        err_c, got, _ = held["E'"]
+        # Bound: the line table and counts read, five float64 and three
+        # int32 a slot written; ~60 operations a crossing (float64 here,
+        # held to the float32 rate, so the bound errs low).
+        out["E'"] = (err_c, _time_ms(lambda: kx.expand_crossings(*c_args), 20),
+                     plain_time(lambda: plain_expand.tile_crossings(Pc, incl_c, ncc, SC, T), 5),
+                     _bound(_nbytes(Pc, ncc, got[:4]), int(ncc.sum()) * 60), None)
+        print(f"kernel E', {tag}: {Pc.shape[0]} lines -> {SC} slots ({int(ncc.sum())} "
+              f"crossings), max|segment diff| {err_c:.3e}")
+
+        (r_args,) = calls["expand_rows"]
+        PRTc, nrr, RC, T = r_args
+        incl_r, _ = plain_expand.expand_prefix(nrr, assume_compact=True)
+        err_r, got, _ = held["E''"]
+        # Bound: the line table and counts read, two int32 a slot written;
+        # ~10 operations a row.
+        out["E''"] = (err_r, _time_ms(lambda: kx.expand_rows(*r_args), 20),
+                      plain_time(lambda: plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T), 5),
+                      _bound(_nbytes(PRTc, nrr, got[:2]), int(nrr.sum()) * 10), None)
+        print(f"kernel E'', {tag}: {PRTc.shape[0]} lines -> {RC} slots ({int(nrr.sum())} rows)")
+        for k, v in out.items():
+            print(f"kernel {k}, {tag}: {v[1]:.4f} ms"
+                  + (f" vs plain {v[2]:.3f} ms" if v[2] is not None else "")
+                  + f", bound {v[3][0]:.5f} ms by {v[3][1]} ({100 * v[3][0] / v[1]:.1f}% of it), "
+                  f"on {smi}")
+        return out
+
+    res.update(time_geometry_kernels(calls, held3, "config 3", 1))
+    del calls, held3, got, warm
 
     # ---- 7. config 5: kernel F, and kernel B with the tap's table --------
     t = time.perf_counter()
@@ -757,32 +898,37 @@ def main():
     stages = out["stages"]
     cmds, counted = stages["cmds"], stages["counted"]
     # The geometry kernels and A at this frame's shapes, the first with
-    # stroke offsets: held to their plain versions, not timed.
+    # stroke offsets: held to their plain versions and timed (the JSON
+    # line carries config 3's times for C, D, E, E', E'' and area A).
     held5 = hold_geometry_kernels(calls5, "config 5")
     stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(cmds, counted,
                                                              dict(caps, aa_mode="msaa8"))
+    lens = (re_ - rs).clamp(min=0)
+    bins = (("0", 0, 0), ("1-4", 1, 4), ("5-16", 5, 16), ("17-64", 17, 64),
+            ("65-256", 65, 256), ("over 256", 257, 2**31 - 1))
+    print("config 5 run lengths, rows of: " + ", ".join(
+        f"{label} segments {int(((lens >= lo) & (lens <= hi)).sum())}" for label, lo, hi in bins)
+        + f"; {lens.shape[0]} rows, longest {int(lens.max())}")
     err_a5 = _max_diff(coverage_rows(stream, rs, re_, bd),
                        plain_cov.coverage_rows_plain(stream, rs, re_, bd))
     # Kernel A's MSAA body on the same coverage inputs: resolved rows.
-    err_msaa = {aa: hold_msaa_rows(aa, stream, rs, re_, bd, eo, "config 5")
-                for aa in ("msaa8", "msaa16")}
-    # At config 5's 872k segments the body is bound by its operations: timed
-    # here beside the area body (the JSON line carries config 4's times).
-    a5_ms = _time_ms(lambda: coverage_rows(stream, rs, re_, bd), 20)
-    print(f"kernel A, area, config 5: {a5_ms:.3f} ms")
+    err_msaa = {aa: max(hold_msaa_rows(aa, stream, rs, re_, bd, eo, "config 5"),
+                        err_msaa3[aa]) for aa in ("msaa8", "msaa16")}
+    # At config 5's 872k segments every body is bound by its operations.
+    time_area_rows(stream, rs, re_, bd, "config 5", 0)
     for aa in ("msaa8", "msaa16"):
         time_msaa_rows(aa, stream, rs, re_, bd, eo, "config 5", 0)
     print("config 5 recorded calls: "
           + ", ".join(f"{k} x{len(v)}" for k, v in sorted(calls5.items()))
           + "; max|diff| vs plain: "
           + ", ".join(f"{k} {v[0]:.3e}" for k, v in held5.items())
-          + f", A {err_a5:.3e} over {int((re_ - rs).clamp(min=0).sum())} segments in "
-          f"{int((re_ > rs).sum())} rows")
+          + f", A {err_a5:.3e} over {int(lens.sum())} segments in {int((lens > 0).sum())} rows")
     if not err_a5 <= A_TOL:
         _fail("config 5: kernel A disagrees with its plain version")
     for k, v in held5.items():
         res[k] = (max(res[k][0], v[0]),) + res[k][1:]
-    del calls5, held5, stream, rs, re_, bd, eo
+    time_geometry_kernels(calls5, held5, "config 5", 0)
+    del calls5, held5, stream, rs, re_, bd, eo, lens
     area5, ids5, _ = compute_area_rows(cmds, counted, caps)
     rec5 = build_records(dict(cmds, area_row=ids5), caps)
     out = {}
@@ -1013,9 +1159,15 @@ def main():
     res["B groups"] = (err_b4, b4_ms, b4_plain_ms, b4_bound, None)
     print(f"kernel B with groups, config 4: {b4_ms:.3f} ms vs plain {b4_plain_ms:.3f} ms, "
           f"bound {b4_bound[0]:.4f} ms by {b4_bound[1]} ({b4_bytes / 1e6:.1f} MB needed)")
-    # Kernel A's MSAA body on config 4's coverage inputs, held and timed.
+    # Kernel A's three bodies on config 4's coverage inputs, held and timed.
     stream, rs, re_, bd, eo, _, _ = plain_cov.slot_rank_rows(cmds, counted,
                                                              dict(caps, aa_mode="msaa8"))
+    err_a4 = _max_diff(coverage_rows(stream, rs, re_, bd),
+                       plain_cov.coverage_rows_plain(stream, rs, re_, bd))
+    print(f"config 4: kernel A, area: max|row diff| {err_a4:.3e}")
+    if not err_a4 <= A_TOL:
+        _fail("config 4: kernel A disagrees with its plain version")
+    time_area_rows(stream, rs, re_, bd, "config 4", 0)
     for aa in ("msaa8", "msaa16"):
         err = hold_msaa_rows(aa, stream, rs, re_, bd, eo, "config 4")
         res["A " + aa] = (max(err, err_msaa[aa]),) + time_msaa_rows(
@@ -1337,11 +1489,14 @@ def main():
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
             if what == "render_device":
-                n_k, n_c, busy, top = _profile(lambda: fn(scene, params))
+                n_k, n_c, busy, top, counted = _profile(lambda: fn(scene, params),
+                                                        count=("land_kernel",))
                 print(f"{name}: profiled {what}: {n_k:.0f} kernels and {n_c:.0f} copies or "
                       f"memsets a frame, kernel busy {busy:.3f} ms a frame, "
                       f"{100 * busy / med:.0f}% of the unprofiled median frame; most time in: "
-                      + "; ".join(f"{k[:70]} {ms:.2f} ms x{n:.0f}" for k, ms, n in top))
+                      + "; ".join(f"{k[:70]} {ms:.2f} ms x{n:.0f}" for k, ms, n in top)
+                      + f"; kernel C's kernel {counted['land_kernel']:g} a frame for "
+                      f"{launches[name]['monotone_land']} calls")
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jello_tpu")]
@@ -1362,7 +1517,7 @@ def main():
 
     kernels = [
         entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",
-              max(err_rows, err_a, err_a5), a_ms, a_plain_ms, a_bound, None),
+              max(err_rows, err_a, err_a5, err_a4), a_ms, a_plain_ms, a_bound, None),
         # Kernel A's MSAA body, at config 4's coverage inputs.
         entry("coverage_msaa8", "coverage.cu", "coverage_pallas.py:266", *res["A msaa8"],
               counter="coverage_msaa", configs=[t for t in launches if "msaa8" in t]),

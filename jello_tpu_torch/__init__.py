@@ -14,7 +14,7 @@ Layout (each module names its jello_tpu counterpart):
   - `renderer/`: host-side resolve (ramps, image atlas), capacity
     estimation, render parameters;
   - `pmath`, `flatten_math`: flatten's numerical core;
-  - `scenes`: the benchmark scenes (the port renders configs 1, 2, 3, 5);
+  - `scenes`: the benchmark scenes (the port renders configs 1 to 5);
   - `pipeline/`: the backend-generic stages, in torch, and the plain
     versions of the kernels;
   - `cuda/`: the renderer, the kernel wrappers and the kernel loader

@@ -10,7 +10,8 @@ The library lands in `jello_tpu_torch/_build/` and is rebuilt when a
 source is newer; a failed build raises with nvcc's stderr.
 
 Each exported C function launches one kernel on the stream it is given
-and returns `cudaGetLastError()`; `check` raises if that is not 0.
+(kernel C's entry also zeroes its output there, with one memset) and
+returns `cudaGetLastError()`; `check` raises if that is not 0.
 """
 
 from __future__ import annotations
@@ -42,14 +43,18 @@ SIGNATURES = {
     # seg stream, row_start, row_end, row_bd as above, row_eo [R] i32,
     # out [R, 256] f32, R, samples (8 or 16), stream
     "jello_coverage_msaa": [P, P, P, P, P, P, I, I, P],
+    # samples (0 area, 8 or 16): kernel A's persistent CTAs on the current
+    # device (a query, no launch; -1 on a CUDA error)
+    "jello_coverage_grid": [I],
     # rec [PC, 16] i32, cov [>=PC, 256] f32, stops [NR, W] f32,
     # tile_start [GRID] i32, tile_end [GRID] i32, base [4] f32,
     # fg_tab [IRC, 1024] f32 or null, out [PC, 4, 256] f32, GRID, NR, W,
     # wit, IRC, resolved (1: cov holds resolved MSAA rows), stream
     "jello_fine_v2": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    # pos [R] i32, keep [R] bool, vals [K, R] f32, out [K, out_len] f32
-    # (zeroed), R, K, out_len, stream
-    "jello_monotone_land": [P, P, P, P, I, I, I, P],
+    # pos [R] i32, keep [R] bool, three value vectors [R] (null past K),
+    # their type codes (0 int32, 1 float32), out [K, out_len] f32 (zeroed
+    # by the entry), R, K, out_len, stream
+    "jello_monotone_land": [P, P, P, P, P, I, I, I, P, I, I, I, P],
     # table [NW, 21] f32, valid [NW] bool, rec [3, IT, NW] f32 (zeroed),
     # count [NW] f32, not_done [NW] bool, iters [] i32 (zeroed), NW, IT, stream
     "jello_lockstep_walk": [P, P, P, P, P, P, I, I, P],
@@ -99,15 +104,20 @@ def _run(procs):
     return errs
 
 
-def build(verbose: bool = False) -> Path:
+# nvcc's stderr of the last build, by source name (with `verbose`,
+# ptxas's registers, shared memory and spills of every kernel).
+LOG: dict[str, str] = {}
+
+
+def build(verbose: bool = False, force: bool = False) -> Path:
     """Compile the kernels if the library is missing or older than a
-    source: one nvcc per source, all started together, then one link.
-    Returns the library path."""
+    source (or always, with `force`): one nvcc per source, all started
+    together, then one link. Returns the library path."""
     srcs = sorted(CSRC.glob("*.cu"))
     heads = sorted(CSRC.glob("*.cuh"))
     lib = BUILD / LIB_NAME
     newest = max(p.stat().st_mtime for p in srcs + heads)
-    if lib.exists() and lib.stat().st_mtime >= newest:
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
@@ -124,6 +134,8 @@ def build(verbose: bool = False) -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
     for o in objs:
         o.unlink()
+    LOG.clear()
+    LOG.update({s.name: e for s, e in zip(srcs, errs)})
     if verbose:
         print("".join(errs))
     os.replace(tmp, lib)
@@ -157,6 +169,7 @@ def check_tensor(name, t, dtype, device, shape) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream of t's device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -3,7 +3,7 @@
 Counterpart of `jello_tpu/tpu/coverage_pallas.py::compute_area_rows_pallas`
 in its three modes: area (raw winding rows) and msaa8 / msaa16 (rows
 resolved per sample). `coverage_rows` launches kernel A for CUDA tensors
-(one CTA per slot-rank row; `jello_coverage_area`, or
+(persistent CTAs that walk the slot-rank rows; `jello_coverage_area`, or
 `jello_coverage_msaa` when sample offsets are given) and takes its plain
 version, `pipeline.coverage.coverage_rows_plain`, only for CPU tensors;
 there is no fallback from one to the other. `compute_area_rows` is the
@@ -43,6 +43,9 @@ def coverage_rows(stream, row_start, row_end, row_bd, offsets=None, row_eo=None)
         check_tensor("row_eo", row_eo, I32, dev, (R,))
     if dev.type == "cpu":
         return cov.coverage_rows_plain(stream, row_start, row_end, row_bd, offsets, row_eo)
+    if stream.data_ptr() % 16:
+        raise ValueError("stream: the kernel copies it in 16-byte pieces; expected 16-byte "
+                         "alignment")
     out = torch.empty((R, 256), dtype=F32, device=dev)
     if offsets is None:
         err = kernels().jello_coverage_area(
@@ -63,6 +66,15 @@ def coverage_rows(stream, row_start, row_end, row_bd, offsets=None, row_eo=None)
 # Launches of the area entry, and of the MSAA entry.
 coverage_rows.launches = 0
 coverage_rows.launches_msaa = 0
+
+
+def persistent_ctas(samples=0):
+    """The CTAs kernel A starts on the current device for a call with
+    enough rows (samples 0: the area body, 8 or 16: the MSAA body)."""
+    n = kernels().jello_coverage_grid(samples)
+    if n < 0:
+        raise RuntimeError("jello_coverage_grid: CUDA error")
+    return n
 
 
 def compute_area_rows(cmds, counted, caps):

@@ -142,12 +142,11 @@ def expand_by_counts(counts, out_cap, total=None, land=False):
     j < out_cap its (record index, index within record, valid flag).
 
     Every nonzero record marks (its index, its exclusive offset) at its
-    exclusive offset (offsets of nonzero records are distinct), and a
-    cummax fills both forward across the record's run. The marks are a
-    scatter, or with `land` (only for counts in {0, 1}, whose offsets
-    advance at most 1 per record) they land through kernel C, as on
-    jello_tpu's `_expand_pallas` route (`flatten.py:396-415`); both give
-    the same result.
+    exclusive offset (offsets of nonzero records are distinct and
+    increasing), and a cummax fills both forward across the record's
+    run. The marks are a scatter, or with `land` they land through kernel
+    C, as on jello_tpu's `_expand_pallas` route (`flatten.py:396-415`);
+    both give the same result.
     Returns (rec, within, valid, excl, total)."""
     dev = counts.device
     counts = counts.to(I32)

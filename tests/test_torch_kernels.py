@@ -267,6 +267,99 @@ def test_torch_coverage_msaa_kernel_matches_plain(cuda, aa):
     assert (area - area_p).abs().max().item() <= 1e-6
 
 
+def _synthetic_rows(seed, long_run):
+    """Coverage inputs built to reach the kernel's corners: rows of 0
+    and 1 segments, a row longer than one shared-memory chunk (`long_run`
+    segments), horizontal (dy = 0) and vertical (dx = 0) segments,
+    pixel-aligned end points, y_edge terms, invalid segments inside runs,
+    segments between runs that belong to no row, and backdrops of -3 to 3
+    (rows made negative, so that the even-odd and nonzero rules differ).
+    Runs follow row order, as the pipeline makes them and as the plain
+    version assumes. Returns (stream, rs, re, bd, eo) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lens = np.array([0, 1, long_run, 0, 2, 7, 1, 33, 0, 16, 3]
+                    + list(rng.integers(0, 24, 60)), np.int32)
+    gaps = rng.integers(0, 3, lens.shape[0]).astype(np.int32)
+    SC = int(lens.sum() + gaps.sum()) + 5
+    xy = rng.uniform(-2.0, 18.0, (SC, 4)).astype(np.float32)
+    snap = rng.random((SC, 4)) < 0.2
+    xy[snap] = np.round(xy[snap])
+    flat = rng.random(SC) < 0.1
+    xy[flat, 3] = xy[flat, 1]
+    upright = rng.random(SC) < 0.15
+    xy[upright, 2] = xy[upright, 0]
+    y_edge = np.where(rng.random(SC) < 0.3, rng.uniform(0.0, 16.0, SC), 1e9).astype(np.float32)
+    valid = (rng.random(SC) < 0.95).astype(np.float32)
+    stream = np.zeros((SC, 8), np.float32)
+    stream[:, :4], stream[:, 4], stream[:, 5] = xy, y_edge, valid
+    ends = np.cumsum(lens + gaps).astype(np.int32)
+    rs, re_ = ends - lens, ends
+    bd = rng.integers(-3, 4, lens.shape[0]).astype(np.float32)
+    eo = rng.integers(0, 2, lens.shape[0]).astype(np.int32)
+    return stream, rs, re_, bd, eo
+
+
+@pytest.mark.parametrize("aa", ["area", "msaa8", "msaa16"])
+def test_torch_coverage_kernel_synthetic_rows(cuda, aa):
+    """Kernel A, each body, on `_synthetic_rows` (a run of 300 segments
+    spans five of the area body's chunks and ten of the MSAA body's):
+    area rows within 1e-5 of the plain version, relative to the largest
+    row value where that exceeds 1 (float32 sums of up to 300 terms, in
+    another order), MSAA rows equal (sums of small integers); under MSAA the
+    row's rule shows (flipping `row_eo` moves the rows) and the kernel
+    reads it as the plain version does."""
+    stream, rs, re_, bd, eo = (torch.from_numpy(a).to(cuda) for a in _synthetic_rows(3, 300))
+    offsets = plain_cov.sample_offsets(aa)
+    n0 = coverage_rows.launches + coverage_rows.launches_msaa
+    got = coverage_rows(stream, rs, re_, bd, offsets, eo if offsets else None)
+    assert coverage_rows.launches + coverage_rows.launches_msaa == n0 + 1
+    want = plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, eo)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    if offsets is None:
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        empty = re_ == rs
+        assert torch.equal(got[empty], bd[empty, None].expand(-1, 256))
+        return
+    assert torch.equal(got, want)
+    flip = 1 - eo
+    got_f = coverage_rows(stream, rs, re_, bd, offsets, flip)
+    assert torch.equal(got_f, plain_cov.coverage_rows_plain(stream, rs, re_, bd, offsets, flip))
+    assert (got_f - got).abs().max().item() > 0.5
+
+
+@pytest.mark.parametrize("out_len", ["below", "above"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_torch_land_kernel_synthetic(cuda, K, dtype, out_len):
+    """Kernel C against its plain version (equal): K value vectors of one
+    type, positions with flatten-style gaps (the exclusive prefix of
+    counts of 0 to 40) shifted so that the first kept ones are negative,
+    `out_len` below R (the tail of the kept rows lands past it) or above
+    the last position; one kernel launch."""
+    rng = np.random.default_rng(K)
+    R = 5000
+    counts = rng.choice([0, 1, 2, 5, 40], R, p=[0.4, 0.3, 0.15, 0.1, 0.05]).astype(np.int32)
+    pos = (np.cumsum(counts) - counts - 50).astype(np.int32)
+    keep = counts > 0
+    n = R // 3 if out_len == "below" else int(pos[-1]) + 1000
+    if dtype == torch.int32:
+        vals = [rng.integers(-(1 << 23), 1 << 23, R).astype(np.int32) for _ in range(K)]
+    else:
+        vals = [rng.standard_normal(R).astype(np.float32) for _ in range(K)]
+    args = (torch.from_numpy(pos).to(cuda), torch.from_numpy(keep).to(cuda),
+            [torch.from_numpy(v).to(cuda) for v in vals], n)
+    n0 = kland.monotone_land.launches
+    got = kland.monotone_land(*args)
+    assert kland.monotone_land.launches == n0 + 1
+    want = plain_land.monotone_land(*args)
+    assert len(got) == K
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (n,) and torch.equal(g, w)
+    assert bool((pos < 0)[keep].any()) and bool((pos >= n)[keep].any()) == (out_len == "below")
+
+
 def test_torch_fine_kernel_resolved_matches_plain(cuda):
     """Kernel B's resolved branch on an MSAA frame's resolved rows, and on
     rows made negative wherever a path covers: a row in [0, 1] reads the
@@ -539,6 +632,11 @@ def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
         kwalk.lockstep_walk(table.double(), valid, 8)
     with pytest.raises(ValueError):
         kland.monotone_land(valid.to(torch.int64), valid, [valid], 64)
+    pos = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # values of another type than int32 or float32
+        kland.monotone_land(pos, valid, [valid], 64)
+    with pytest.raises(ValueError):  # at most three value vectors
+        kland.monotone_land(pos, valid, [pos] * 4, 64)
     args = list(interpret_args(hand_built_slab(), cuda))
     with pytest.raises(ValueError):
         kint.interpret_tiles(*args[:4], args[4].cpu(), *args[5:])

@@ -153,11 +153,9 @@ def _image_scene(jt=jello_tpu):
     return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-@pytest.mark.parametrize("case, slice_no", [("clip", "slice 6")])
-def test_torch_renderer_refuses_scenes_outside_the_slice(case, slice_no):
-    """No scene is outside the ported slices any more: the clip layer that
-    slice 6 used to refuse renders on the hybrid fine stage and matches
-    the oracle (the MSAA frames that slice 5 used to refuse are held in
+def test_torch_renderer_renders_the_clip_scene():
+    """The clip layer renders on the hybrid fine stage and matches the
+    oracle (the MSAA frames are held in
     test_torch_renderer_msaa_matches_oracle)."""
     r = Renderer(device="cpu")
     _check(r, _clip_scene)
