@@ -13,8 +13,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      which path encoder runs (native or its Python twin); exits non-zero
      when CUDA is not available;
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
-     nvcc per source, all at once, and prints ptxas's registers and
-     spills for kernels A and C and kernel A's persistent grid;
+     nvcc per source, all at once, and prints ptxas's registers, spills
+     and static shared memory for kernels A, C, D and E (E's three
+     bodies) and kernel A's persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
      kernel wrappers C, D, E, E' and E'' recorded;
@@ -32,12 +33,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      inputs; C also beside the one PyTorch call that lands the same rows
      (scatter_ into a zeroed tensor), as a yardstick only, and beside its
      bare C entry on prepared buffers, with the device operations (kernels,
-     memsets, copies) a call puts on the card at each call site;
+     memsets, copies) a call puts on the card at each call site; D, E, E'
+     and E'' timed, each wrapper beside its bare C entry on buffers
+     allocated once (outputs equal to the wrapper's) and its bound, with
+     its device operations a call (D: one kernel and one 4-byte memset;
+     E: one or two prefix-scan kernels and the expansion) and D's lane
+     efficiency (iterations entered, over 32 times each warp's largest);
   7. config 5 (10,000 paths at 1920x1080: long fills, thin round-capped
      strokes, even-odd glyphs, gradients, image fills) at its calibrated
      class: kernels C, D, E, E', E'' (now with stroke offsets) and A held
      to their plain versions on this frame's recorded inputs as in 4 and
-     6 and timed (D, E, E', E'' and A's three modes, beside their bounds),
+     6 and timed (D, E, E', E'' as in 6 and A's three modes, beside their
+     bounds),
      with the histogram of the coverage rows' run lengths; kernel F
      (image tap) vs its plain version on the frame's
      real image records, recorded from the tap stage (max abs diff <= 1e-6:
@@ -102,6 +109,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      written once; for B, G and H only the rows this run's records touch)
      over 3.35 TB/s and its float operations, counted for
      this run's data, over 67 TFLOP/s (float32 outside the tensor cores).
+     D, E, E' and E'' also carry bare_ms, their bare C entry's time.
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -239,8 +247,9 @@ def _device_ops(fn, calls=5):
 
 
 def _ptxas_summary(log):
-    """[(kernel, registers, spill store bytes, spill load bytes)] of every
-    entry function in one source's `-Xptxas -v` output."""
+    """[(kernel, registers, spill store bytes, spill load bytes, static
+    shared memory bytes)] of every entry function in one source's
+    `-Xptxas -v` output."""
     import re
 
     out, name, spills = [], None, (0, 0)
@@ -253,7 +262,8 @@ def _ptxas_summary(log):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append((name, int(m.group(1))) + spills)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1))) + spills + (int(smem.group(1)) if smem else 0,))
             name, spills = None, (0, 0)
     return out
 
@@ -492,6 +502,7 @@ def main():
     from jello_tpu_torch.pipeline.render import geometry
     from jello_tpu_torch.renderer.params import AaConfig
     from jello_tpu_torch.scenes import GATE_SCENES
+    from tools.torch_frame_times import bare_entries, flat_outputs
 
     config1, config2, config3, config4, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 4, 5))
     print("path encoder: " + ("native (g++)" if native.get_lib() is not None
@@ -501,13 +512,15 @@ def main():
     build.build(verbose=True, force=True)
     build.kernels()
     print(f"build: {time.perf_counter() - t:.1f} s")
-    # Kernels A and C as ptxas built them: registers and spills a thread,
-    # and A's persistent grid (resident CTAs a multiprocessor times the
-    # multiprocessors, from those registers and its shared memory).
-    for src in ("coverage.cu", "land.cu"):
-        for name, regs, st, ld in _ptxas_summary(build.LOG[src]):
+    # Kernels A, C, D and E as ptxas built them: registers, spills and
+    # static shared memory a thread or CTA (E's staged window is dynamic
+    # shared memory, printed with its calls), and A's persistent grid
+    # (resident CTAs a multiprocessor times the multiprocessors, from
+    # those registers and its shared memory).
+    for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu"):
+        for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
-                  f"spill loads {ld} B")
+                  f"spill loads {ld} B, static shared memory {smem} B")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for samples, body in ((0, "area"), (8, "msaa8"), (16, "msaa16")):
         n = kcov.persistent_ctas(samples)
@@ -804,13 +817,19 @@ def main():
             _fail("kernel C: a landing is more than one kernel and one memset")
 
     def time_geometry_kernels(calls, held, tag, n_plain):
-        """Kernels D, E, E' and E'' timed on one frame's recorded calls,
-        each beside its plain version (n_plain calls of it; 0: not timed)
-        and its bound. Returns {kernel: (max abs diff, ms, plain ms or
-        None, (bound_ms, bound_by), None)}."""
+        """Kernels D, E, E' and E'' timed on one frame's recorded calls:
+        each wrapper beside its bare C entry on buffers allocated once
+        (whose outputs must equal the wrapper's), its plain version
+        (n_plain calls of it; 0: not timed) and its bound, with the
+        device operations a wrapper call puts on the card (D: one kernel
+        and at most one memset, of `iters`; E: the prefix scan's one or
+        two kernels and the expansion, no memset). Returns {kernel: (max
+        abs diff, ms, plain ms or None, (bound_ms, bound_by), None, bare
+        ms)}."""
         def plain_time(fn, n):
             return _time_ms(fn, n) if n_plain else None
 
+        bare = bare_entries(calls)
         out = {}
         (w_args,) = calls["lockstep_walk"]
         err_d, got, _ = held["D"]
@@ -818,28 +837,44 @@ def main():
         # written. An item that emits L segments walks a binary
         # subdivision tree of L leaves, 2L - 1 iterations, plus the one
         # that finds it done; ~400 float operations an iteration.
-        emits = int((got[0][2] != 0).sum())
+        emits_i = (got[0][2] != 0).sum(0)
+        emits = int(emits_i.sum())
         walk_iters = 2 * emits + int(w_args[1].sum())
         out["D"] = (err_d, _time_ms(lambda: kwalk.lockstep_walk(*w_args), 20),
                     plain_time(lambda: plain_walk.lockstep_walk(*w_args), 3),
                     _bound(_nbytes(w_args[0], w_args[1], got), walk_iters * 400), None)
-        print(f"kernel D, {tag}: {w_args[0].shape[0]} work rows, IT {w_args[2]}, iters "
-              f"{int(got[3])}, lines {int(got[1].sum())}, segments {emits}")
+        # The walk's lane efficiency: iterations entered, summed over the
+        # items, over 32 times the sum of each warp's largest (a thread an
+        # item, warps of 32 consecutive items). An item that finishes
+        # entered 2L iterations (the tree's 2L - 1 and the one that finds
+        # it done), one that did not, all IT; invalid items none.
+        IT = w_args[2]
+        entered = torch.where(got[2], IT, 2 * emits_i)
+        warps = torch.nn.functional.pad(entered, (0, -entered.shape[0] % 32)).view(-1, 32)
+        lane_eff = int(entered.sum()) / max(1, 32 * int(warps.max(1).values.sum()))
+        print(f"kernel D, {tag}: {w_args[0].shape[0]} work rows, IT {IT}, iters "
+              f"{int(got[3])} (reckoned from the records: {int(entered.max())}), lines "
+              f"{int(got[1].sum())}, segments {emits}, lane efficiency {lane_eff:.3f} "
+              f"({int(entered.sum())} iterations entered in {int((warps.max(1).values > 0).sum())} "
+              f"busy warps)")
 
         (e_args,) = calls["expand_euler"]
         table, recs, counts, EC, sentinel = e_args
         incl, _ = plain_expand.expand_prefix(counts)
         err_e, got, want = held["E"]
         # Bound: table, records and counts read, six outputs a slot
-        # written; two line evaluations of ~120 float operations for each
-        # live line.
+        # written; one line evaluation of ~120 float operations for each
+        # live line (a line's start point is the previous line's end).
         out["E"] = (err_e, _time_ms(lambda: kx.expand_euler(*e_args), 20),
                     plain_time(lambda: plain_expand.euler_lines(table, recs, incl, counts, EC,
                                                                 sentinel), 3),
-                    _bound(_nbytes(table, recs, counts, got[:6]), int(want[5].sum()) * 240),
+                    _bound(_nbytes(table, recs, counts, got[:6]), int(want[5].sum()) * 120),
                     None)
+        # A CTA's dynamic shared memory (csrc/expand.cu: the window's prefix
+        # entries and counts, then EulerBody::smem_bytes, 128 slots a CTA).
+        e_smem = (2 * 128 + (recs.shape[1] + 4) * 128) * 4
         print(f"kernel E, {tag}: {EC} slots, {int(want[5].sum())} lines, max|end point diff| "
-              f"{err_e:.3e}")
+              f"{err_e:.3e}, {e_smem} B of dynamic shared memory a CTA at IT {recs.shape[1]}")
 
         (c_args,) = calls["expand_crossings"]
         Pc, ncc, SC, T = c_args
@@ -864,11 +899,27 @@ def main():
                       plain_time(lambda: plain_expand.row_deltas(PRTc, incl_r, nrr, RC, T), 5),
                       _bound(_nbytes(PRTc, nrr, got[:2]), int(nrr.sum()) * 10), None)
         print(f"kernel E'', {tag}: {PRTc.shape[0]} lines -> {RC} slots ({int(nrr.sum())} rows)")
-        for k, v in out.items():
-            print(f"kernel {k}, {tag}: {v[1]:.4f} ms"
-                  + (f" vs plain {v[2]:.3f} ms" if v[2] is not None else "")
-                  + f", bound {v[3][0]:.5f} ms by {v[3][1]} ({100 * v[3][0] / v[1]:.1f}% of it), "
-                  f"on {smi}")
+        wrappers = {"D": (kwalk.lockstep_walk, "lockstep_walk", w_args),
+                    "E": (kx.expand_euler, "expand_euler", e_args),
+                    "E'": (kx.expand_crossings, "expand_crossings", c_args),
+                    "E''": (kx.expand_rows, "expand_rows", r_args)}
+        for k, (fn, name, args) in wrappers.items():
+            call, outs = bare[name]
+            call()
+            if not all(torch.equal(a, b) for a, b in zip(flat_outputs(fn(*args)), outs)):
+                _fail(f"{tag}: kernel {k}'s bare C entry differs from its wrapper")
+            bare_ms = _time_ms(call, 20)
+            n_k, n_c = _device_ops(lambda: fn(*args))
+            ok = (n_k == 1 and n_c <= 1) if k == "D" else (n_k in (2, 3) and n_c == 0)
+            if not ok:
+                _fail(f"{tag}: kernel {k}: {n_k:g} kernels and {n_c:g} memsets or copies a call")
+            out[k] = out[k] + (bare_ms,)
+            ms, plain_ms, (bound, by) = out[k][1], out[k][2], out[k][3]
+            print(f"kernel {k}, {tag}: {ms:.4f} ms (the bare C entry {bare_ms:.4f} ms)"
+                  + (f" vs plain {plain_ms:.3f} ms" if plain_ms is not None else "")
+                  + f", bound {bound:.5f} ms by {by} ({100 * bound / ms:.1f}% of it; the bare "
+                  f"entry {100 * bound / bare_ms:.1f}%), {n_k:g} kernels and {n_c:g} memsets or "
+                  f"copies a call, on {smi}")
         return out
 
     res.update(time_geometry_kernels(calls, held3, "config 3", 1))
@@ -1504,16 +1555,18 @@ def main():
         _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
     # ---- 10. results -----------------------------------------------------
-    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, counter=None,
-              configs=None):
+    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, bare_ms=None,
+              counter=None, configs=None):
         """One kernel's line; its launches are the main path's, summed over
-        `configs` (default: every config)."""
+        `configs` (default: every config). `bare_ms`, where timed: its
+        bare C entry on prepared buffers."""
         n = sum(got[counter or name] for cfg, got in launches.items()
                 if configs is None or cfg in configs)
-        return {"name": name, "route": "cuda", "source": f"jello_tpu_torch/csrc/{src}",
+        line = {"name": name, "route": "cuda", "source": f"jello_tpu_torch/csrc/{src}",
                 "replaces": f"jello_tpu/tpu/{replaces}", "launches": n,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
+        return line if bare_ms is None else dict(line, bare_ms=bare_ms)
 
     kernels = [
         entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",

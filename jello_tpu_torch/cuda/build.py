@@ -9,9 +9,11 @@ fine kernel relies on `x != x` NaN scrubs and on accurate expf/logf).
 The library lands in `jello_tpu_torch/_build/` and is rebuilt when a
 source is newer; a failed build raises with nvcc's stderr.
 
-Each exported C function launches one kernel on the stream it is given
-(kernel C's entry also zeroes its output there, with one memset) and
-returns `cudaGetLastError()`; `check` raises if that is not 0.
+Each exported C function launches its kernel on the stream it is given
+(kernel C's entry also zeroes its output there, and kernel D's its
+iteration count, with one memset each; kernel E's entries launch the
+prefix scan before the expansion) and returns `cudaGetLastError()`;
+`check` raises if that is not 0.
 """
 
 from __future__ import annotations
@@ -55,19 +57,22 @@ SIGNATURES = {
     # their type codes (0 int32, 1 float32), out [K, out_len] f32 (zeroed
     # by the entry), R, K, out_len, stream
     "jello_monotone_land": [P, P, P, P, P, I, I, I, P, I, I, I, P],
-    # table [NW, 21] f32, valid [NW] bool, rec [3, IT, NW] f32 (zeroed),
-    # count [NW] f32, not_done [NW] bool, iters [] i32 (zeroed), NW, IT, stream
+    # table [NW, 21] f32, valid [NW] bool, rec [3, IT, NW] f32, count [NW]
+    # f32, not_done [NW] bool, iters [] i32 (all written by the entry: one
+    # memset of iters, one kernel), NW, IT, stream
     "jello_lockstep_walk": [P, P, P, P, P, P, I, I, P],
-    # table [NW, 21] f32, rec [3, IT, NW] f32, incl [NW] i32, counts [NW]
-    # i32, xy [4, EC] f32, path [EC] i32, valid [EC] bool, NW, IT, EC,
-    # sentinel path, stream
-    "jello_expand_euler": [P, P, P, P, P, P, P, I, I, I, I, P],
-    # P [L, 21] f64, incl [L] i32, counts [L] i32, seg [5, SC] f64,
-    # ints [3, SC] i32, L, SC, T, stream
-    "jello_expand_crossings": [P, P, P, P, P, I, I, I, P],
-    # PRT [L, 5] f64, incl [L] i32, counts [L] i32, ints [2, RC] i32, L,
+    # The expand entries take counts [R] i32, scratch [R + ceil(R /
+    # cuda.expand.SCAN_TILE)] i32 and total [] i32 (the prefix, computed
+    # by the entry) and write each output slot. Euler: table [NW, 21] f32, rec [3, IT, NW] f32,
+    # counts, scratch, total, x0, y0, x1, y1 [EC] f32, path [EC] i32,
+    # valid [EC] bool, NW, IT, EC, sentinel path, stream
+    "jello_expand_euler": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+    # P [L, 21] f64, counts, scratch, total, x0, y0, x1, y1, y_edge [SC]
+    # f64, tile_slot, bump_slot, bump_delta [SC] i32, L, SC, T, stream
+    "jello_expand_crossings": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
+    # PRT [L, 5] f64, counts, scratch, total, r_slot, r_delta [RC] i32, L,
     # RC, T, stream
-    "jello_expand_rows": [P, P, P, P, I, I, I, P],
+    "jello_expand_rows": [P, P, P, P, P, P, I, I, I, P],
     # tap_rec [IRC, 16] i32, atlas [4, AHp, AWp] f32, out [IRC, 1024] f32,
     # region flag [1] i32 (zeroed), IRC, GRID, wit, AHp, AWp, stream
     "jello_image_tap": [P, P, P, P, I, I, I, I, I, P],

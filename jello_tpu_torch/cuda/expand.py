@@ -4,11 +4,17 @@
 Counterpart of `jello_tpu/tpu/expand_pallas.py::make_expand_call` with
 its three bodies, as reached from `flatten_lockstep_expansion` (Euler
 records -> lines) and `path_count_expansions` (lines -> tile crossings,
-lines -> backdrop rows). Each wrapper computes the expansion's
-inclusive prefix (`pipeline.expand.expand_prefix`), then launches the
-kernel for CUDA tensors, or takes the plain version in
-`pipeline/expand.py` only for CPU tensors; there is no fallback from
-one to the other. Each body has its own launch count.
+lines -> backdrop rows). Each wrapper launches the kernel for CUDA
+tensors, or takes the plain version in `pipeline/expand.py` (with the
+prefix `pipeline.expand.expand_prefix`) only for CPU tensors; there is
+no fallback from one to the other. Each body has its own launch count.
+
+On the card a call is one C entry, which computes the expansion's
+inclusive prefix and its total itself (a reduce-then-scan over
+SCAN_TILE counts a CTA) and then expands: the wrapper checks its
+inputs, allocates the outputs, the prefix scratch and the 0-dim total
+with `torch.empty`, and makes one ctypes call. The total is read by no
+one on the host.
 """
 
 from __future__ import annotations
@@ -20,10 +26,16 @@ from ..pipeline.ops import F32, F64, I32
 from ..pipeline.tiling import SEG_KEYS
 from .build import check, check_tensor, kernels, stream_of
 
+# Counts a CTA of the prefix scan (csrc/expand.cu kScanTile).
+SCAN_TILE = 8192
 
-def _check_counts(incl, counts, R):
-    check_tensor("counts", counts, I32, counts.device, (R,))
-    check_tensor("incl", incl, I32, counts.device, (R,))
+
+def _scratch(R, dev):
+    """The prefix [R] and the tiles' totals, and the 0-dim total."""
+    if R == 0:
+        raise ValueError("an expansion needs at least one record")
+    return (torch.empty(R + -(-R // SCAN_TILE), dtype=I32, device=dev),
+            torch.empty((), dtype=I32, device=dev))
 
 
 def expand_euler(table, rec, counts, EC, sentinel_path):
@@ -35,20 +47,20 @@ def expand_euler(table, rec, counts, EC, sentinel_path):
     IT = rec.shape[1]
     check_tensor("table", table, F32, dev, (NW, 21))
     check_tensor("rec", rec, F32, dev, (3, IT, NW))
-    incl, total = plain.expand_prefix(counts)
-    _check_counts(incl, counts, NW)
-    if dev.type == "cpu":
+    check_tensor("counts", counts, I32, dev, (NW,))
+    if not table.is_cuda:
+        incl, total = plain.expand_prefix(counts)
         return plain.euler_lines(table, rec, incl, counts, EC, sentinel_path) + (total,)
-    xy = torch.empty((4, EC), dtype=F32, device=dev)
+    scratch, total = _scratch(NW, dev)
+    xy = [torch.empty(EC, dtype=F32, device=dev) for _ in range(4)]
     path = torch.empty(EC, dtype=I32, device=dev)
     valid = torch.empty(EC, dtype=torch.bool, device=dev)
-    err = kernels().jello_expand_euler(
-        table.data_ptr(), rec.data_ptr(), incl.data_ptr(), counts.data_ptr(),
-        xy.data_ptr(), path.data_ptr(), valid.data_ptr(), NW, IT, EC, sentinel_path,
-        stream_of(table))
-    check("jello_expand_euler", err)
+    check("jello_expand_euler", kernels().jello_expand_euler(
+        table.data_ptr(), rec.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+        total.data_ptr(), *[t.data_ptr() for t in xy], path.data_ptr(), valid.data_ptr(), NW,
+        IT, EC, sentinel_path, stream_of(table)))
     expand_euler.launches += 1
-    return xy[0], xy[1], xy[2], xy[3], path, valid, total
+    return (*xy, path, valid, total)
 
 
 def expand_crossings(P, counts, SC, T):
@@ -58,16 +70,16 @@ def expand_crossings(P, counts, SC, T):
     dev = P.device
     L = P.shape[0]
     check_tensor("P", P, F64, dev, (L, 21))
-    incl, total = plain.expand_prefix(counts, assume_compact=True)
-    _check_counts(incl, counts, L)
-    if dev.type == "cpu":
+    check_tensor("counts", counts, I32, dev, (L,))
+    if not P.is_cuda:
+        incl, total = plain.expand_prefix(counts, assume_compact=True)
         return plain.tile_crossings(P, incl, counts, SC, T) + (total,)
-    seg = torch.empty((5, SC), dtype=F64, device=dev)
-    ints = torch.empty((3, SC), dtype=I32, device=dev)
-    err = kernels().jello_expand_crossings(
-        P.data_ptr(), incl.data_ptr(), counts.data_ptr(), seg.data_ptr(),
-        ints.data_ptr(), L, SC, T, stream_of(P))
-    check("jello_expand_crossings", err)
+    scratch, total = _scratch(L, dev)
+    seg = [torch.empty(SC, dtype=F64, device=dev) for _ in SEG_KEYS]
+    ints = [torch.empty(SC, dtype=I32, device=dev) for _ in range(3)]
+    check("jello_expand_crossings", kernels().jello_expand_crossings(
+        P.data_ptr(), counts.data_ptr(), scratch.data_ptr(), total.data_ptr(),
+        *[t.data_ptr() for t in seg + ints], L, SC, T, stream_of(P)))
     expand_crossings.launches += 1
     return ints[0], dict(zip(SEG_KEYS, seg)), ints[1], ints[2], total
 
@@ -78,17 +90,18 @@ def expand_rows(PRT, counts, RC, T):
     dev = PRT.device
     L = PRT.shape[0]
     check_tensor("PRT", PRT, F64, dev, (L, 5))
-    incl, total = plain.expand_prefix(counts, assume_compact=True)
-    _check_counts(incl, counts, L)
-    if dev.type == "cpu":
+    check_tensor("counts", counts, I32, dev, (L,))
+    if not PRT.is_cuda:
+        incl, total = plain.expand_prefix(counts, assume_compact=True)
         return plain.row_deltas(PRT, incl, counts, RC, T) + (total,)
-    ints = torch.empty((2, RC), dtype=I32, device=dev)
-    err = kernels().jello_expand_rows(
-        PRT.data_ptr(), incl.data_ptr(), counts.data_ptr(), ints.data_ptr(), L, RC, T,
-        stream_of(PRT))
-    check("jello_expand_rows", err)
+    scratch, total = _scratch(L, dev)
+    r_slot = torch.empty(RC, dtype=I32, device=dev)
+    r_delta = torch.empty(RC, dtype=I32, device=dev)
+    check("jello_expand_rows", kernels().jello_expand_rows(
+        PRT.data_ptr(), counts.data_ptr(), scratch.data_ptr(), total.data_ptr(),
+        r_slot.data_ptr(), r_delta.data_ptr(), L, RC, T, stream_of(PRT)))
     expand_rows.launches += 1
-    return ints[0], ints[1], total
+    return r_slot, r_delta, total
 
 
 expand_euler.launches = 0

@@ -4,6 +4,10 @@ Counterpart of `jello_tpu/tpu/lockstep_pallas.py::make_lockstep_call`
 (the walk `lockstep_walk`). `lockstep_walk` launches kernel D for CUDA
 tensors and takes its plain version, `pipeline.lockstep.lockstep_walk`,
 only for CPU tensors; there is no fallback from one to the other.
+
+On the card a call is one 4-byte memset (of `iters`) and one kernel:
+the kernel writes every element of the record table, so the wrapper
+allocates all outputs uninitialised.
 """
 
 from __future__ import annotations
@@ -22,12 +26,12 @@ def lockstep_walk(table, valid, IT):
     NW = table.shape[0]
     check_tensor("table", table, F32, dev, (NW, 21))
     check_tensor("valid", valid, torch.bool, dev, (NW,))
-    if dev.type == "cpu":
+    if not table.is_cuda:
         return plain.lockstep_walk(table, valid, IT)
-    rec = torch.zeros((3, IT, NW), dtype=F32, device=dev)
+    rec = torch.empty((3, IT, NW), dtype=F32, device=dev)
     count = torch.empty(NW, dtype=F32, device=dev)
     not_done = torch.empty(NW, dtype=torch.bool, device=dev)
-    iters = torch.zeros((), dtype=I32, device=dev)
+    iters = torch.empty((), dtype=I32, device=dev)
     err = kernels().jello_lockstep_walk(
         table.data_ptr(), valid.data_ptr(), rec.data_ptr(), count.data_ptr(),
         not_done.data_ptr(), iters.data_ptr(), NW, IT, stream_of(table))

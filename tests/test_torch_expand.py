@@ -40,7 +40,14 @@ from jello_tpu_torch.pipeline.ops import F64
 from jello_tpu_torch.pipeline.render import geometry
 
 from .test_torch_stages import SCENES, _both
-from .torch_reference import as_np, numpy_geometry, prepare, tree_to_torch
+from .torch_reference import (
+    EXPAND_CASES,
+    as_np,
+    expand_counts,
+    numpy_geometry,
+    prepare,
+    tree_to_torch,
+)
 
 IDENT = jt.Affine.identity()
 LINE_TOL = 2e-3
@@ -60,29 +67,43 @@ def _jax_expand(cols, counts, out_cap, compute, n_out, assume_compact=False):
     return np.asarray(call(ws, tab)), int(total)
 
 
-@pytest.mark.parametrize("assume_compact", [False, True])
-def test_torch_expand_contract_matches_jax(assume_compact):
-    """Owner, within and valid of every output slot equal jello_tpu's on
-    the toy of tests/test_expand_pallas.py."""
+@pytest.mark.parametrize("assume_compact, case", [
+    pytest.param(False, "toy", id="False"),
+    pytest.param(True, "toy", id="True"),
+    *[pytest.param(compact, case, id=f"{case}-{'compact' if compact else 'clamp'}")
+      for case in EXPAND_CASES for compact in (False, True)],
+])
+def test_torch_expand_contract_matches_jax(assume_compact, case):
+    """Owner, within and valid of every output slot equal jello_tpu's, on
+    the toy of tests/test_expand_pallas.py and on the edge shapes the
+    kernel's per-CTA window must get right (`torch_reference.
+    expand_counts`; under assume_compact the zero counts trail, as
+    jello_tpu's window requires). jello_tpu expands into a multiple of
+    its chunk; a ragged out_cap is compared on its first out_cap slots."""
     rng = np.random.default_rng(3)
-    counts = rng.integers(0, 6, 50).astype(np.int32)
-    if assume_compact:
-        counts = np.concatenate([np.maximum(counts[:40], 1), np.zeros(10, np.int32)])
-    vals = rng.standard_normal(50).astype(np.float32)
-    out_cap = 512
+    if case == "toy":
+        counts = rng.integers(0, 6, 50).astype(np.int32)
+        if assume_compact:
+            counts = np.concatenate([np.maximum(counts[:40], 1), np.zeros(10, np.int32)])
+        out_cap = 512
+    else:
+        counts, out_cap = expand_counts(case, assume_compact)
+    vals = rng.standard_normal(counts.shape[0]).astype(np.float32)
 
     def compute(p, j, within, valid):
         return [p(0) * valid, within * valid, valid]
 
-    want, total = _jax_expand([vals], counts, out_cap, compute, 3, assume_compact)
+    jax_cap = -(-out_cap // EXPAND_CHUNK) * EXPAND_CHUNK
+    want, total = _jax_expand([vals], counts, jax_cap, compute, 3, assume_compact)
     c = torch.from_numpy(counts)
     incl, got_total = expand.expand_prefix(c, assume_compact)
     own, within, valid = expand.expand_owner(incl, c, out_cap)
     assert int(got_total) == total
+    assert (total > out_cap) == (case == "over-cap")
     vf = valid.to(torch.float32)
     got = np.stack([(torch.from_numpy(vals)[own] * vf).numpy(),
                     (within.to(torch.float32) * vf).numpy(), vf.numpy()])
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, want[:, :out_cap])
 
 
 def _curvy_and_stroke():
@@ -118,6 +139,29 @@ def _work_table(nw=128):
         kwalk.lockstep_walk = walk
     rows, valid, _ = seen[0]
     return rows[:nw].numpy(), valid[:nw].numpy(), caps["n_paths_cap"]
+
+
+def test_torch_lockstep_records_match_jax():
+    """The plain walk (what kernel D is held to, bit for bit, on the card)
+    against jello_tpu's walk kernel in interpret mode on the same work
+    table at IT = 4, where items end not done with records on all four
+    iterations: every (t0, t1, n) record, line count and not-done flag
+    equal."""
+    table, valid, _ = _work_table()
+    NW, C, IT = table.shape[0], 128, 4
+    tab_in = np.zeros((C, 128), np.float32)
+    tab_in[:NW, :21] = table
+    tab_in[:NW, 21] = valid
+    walked = np.asarray(make_lockstep_call(IT, 1, chunk=C, sub=1, interpret=True)(
+        jnp.asarray(tab_in)))[:NW]
+    rec, cnt, not_done, iters = kwalk.lockstep_walk(
+        torch.from_numpy(table), torch.from_numpy(valid), IT)
+    want_rec = np.stack([walked[:, 21 + k * IT:21 + (k + 1) * IT].T for k in range(3)])
+    np.testing.assert_array_equal(rec.numpy(), want_rec)
+    np.testing.assert_array_equal(cnt.numpy(), walked[:, 22 + 3 * IT])
+    np.testing.assert_array_equal(not_done.numpy(), walked[:, 23 + 3 * IT] > 0)
+    assert bool(not_done.any()) and int(iters) == IT
+    assert bool((rec[2, IT - 1] != 0).any())
 
 
 def test_torch_lockstep_and_euler_lines_match_jax():

@@ -14,6 +14,7 @@ import jello_tpu
 import jello_tpu_torch
 from jello_tpu.cpu import render_numpy
 
+from jello_tpu_torch.cuda import build
 from jello_tpu_torch.cuda import expand as kx
 from jello_tpu_torch.cuda import fine_hybrid as khybrid
 from jello_tpu_torch.cuda import fine_interp as kint
@@ -40,12 +41,17 @@ from jello_tpu_torch.pipeline.render import geometry
 
 from .torch_reference import (
     CLIP_SCENES,
+    EXPAND_CASES,
+    crossing_inputs,
+    euler_inputs,
+    expand_counts,
     full_scene,
     hand_built_slab,
     interpret_args,
     over_minified,
     prepare,
     prepare_with_atlas,
+    row_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -222,6 +228,79 @@ def test_torch_expand_kernel_matches_plain(cuda, monkeypatch, body):
     assert int(got[-1]) == int(incl[-1])
     for g, w in floats:
         assert (g.double() - w.double()).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+@pytest.mark.parametrize("body", ["expand_euler", "expand_crossings", "expand_rows"])
+def test_torch_expand_kernel_synthetic(cuda, body, case):
+    """Each expand body on the edge shapes of `torch_reference.expand_counts`
+    against its plain version: valid flags, paths, tile and row slots,
+    bumps and the total equal, end points and segments within 1e-5 (0.0
+    expected: the same operations on the same operands). The Euler body
+    expands under the clamp (zero counts are dead slots, 1,000 lines of
+    one item fill several CTAs); the crossing and row bodies under
+    assume_compact, with zero runs between nonzero counts longer than a
+    CTA's window as well as at the end."""
+    compact = body != "expand_euler"
+    counts, cap = expand_counts(case, compact, interior=compact)
+    c = torch.from_numpy(counts).to(cuda)
+    fn = getattr(kx, body)
+    if body == "expand_euler":
+        table, rec = (torch.from_numpy(a).to(cuda) for a in euler_inputs(counts))
+        args = (table, rec, c, cap, 51)
+        incl, total = plain_expand.expand_prefix(c)
+        want = plain_expand.euler_lines(table, rec, incl, c, cap, 51)
+        ints, floats = (4, 5), (0, 1, 2, 3)
+    elif body == "expand_crossings":
+        P = torch.from_numpy(crossing_inputs(counts)).to(cuda)
+        args = (P, c, cap, 4096)
+        incl, total = plain_expand.expand_prefix(c, assume_compact=True)
+        want = plain_expand.tile_crossings(P, incl, c, cap, 4096)
+        want = (want[0], *want[1].values(), want[2], want[3])
+        ints, floats = (0, 6, 7), (1, 2, 3, 4, 5)
+    else:
+        PRT = torch.from_numpy(row_inputs(counts)).to(cuda)
+        args = (PRT, c, cap, 4096)
+        incl, total = plain_expand.expand_prefix(c, assume_compact=True)
+        want = plain_expand.row_deltas(PRT, incl, c, cap, 4096)
+        ints, floats = (0, 1), ()
+    n0 = fn.launches
+    got = fn(*args)
+    assert fn.launches == n0 + 1
+    if body == "expand_crossings":
+        got = (got[0], *got[1].values(), got[2], got[3], got[4])
+    torch.cuda.synchronize()
+    assert got[-1].shape == () and int(got[-1]) == int(total)
+    assert (int(total) > cap) == (case == "over-cap")
+    for i in ints:
+        assert torch.equal(got[i], want[i]), i
+    for i in floats:
+        assert got[i].shape == (cap,)
+        assert (got[i].double() - want[i].double()).abs().max().item() <= 1e-5, i
+
+
+def test_torch_lockstep_entry_writes_every_record(cuda, monkeypatch):
+    """Kernel D's bare C entry on outputs filled with what they must not
+    hold (records and counts NaN, flags inverted, iters 12345) at half the
+    iterations the walk needs, so that some items end not done: every
+    record slot, count, flag and the iteration count equal the plain
+    walk's, so the entry writes each element itself (the wrapper
+    allocates them uninitialised)."""
+    (args,) = _route_calls(cuda, monkeypatch)["lockstep_walk"]
+    table, valid, IT = args
+    NW, IT = table.shape[0], max(1, int(plain_walk.lockstep_walk(table, valid, IT)[3]) // 2)
+    want = plain_walk.lockstep_walk(table, valid, IT)
+    assert bool(want[2].any()) and not bool(want[2].all())
+    rec = torch.full((3, IT, NW), float("nan"), device=cuda)
+    count = torch.full((NW,), float("nan"), device=cuda)
+    not_done = ~want[2]
+    iters = torch.full((), 12345, dtype=torch.int32, device=cuda)
+    build.check("jello_lockstep_walk", build.kernels().jello_lockstep_walk(
+        table.data_ptr(), valid.data_ptr(), rec.data_ptr(), count.data_ptr(),
+        not_done.data_ptr(), iters.data_ptr(), NW, IT, torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    for g, w in zip((rec, count, not_done, iters), want):
+        assert torch.equal(g, w)
 
 
 def test_torch_coverage_kernel_matches_plain(cuda):

@@ -579,3 +579,97 @@ def interpret_args(h, device="cpu"):
             to_torch(h["base"]).to(dev), to_torch(h["slab"]).to(dev),
             to_torch(h["rows"]).to(dev), to_torch(h["stops"]).to(dev),
             to_torch(h["atlas"]).to(dev), h["wit"], h["BD"])
+
+
+# Edge shapes of an expansion by counts (the cases the expand kernel's
+# window must get right): one owner with more slots than a CTA holds, so
+# that a CTA's first slot has within > 0; runs of zero counts (dead slots
+# under the clamp; under assume_compact a trailing run, and with
+# `interior`, runs between nonzero counts longer than a CTA's window);
+# a total past out_cap; a single record; an out_cap that is no multiple
+# of a CTA's slots.
+EXPAND_CASES = ("long-owner", "zero-runs", "over-cap", "one-record", "ragged-cap")
+
+
+def expand_counts(case, compact, interior=False, seed=0):
+    """(counts [R] int32, out_cap) of one edge case."""
+    rng = np.random.default_rng(seed)
+    lo = 1 if compact else 0
+    if case == "one-record":
+        return np.array([7], np.int32), 100
+    R = 900 if case == "zero-runs" else 300
+    counts = rng.integers(lo, 6, R).astype(np.int32)
+    if case == "long-owner":
+        counts[40] = 1000
+    if case == "zero-runs":
+        if not compact or interior:
+            counts[100:400] = 0
+            counts[500:520] = 0
+        counts[800:] = 0
+    total = int((counts if compact else np.maximum(counts, 1)).sum())
+    out_cap = {"over-cap": total * 2 // 3, "ragged-cap": total + 77}.get(
+        case, -(-total // 512) * 512)
+    return counts, out_cap
+
+
+def euler_inputs(counts, IT=24, seed=0):
+    """A work table [NW, 21] f32 and lockstep records [3, IT, NW] f32 whose
+    line counts are `counts`: random cubics (some with stroke offsets,
+    some negative, which swap a line's ends), each item's lines split
+    evenly into records of at most 100 at random iterations (zeros between
+    them, as where the walk subdivided), record ends rising to 1.0."""
+    rng = np.random.default_rng(seed)
+    NW = counts.shape[0]
+    table = np.zeros((NW, 21), np.float32)
+    table[:, :8] = rng.uniform(0, 200, (NW, 8))
+    table[:, 8] = rng.choice([0.0, 0.0, 1.5, -1.5], NW)
+    table[:, 9] = rng.choice([1.0, 2.0], NW)
+    table[:, 10:12] = table[:, 0:2]
+    table[:, 12:14] = table[:, 6:8]
+    table[:, 14:20] = [1.0, 0.0, 0.0, 1.0, 0.0, 0.0] + rng.uniform(-0.2, 0.2, (NW, 6))
+    table[:, 20] = rng.integers(0, 50, NW)
+    rec = np.zeros((3, IT, NW), np.float32)
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        m = min(max(-(-int(c) // 100), int(rng.integers(1, 5))), int(c), IT)
+        n = int(c) // m + (np.arange(m) < int(c) % m)
+        its = np.sort(rng.choice(IT, m, replace=False))
+        ts = np.concatenate([[0.0], np.sort(rng.uniform(0, 1, m - 1)), [1.0]]).astype(np.float32)
+        rec[0, its, i] = ts[:-1]
+        rec[1, its, i] = ts[1:]
+        rec[2, its, i] = n
+    return table, rec
+
+
+def crossing_inputs(counts, seed=0):
+    """A compacted line table [L, 21] f64 in tiling.py's columns for the
+    crossing body: integer tile geometry, random slopes and end points,
+    the line's crossing count in column 19."""
+    rng = np.random.default_rng(seed)
+    L = counts.shape[0]
+    P = np.zeros((L, 21), np.float64)
+    P[:, 1] = rng.uniform(-1.0, 1.0, L)
+    P[:, 2] = rng.uniform(0.0, 5.0, L)
+    P[:, 3] = rng.choice([-1.0, 1.0], L)
+    P[:, 4] = rng.integers(0, 20, L)
+    P[:, 5] = rng.integers(0, 20, L)
+    P[:, 8] = 64
+    P[:, 9] = 64
+    P[:, 10] = rng.integers(0, 1000, L)
+    P[:, 11] = np.where(rng.random(L) < 0.5, P[:, 4], P[:, 4] + 1)
+    P[:, 12] = rng.choice([-1.0, 1.0], L)
+    P[:, 14:18] = rng.uniform(0.0, 300.0, (L, 4))
+    P[:, 18] = rng.integers(0, 2, L)
+    P[:, 19] = counts
+    P[:, 20] = rng.integers(0, 2, L)
+    return P
+
+
+def row_inputs(counts, seed=0):
+    """A compacted backdrop-row table [L, 5] f64 (tiling.ROW_COLS: ymin,
+    tiles_base, bb1, stride, delta)."""
+    rng = np.random.default_rng(seed)
+    L = counts.shape[0]
+    return np.stack([rng.integers(0, 60, L), rng.integers(0, 1000, L), rng.integers(0, 10, L),
+                     rng.integers(1, 64, L), rng.choice([-1, 1], L)], axis=1).astype(np.float64)

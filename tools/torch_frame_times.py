@@ -3,6 +3,7 @@
 
     python3 tools/torch_frame_times.py [--configs 1,3,4,5] [--modes area,msaa8]
                                        [--frames 8] [--tag NAME] [--kernel-a]
+                                       [--kernels-de]
 
 Run from the root of a checkout: it renders the gate scenes of the
 `jello_tpu_torch` package it finds there (so the same script times two
@@ -20,6 +21,17 @@ With --kernel-a it first times kernel A (`cuda.coverage.coverage_rows`)
 on config 5's coverage inputs in each of its three modes (CUDA-event
 mean of 20 calls after one warm-up) and prints a SHA-256 of each mode's
 rows, so that two trees' rows can be compared bit for bit.
+
+With --kernels-de it first times kernels D (the lockstep walk) and E,
+E' and E'' (the expand bodies) on the inputs one geometry pass of config
+5 and of config 3 gives them (recorded from the wrappers), each through
+its wrapper and through its bare C entry on buffers allocated once (the
+median of 5 CUDA-event means of 100 calls), with the device time of
+each kernel the bare entry launches (torch.profiler), and prints a
+SHA-256 of each kernel's outputs. The bare entries follow whichever
+entry layout the tree's `cuda/build.py` declares: the prefix computed in
+the entry, or (older trees) passed in, computed beforehand.
+`--configs ""` times no frames.
 """
 
 import argparse
@@ -43,6 +55,8 @@ def main():
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--kernel-a", action="store_true",
                     help="also time kernel A's three modes on config 5's coverage inputs")
+    ap.add_argument("--kernels-de", action="store_true",
+                    help="also time kernels D, E, E' and E'' on config 5's and config 3's inputs")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
@@ -57,8 +71,11 @@ def main():
     print(f"{opts.tag}: package {os.path.dirname(jt.__file__)}, on {smi}")
     if opts.kernel_a:
         kernel_a_times(opts.tag, smi)
+    if opts.kernels_de:
+        for k in (5, 3):
+            kernels_de_times(opts.tag, smi, k)
     r = Renderer(device="cuda")
-    for k in (int(v) for v in opts.configs.split(",")):
+    for k in (int(v) for v in opts.configs.split(",") if v):
         scene, params = GATE_SCENES[k]()
         for mode in opts.modes.split(","):
             p = dataclasses.replace(params, antialiasing_method=jt.AaConfig(mode))
@@ -118,6 +135,221 @@ def kernel_a_times(tag, smi):
         print(f"{tag}: kernel A, {mode}, config 5's {int((re_ - rs).clamp(min=0).sum())} "
               f"segments in {int((re_ > rs).sum())} rows: {t0.elapsed_time(t1) / 20:.4f} ms "
               f"(mean of 20), rows sha256 {digest}, on {smi}")
+
+
+GEOMETRY_WRAPPERS = (("lockstep", "lockstep_walk"), ("expand", "expand_euler"),
+                     ("expand", "expand_crossings"), ("expand", "expand_rows"))
+
+
+def record_geometry_calls(k):
+    """The arguments of each call of kernels D, E, E' and E'' in one
+    geometry pass of config k at its calibrated class, on the card:
+    {wrapper name: [args, ...]}."""
+    import importlib
+
+    from jello_tpu_torch.cuda import Renderer
+    from jello_tpu_torch.cuda.render import frame_routing
+    from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.scenes import GATE_SCENES
+
+    scene, params = GATE_SCENES[k]()
+    r = Renderer(device="cuda")
+    r.render(scene, params)
+    _, _, (scene_t, layout_t, _, atlas_t), _ = r._prepare(scene, params)
+    caps = dict(r._caps, **frame_routing(0, atlas_t is not None, 0))
+    calls, saved = {}, []
+    for mod_name, name in GEOMETRY_WRAPPERS:
+        mod = importlib.import_module(f"jello_tpu_torch.cuda.{mod_name}")
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.setdefault(_name, []).append(args)
+            return _fn(*args)
+
+        spy.launches = 0  # a wrapper counts on its module-level name
+        setattr(mod, name, spy)
+    try:
+        geometry(scene_t, layout_t, caps)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls
+
+
+def bare_entries(calls):
+    """{wrapper name: (bare, outputs)}: `bare()` makes the wrapper's one
+    ctypes call on the first recorded arguments, into buffers allocated
+    once (`outputs`, in the wrapper's order of return values), with no
+    check, allocation or other host work around it."""
+    import torch
+    from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.pipeline import expand as plain
+
+    lib = build.kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    # Older trees pass the prefix in and expect zeroed records.
+    prefix_in = len(build.SIGNATURES["jello_expand_euler"]) == 12
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="cuda")
+
+    def bare(entry, tensors, ints):
+        """A call of `entry` on the pointers of `tensors` (kept alive by
+        the call) and then `ints` and the stream."""
+        args = [t.data_ptr() for t in tensors] + list(ints) + [stream]
+        fn = getattr(lib, entry)
+
+        def call():
+            build.check(entry, fn(*args))
+
+        call.buffers = tensors  # what the pointers point into
+        return call
+
+    def prefix(counts, compact):
+        """(the prefix tensors the entry takes after the table, total)."""
+        if prefix_in:
+            incl, total = plain.expand_prefix(counts, assume_compact=compact)
+            return [incl, counts], total
+        from jello_tpu_torch.cuda.expand import SCAN_TILE
+
+        R = counts.shape[0]
+        total = empty()
+        return [counts, empty(R + -(-R // SCAN_TILE)), total], total
+
+    out = {}
+    (table, valid, IT), = calls["lockstep_walk"][:1]
+    NW = table.shape[0]
+    alloc = torch.zeros if prefix_in else torch.empty
+    d_out = (alloc((3, IT, NW), dtype=torch.float32, device="cuda"),
+             empty(NW, dtype=torch.float32), empty(NW, dtype=torch.bool),
+             torch.zeros((), dtype=torch.int32, device="cuda"))
+    out["lockstep_walk"] = (bare("jello_lockstep_walk", [table, valid, *d_out], [NW, IT]),
+                            d_out)
+
+    (table, rec, counts, EC, sentinel), = calls["expand_euler"][:1]
+    pre, total = prefix(counts, False)
+    path, ok = empty(EC), empty(EC, dtype=torch.bool)
+    if prefix_in:
+        xy = empty(4, EC, dtype=torch.float32)
+        tensors, xy = [table, rec, *pre, xy, path, ok], list(xy)
+    else:
+        xy = [empty(EC, dtype=torch.float32) for _ in range(4)]
+        tensors = [table, rec, *pre, *xy, path, ok]
+    out["expand_euler"] = (bare("jello_expand_euler", tensors,
+                                [table.shape[0], rec.shape[1], EC, sentinel]),
+                           (*xy, path, ok, total))
+
+    (P, counts, SC, T), = calls["expand_crossings"][:1]
+    pre, total = prefix(counts, True)
+    if prefix_in:
+        seg, ints = empty(5, SC, dtype=torch.float64), empty(3, SC)
+        tensors, seg, ints = [P, *pre, seg, ints], list(seg), list(ints)
+    else:
+        seg = [empty(SC, dtype=torch.float64) for _ in range(5)]
+        ints = [empty(SC) for _ in range(3)]
+        tensors = [P, *pre, *seg, *ints]
+    out["expand_crossings"] = (bare("jello_expand_crossings", tensors, [P.shape[0], SC, T]),
+                               (ints[0], *seg, ints[1], ints[2], total))
+
+    (PRT, counts, RC, T), = calls["expand_rows"][:1]
+    pre, total = prefix(counts, True)
+    if prefix_in:
+        ints = empty(2, RC)
+        tensors, ints = [PRT, *pre, ints], list(ints)
+    else:
+        ints = [empty(RC), empty(RC)]
+        tensors = [PRT, *pre, *ints]
+    out["expand_rows"] = (bare("jello_expand_rows", tensors, [PRT.shape[0], RC, T]),
+                          (*ints, total))
+    return out
+
+
+def flat_outputs(got):
+    """A wrapper's return values as a flat tuple of tensors (the crossing
+    body's segment dict in its key order)."""
+    flat = []
+    for v in got:
+        flat.extend(v.values() if isinstance(v, dict) else [v])
+    return tuple(flat)
+
+
+def digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mean_ms(fn, n=20):
+    """Mean device ms a call over n calls, CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def steady_ms(fn):
+    """ms a call: the median of 5 CUDA-event means of 100 calls each."""
+    return statistics.median(mean_ms(fn, 100) for _ in range(5))
+
+
+def device_us(fn, n=10):
+    """{kernel or memset name: device us a call}, torch.profiler over n
+    calls of fn (after one warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / n
+    return out
+
+
+def kernels_de_times(tag, smi, k):
+    """Kernels D, E, E' and E'' on config k's recorded inputs: the
+    wrapper and the bare C entry (median of 5 means of 100 calls), the
+    device time of each kernel the bare entry launches, and a digest of
+    the outputs (the bare entry's must equal the wrapper's)."""
+    import importlib
+
+    import torch
+
+    calls = record_geometry_calls(k)
+    bare = bare_entries(calls)
+    for mod_name, name in GEOMETRY_WRAPPERS:
+        fn = getattr(importlib.import_module(f"jello_tpu_torch.cuda.{mod_name}"), name)
+        args = calls[name][0]
+        got = flat_outputs(fn(*args))
+        call, outs = bare[name]
+        call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, outs))
+        device = "; ".join(f"{n} {us:.1f} us" for n, us in device_us(call).items())
+        print(f"{tag}: config{k} {name}: wrapper {steady_ms(lambda: fn(*args)):.4f} ms, bare C "
+              f"entry {steady_ms(call):.4f} ms (medians of 5 means of 100 calls), device: "
+              f"{device}; outputs sha256 {digest(got)}, bare entry "
+              f"{'equal' if same else 'DIFFERENT'}, on {smi}")
 
 
 if __name__ == "__main__":
