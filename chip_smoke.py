@@ -14,8 +14,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      when CUDA is not available;
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once, and prints ptxas's registers, spills
-     and static shared memory for kernels A, C, D and E (E's three
-     bodies) and kernel A's persistent grid;
+     and static shared memory for kernels A, C, D, E (E's three bodies),
+     F, G and H, and kernel A's persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
      kernel wrappers C, D, E, E' and E'' recorded;
@@ -48,7 +48,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      with the histogram of the coverage rows' run lengths; kernel F
      (image tap) vs its plain version on the frame's
      real image records, recorded from the tap stage (max abs diff <= 1e-6:
-     the same products and sums, not contracted; region flag equal), and
+     the same products and sums, not contracted; region flag equal), with
+     its rows (IRC) beside the live image records, its bare C entry beside
+     the wrapper, its device time and resident CTAs, and its device
+     operations a call (more than one kernel and one memset fails), and
      kernel B with the tap's table vs its plain version on config 5's
      records (<= 1e-4 on the assembled image); kernel A's MSAA body, S = 8
      and 16, vs its plain version on the same coverage inputs (resolved
@@ -68,9 +71,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      config 4's coverage inputs, timed (the JSON line's two MSAA entries);
      the resolved branch of G, H and B with groups on the inputs the fine
      stage records under msaa8 (same tolerances) and of G and H on
-     negative rows; and G and H through fine_interp over the full tile
-     grid of a small scene with clips, blends, gradients and an image vs
-     the plain version;
+     negative rows; the legacy slots' tape lengths and record kinds; G's
+     and H's bare C entries beside their wrappers (area and msaa8), their
+     device time, resident CTAs and stack scratch, and their device
+     operations a call (more than one kernel, or any memset or copy,
+     fails); and G and
+     H through fine_interp over the full tile grid of a small scene with
+     clips, blends, gradients and an image vs the plain version;
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
      stroked and dashed paths, 512x512), config 5 and config 4, render()
@@ -109,7 +116,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      written once; for B, G and H only the rows this run's records touch)
      over 3.35 TB/s and its float operations, counted for
      this run's data, over 67 TFLOP/s (float32 outside the tensor cores).
-     D, E, E' and E'' also carry bare_ms, their bare C entry's time.
+     D, E, E', E'', F, G and H also carry bare_ms, their bare C entry's
+     time (G's and H's in area mode).
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -228,22 +236,31 @@ def _profile(fn, frames=3, count=()):
     return len(spans) / frames, len(copies) / frames, busy_us / 1e3 / frames, top, counted
 
 
-def _device_ops(fn, calls=5):
+def _device_ops(fn, calls=5, tries=3):
     """(kernels, memsets and copies) that `calls` calls of fn put on the
-    device, per call, by torch.profiler (after one warm-up call)."""
+    device, per call, by torch.profiler (after one warm-up call).
+    torch.profiler can drop a session's device events (seen on an H100
+    host: none of ten launches of one kernel, nine of ten of another),
+    which shows as no kernel or as a count that is no whole number a
+    call; such a session is repeated, up to `tries` sessions. A dropped
+    event only lowers a count, so an operation too many still shows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
-    return (len(device) - copies) / calls, copies / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
+        n_k, n_c = (len(device) - copies) / calls, copies / calls
+        if n_k >= 1 and n_k == int(n_k) and n_c == int(n_c):
+            break
+    return n_k, n_c
 
 
 def _ptxas_summary(log):
@@ -502,7 +519,13 @@ def main():
     from jello_tpu_torch.pipeline.render import geometry
     from jello_tpu_torch.renderer.params import AaConfig
     from jello_tpu_torch.scenes import GATE_SCENES
-    from tools.torch_frame_times import bare_entries, flat_outputs
+    from tools.torch_frame_times import (
+        bare_entries,
+        bare_interp,
+        bare_tap,
+        device_us,
+        flat_outputs,
+    )
 
     config1, config2, config3, config4, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 4, 5))
     print("path encoder: " + ("native (g++)" if native.get_lib() is not None
@@ -517,7 +540,8 @@ def main():
     # shared memory, printed with its calls), and A's persistent grid
     # (resident CTAs a multiprocessor times the multiprocessors, from
     # those registers and its shared memory).
-    for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu"):
+    for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu", "image_tap.cu",
+                "fine_interp.cu"):
         for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B, static shared memory {smem} B")
@@ -1010,6 +1034,26 @@ def main():
                 _bound(_nbytes(f_args[0], f_args[1], got_f), n_img * 256 * 60), None)
     print(f"kernel F: {res['F'][1]:.3f} ms vs plain {res['F'][2]:.3f} ms, bound "
           f"{res['F'][3][0]:.4f} ms by {res['F'][3][1]}")
+    # F's bare C entry on buffers allocated once, its device operations a
+    # wrapper call and its device time, and its resident CTAs.
+    bare_f, (out_bf, flag_bf) = bare_tap(f_args)
+    bare_f()
+    if not torch.equal(out_bf, got_f) or bool(flag_bf.any()) != bool(flag_f):
+        _fail("kernel F's bare C entry differs from its wrapper")
+    f_bare_ms = _time_ms(bare_f, 20)
+    res["F"] = res["F"] + (f_bare_ms,)
+    f_ops = _device_ops(lambda: ktap.tap_records(*f_args))
+    f_us = device_us(bare_f)
+    print(f"kernel F, config 5: IRC {f_args[0].shape[0]} rows for {n_img} live image records; "
+          f"wrapper {res['F'][1]:.4f} ms, the bare C entry {f_bare_ms:.4f} ms; {f_ops[0]:g} "
+          f"kernels and {f_ops[1]:g} memsets or copies a wrapper call; device: "
+          + ("; ".join(f"{k} {us:.1f} us" for k, us in f_us.items()) or "no event captured")
+          + f"; {ktap.resident_ctas()} CTAs resident a multiprocessor, on {smi}")
+    # More than the design's operations fail; a reading below it is the
+    # profiler's dropped events (see _device_ops), not a missing launch,
+    # which the launch counts of phase 9 would show.
+    if f_ops[0] > 1 or f_ops[1] > 1:
+        _fail("kernel F: a call puts more than one kernel and one memset on the device")
 
     b_args = (rec5, area5, ramps_t, layout_t["base_color"], cmds["tile_start"],
               cmds["tile_end"], layout_t["width_in_tiles"], fg_tab)
@@ -1175,6 +1219,17 @@ def main():
           f"gradient, {n_end4} EndClip, {int((kinds == 6).sum())} BeginClip; {n_rowed} read a "
           f"row), {g_bytes / 1e6:.1f} MB needed; G {g_ms:.3f} ms, H {h_ms:.3f} ms vs plain "
           f"{g_plain_ms:.3f} ms, bound {g_bound[0]:.4f} ms by {g_bound[1]}")
+    # The legacy slots' tape lengths and record kinds (last_stats' max_cmds
+    # covers every tile, not only these).
+    lens4 = g_counts[:-1][real]
+    print("config 4 legacy-slot tapes: " + ", ".join(
+        f"{label} records {int(((lens4 >= lo) & (lens4 <= hi)).sum())}"
+        for label, lo, hi in (("0", 0, 0), ("1", 1, 1), ("2-3", 2, 3), ("4-7", 4, 7),
+                              ("8-15", 8, 15), ("16+", 16, 2**31 - 1)))
+        + f"; {n_real} legacy slots of {g_slab.shape[0]}, longest {int(lens4.max())}; records "
+        "by kind: " + ", ".join(f"{name} {int((kinds == k).sum())}" for k, name in (
+            (1, "solid"), (2, "linear"), (3, "radial"), (4, "sweep"), (5, "image"),
+            (6, "BeginClip"), (7, "EndClip"))))
 
     rec4 = b_args[0]
     out_k = composite_records(*b_args)
@@ -1270,6 +1325,34 @@ def main():
         _fail("kernel G or H does not read its resolved switch as the plain version does")
     res["G"] = (max(res["G"][0], err_gm, err_gn),) + res["G"][1:]
     res["H"] = (max(res["H"][0], err_hm, err_hgm, err_gn),) + res["H"][1:]
+    # G and H: each bare C entry on buffers allocated once (outputs equal
+    # to the wrapper's), area and msaa8, with the device operations a
+    # wrapper call puts on the card, the device time and resident CTAs.
+    for mode, args, resolved, want_g in (("area", g_args, False, (got_g, ovf_g)),
+                                         ("msaa8", gm_args, True, (got_gm, ovf_gm))):
+        for batch, name in ((False, "G"), (True, "H")):
+            call, outs = bare_interp(args, batch, resolved)
+            call()
+            want = want_g if not batch else kint.interpret_tiles(*args, True, resolved)
+            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+                _fail(f"kernel {name}'s bare C entry differs from its wrapper ({mode})")
+            w_ms = _time_ms(lambda: kint.interpret_tiles(*args, batch, resolved), 20)
+            b_ms = _time_ms(call, 20)
+            if mode == "area":
+                res[name] = res[name] + (b_ms,)
+            n_k, n_c = _device_ops(lambda: kint.interpret_tiles(*args, batch, resolved))
+            us = device_us(call)
+            print(f"kernel {name}, config 4, {mode}: wrapper {w_ms:.4f} ms, the bare C entry "
+                  f"{b_ms:.4f} ms; {n_k:g} kernels and {n_c:g} memsets or copies a wrapper "
+                  "call; device: " + ("; ".join(f"{k} {u:.1f} us" for k, u in us.items())
+                                      or "no event captured")
+                  + f"; {kint.resident_ctas(batch, BD4)} CTAs resident a multiprocessor at "
+                  f"blend depth {BD4}, stack scratch "
+                  f"{4 * (kint.scratch_shape(args[3].shape[0], BD4, batch) or (0,))[0] / 2**20:.1f}"
+                  f" MiB, on {smi}")
+            if n_k > 1 or n_c > 0:  # as F's
+                _fail(f"kernel {name}: a call puts more than one kernel on the device, or a "
+                      "memset or copy")
     del gn_args, got_gn, got_hn, want_gn, by_rule
     img_km = assemble_compact(composite_records(*bm_args), t2r, ld4)
     img_pm = assemble_compact(composite_records_plain(*bm_args), t2r, ld4)

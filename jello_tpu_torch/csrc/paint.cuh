@@ -1,6 +1,6 @@
 // Paint evaluation shared by the fine kernels: kernel B (fine_v2.cu), the
 // image tap F (image_tap.cu) and the per-tile interpreter G/H
-// (fine_interp.cu). One thread evaluates one pixel of a 16x16 tile.
+// (fine_interp.cu). Each function evaluates one pixel of a 16x16 tile.
 //
 //   - the fill rule on a raw winding value, and the clip to [0, 1] that
 //     takes its place on a row that arrives resolved (MSAA);
@@ -9,9 +9,10 @@
 //     fine_pallas.py:313-396), premultiplied, the radial validity mask
 //     folded into all four channels;
 //   - the bilinear image tap of an image record: sample position,
-//     clamped atlas-absolute corners, the CTA-wide corner extent that
-//     the region-window contracts are stated on, and the four-texel
-//     gather from the planar premultiplied atlas.
+//     clamped atlas-absolute corners, the tile's corner extent that the
+//     region-window contracts are stated on (from the tile's four corner
+//     pixels), and the four-texel gather from the planar premultiplied
+//     atlas.
 //
 // Rounding follows the reference op by op: rintf (half to even, as
 // jnp.round), IEEE division and square root, no fast math; every file
@@ -213,32 +214,36 @@ __device__ __forceinline__ Tap image_tap_corners(const int* w, float gx, float g
   return t;
 }
 
-// The record's corner extent over the CTA's 256 pixels: min of the floor
-// corners, max of the ceil corners. Every thread of the CTA must call it;
-// `red` is shared scratch, free again on return.
-__device__ __forceinline__ void image_tap_extent(const Tap& t, int (*red)[kPixels / 32],
-                                                 int* rx0, int* ry0, int* rx1, int* ry1) {
-  const int p = threadIdx.x;
-  const unsigned full = 0xFFFFFFFFu;
-  const int wmin_x = __reduce_min_sync(full, t.c0);
-  const int wmin_y = __reduce_min_sync(full, t.r0);
-  const int wmax_x = __reduce_max_sync(full, t.c1);
-  const int wmax_y = __reduce_max_sync(full, t.r1);
-  if ((p & 31) == 0) {
-    red[0][p >> 5] = wmin_x;
-    red[1][p >> 5] = wmin_y;
-    red[2][p >> 5] = wmax_x;
-    red[3][p >> 5] = wmax_y;
+// The record's corner extent over the 16x16 tile whose first pixel is at
+// (ox, oy): the least floor corner and the greatest ceil corner of all
+// 256 pixels, from the tile's four corner pixels alone. Any thread can
+// call it; no reduction and no barrier.
+//
+// Why four pixels give the same bits as all 256: a pixel's sample
+// position is ux = m0 gx + m2 gy + xl (uy alike), three IEEE operations
+// evaluated in that order with no contraction (-fmad=false). A correctly
+// rounded operation is monotone in each operand, so m0 gx is monotone in
+// gx (rising for m0 >= 0, falling for m0 < 0), and adding a fixed
+// m2 gy, then xl, keeps that: ux is monotone in gx for a fixed gy, and
+// in gy for a fixed gx, each in a direction fixed for the record. The
+// pixel coordinates themselves, (p & 15) + ox, rise with the column and
+// the row. floor, ceil, the conversion to int, the clamp to the image and
+// + ax are monotone too. A function on the tile's grid that is monotone
+// in each coordinate takes its least and greatest values at corners, so
+// the four corner pixels hold the extent that kernel F and the
+// interpreter test against their region windows.
+__device__ __forceinline__ void image_tap_corner_extent(const int* w, int ox, int oy, int* rx0,
+                                                        int* ry0, int* rx1, int* ry1) {
+  int x0 = 0, y0 = 0, x1 = 0, y1 = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const Tap t = image_tap_corners(w, (float)((k & 1) * 15) + (float)ox,
+                                    (float)((k >> 1) * 15) + (float)oy);
+    x0 = k == 0 ? t.c0 : min(x0, t.c0);
+    y0 = k == 0 ? t.r0 : min(y0, t.r0);
+    x1 = k == 0 ? t.c1 : max(x1, t.c1);
+    y1 = k == 0 ? t.r1 : max(y1, t.r1);
   }
-  __syncthreads();
-  int x0 = red[0][0], y0 = red[1][0], x1 = red[2][0], y1 = red[3][0];
-  for (int k = 1; k < kPixels / 32; ++k) {
-    x0 = min(x0, red[0][k]);
-    y0 = min(y0, red[1][k]);
-    x1 = max(x1, red[2][k]);
-    y1 = max(y1, red[3][k]);
-  }
-  __syncthreads();
   *rx0 = x0;
   *ry0 = y0;
   *rx1 = x1;

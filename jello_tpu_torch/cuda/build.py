@@ -10,9 +10,10 @@ The library lands in `jello_tpu_torch/_build/` and is rebuilt when a
 source is newer; a failed build raises with nvcc's stderr.
 
 Each exported C function launches its kernel on the stream it is given
-(kernel C's entry also zeroes its output there, and kernel D's its
-iteration count, with one memset each; kernel E's entries launch the
-prefix scan before the expansion) and returns `cudaGetLastError()`;
+(kernel C's entry also zeroes its output there, kernel D's its
+iteration count and kernel F's its region flag, with one memset each;
+kernel E's entries launch the prefix scan before the expansion) and
+returns `cudaGetLastError()`;
 `check` raises if that is not 0.
 """
 
@@ -74,14 +75,22 @@ SIGNATURES = {
     # RC, T, stream
     "jello_expand_rows": [P, P, P, P, P, P, I, I, I, P],
     # tap_rec [IRC, 16] i32, atlas [4, AHp, AWp] f32, out [IRC, 1024] f32,
-    # region flag [1] i32 (zeroed), IRC, GRID, wit, AHp, AWp, stream
+    # region flag, one byte (the entry clears it with a memset), IRC, GRID,
+    # wit, AHp, AWp, stream
     "jello_image_tap": [P, P, P, P, I, I, I, I, I, P],
+    # F's CTAs resident on a multiprocessor (a query, no launch)
+    "jello_image_tap_ctas": [],
     # counts [n] i32, tile_ids [n] i32, base [4] f32, slab [n, MC, 16] i32,
-    # rows [R, 256] f32, stops [NR, W] f32, atlas [4, AHp, AWp] f32 or null,
-    # stack scratch [n, BD, 4, 256] f32 or null, out [n, 4, 256] f32, ovf
-    # [n] i32, n, MC, R, NR, W, wit, BD, AHp, AWp, batch (0 kernel G, 1
-    # kernel H), resolved (1: rows hold resolved MSAA coverage), stream
+    # rows [R, 256] f32 (both 16-byte aligned), stops [NR, W] f32, atlas
+    # [4, AHp, AWp] f32 or null, stack scratch (jello_fine_interp_scratch's
+    # floats) or null, out [n, 4, 256] f32, ovf [n] i32, n, MC, R, NR, W,
+    # wit, BD, AHp, AWp, batch (0 kernel G, 1 kernel H), resolved (1: rows
+    # hold resolved MSAA coverage), stream
     "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+    # n, BD, batch: floats of stack scratch the entry needs (a query)
+    "jello_fine_interp_scratch": [I, I, I],
+    # batch, BD: G's or H's CTAs resident on a multiprocessor (a query)
+    "jello_fine_interp_ctas": [I, I],
 }
 
 

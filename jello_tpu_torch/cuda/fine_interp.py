@@ -11,14 +11,14 @@ no fallback from one to the other.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..pipeline import fine_interp as plain
 from ..pipeline.ops import F32, I32
 from .build import check, check_tensor, kernels, stream_of
 
-# A CTA's opt-in dynamic shared memory on sm_90.
-SMEM_MAX = 227 * 1024
 H_TILES = 8
 
 
@@ -35,7 +35,8 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
     f32; atlas [4, AHp, AWp] f32 premultiplied planar, or None for a
     frame without images (an image record then paints nothing);
     blend_depth: the blend stack's depth BD; batch: kernel H, which pads
-    n to a multiple of 8 inside (count 0).
+    n to a multiple of 8 inside (count 0). On the card slab and rows
+    must start 16-byte aligned (the kernel reads them as 16-byte vectors).
     Returns (out [n, 4, 256] f32 un-premultiplied, ovf [n] i32: bit 0 a
     push past BD, bit 1 an image record past the one region window)."""
     dev = slab.device
@@ -59,38 +60,65 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
     if dev.type == "cpu":
         return plain.interpret_plain(counts[:n], tile_ids, base, slab, rows, stops, atlas,
                                      int(wit), BD, resolved)
+    slab_ptr, rows_ptr = slab.data_ptr(), rows.data_ptr()
+    if slab_ptr % 16 or rows_ptr % 16:
+        raise ValueError("slab and rows must start 16-byte aligned")
     if batch:
         pad = -n % H_TILES
         if pad:
             slab = torch.cat([slab, slab.new_zeros((pad, MC, 16))])
             tile_ids = torch.cat([tile_ids, tile_ids.new_zeros(pad)])
             counts = torch.cat([counts[:n], counts.new_zeros(pad), counts[n:]])
+            slab_ptr = slab.data_ptr()
     n_run = tile_ids.shape[0]
-    out = torch.empty((n_run, 4, 256), dtype=F32, device=dev)
-    ovf = torch.empty(n_run, dtype=I32, device=dev)
-    # G keeps a tile's blend stack in shared memory (4 KB a level) while it
-    # fits a CTA; H's eight stacks, and a deeper G stack, live in a global
-    # scratch of the same layout, each thread touching only its own pixel.
-    scratch = None
-    if batch or BD * 4096 > SMEM_MAX:
-        scratch = torch.empty((n_run, BD, 4, 256), dtype=F32, device=dev)
+    # out and ovf in one allocation; the stack scratch (H's, or G's levels
+    # past its shared memory) in a second where there is one.
+    buf = torch.empty(n_run * 1025, dtype=F32, device=dev)
+    out = buf[:n_run * 1024].view(n_run, 4, 256)
+    ovf = buf[n_run * 1024:].view(I32)
+    shape = scratch_shape(n_run, BD, batch, dev.index)
+    scratch = None if shape is None else torch.empty(shape, dtype=F32, device=dev)
     err = kernels().jello_fine_interp(
-        counts.data_ptr(), tile_ids.data_ptr(), base.data_ptr(), slab.data_ptr(),
-        rows.data_ptr(), stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(), ovf.data_ptr(),
-        n_run, MC, rows.shape[0], NR, W, int(wit), BD, AHp, AWp,
-        1 if batch else 0, 1 if resolved else 0, stream_of(slab))
+        counts.data_ptr(), tile_ids.data_ptr(), base.data_ptr(), slab_ptr, rows_ptr,
+        stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), buf.data_ptr(),
+        buf.data_ptr() + 4 * n_run * 1024, n_run, MC, rows.shape[0], NR, W, int(wit), BD, AHp,
+        AWp, 1 if batch else 0, 1 if resolved else 0, stream_of(slab))
     check("jello_fine_interp", err)
     if batch:
         interpret_tiles.launches_batch += 1
-    else:
-        interpret_tiles.launches += 1
-    return out[:n], ovf[:n]
+        return out[:n], ovf[:n]
+    interpret_tiles.launches += 1
+    return out, ovf
 
 
 # Launches of kernel G, and of kernel H.
 interpret_tiles.launches = 0
 interpret_tiles.launches_batch = 0
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_shape(n, blend_depth, batch, device_index=None):
+    """The stack scratch the entry takes for n slots at this blend depth,
+    as a shape of floats, or None: H's [n, BD, 4, 256]; G's levels past
+    its shared memory for as many tiles as the card holds at once (none
+    when BD levels fit its shared memory). A query of the current device
+    (`device_index` names it for the cache), made once for each argument
+    tuple."""
+    floats = kernels().jello_fine_interp_scratch(int(n), int(blend_depth), 1 if batch else 0)
+    if floats < 0:
+        raise RuntimeError("jello_fine_interp_scratch: CUDA error or a scratch past 2**31 floats")
+    return (floats,) if floats else None
+
+
+def resident_ctas(batch, blend_depth):
+    """CTAs of kernel G (or H, with `batch`) resident on one
+    multiprocessor of the current device at this blend depth (a query,
+    no launch)."""
+    n = kernels().jello_fine_interp_ctas(1 if batch else 0, int(blend_depth))
+    if n < 0:
+        raise RuntimeError("jello_fine_interp_ctas: CUDA error")
+    return n
 
 
 def fine_interp(cmds, counted, ramps, atlas, layout, caps):

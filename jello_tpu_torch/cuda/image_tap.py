@@ -35,13 +35,24 @@ def tap_records(tap_rec, atlas, wit, grid):
     if dev.type == "cpu":
         return plain.tap_records_plain(tap_rec, atlas, wit, grid)
     out = torch.empty((IRC, 1024), dtype=F32, device=dev)
-    flag = torch.zeros(1, dtype=I32, device=dev)
+    # One byte, cleared by the entry's memset and set by the kernel: the
+    # flag is a view of it, with no comparison on the device.
+    flag = torch.empty(1, dtype=torch.bool, device=dev)
     err = kernels().jello_image_tap(
         tap_rec.data_ptr(), atlas.data_ptr(), out.data_ptr(), flag.data_ptr(), IRC,
         int(grid), int(wit), AHp, AWp, stream_of(tap_rec))
     check("jello_image_tap", err)
     tap_records.launches += 1
-    return out, flag[0] != 0
+    return out, flag[0]
 
 
 tap_records.launches = 0
+
+
+def resident_ctas():
+    """Kernel F's CTAs resident on one multiprocessor of the current
+    device (a query, no launch)."""
+    n = kernels().jello_image_tap_ctas()
+    if n < 0:
+        raise RuntimeError("jello_image_tap_ctas: CUDA error")
+    return n

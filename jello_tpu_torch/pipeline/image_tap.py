@@ -50,17 +50,18 @@ def atlas_planar(images):
     return planar
 
 
-def tap_geometry(tap_rec, wit, grid):
+def tap_geometry(tap_rec, wit, grid, pixels=None):
     """Per record and pixel: the sample position, the four clamped
     atlas-absolute corner coordinates and the validity masks
-    (image_tap.py:95-150). All [IRC, 256] unless noted."""
+    (image_tap.py:95-150). All [IRC, 256] unless noted; `pixels` (i32
+    indices into the 16x16 tile) takes those pixels instead of all 256."""
     dev = tap_rec.device
     fr = tap_rec.view(F32)
     kind = tap_rec[:, 0]
     t = tap_rec[:, 3]
     valid = (kind == CMD_IMAGE) & (t >= 0) & (t < grid)  # [IRC]
     tc = torch.clamp(t, 0, grid - 1)
-    p = ops.iota(256, dev)
+    p = ops.iota(256, dev) if pixels is None else pixels
     gx = (p % 16).to(F32)[None, :] + ((tc % wit) * 16).to(F32)[:, None]
     gy = (p // 16).to(F32)[None, :] + (torch.div(tc, wit, rounding_mode="floor")
                                        * 16).to(F32)[:, None]
@@ -94,26 +95,47 @@ def tap_geometry(tap_rec, wit, grid):
     }
 
 
+def region_windows(rx0, ry0, rx1, ry1, AHp, AWp):
+    """From a tap extent: the origin (x_lo, y_lo) of the aligned region
+    window that holds its near corner, and the windows (nx, ny) it spans
+    from there, each capped at 255 (`_region_offsets`,
+    image_tap.py:259-306). All [IRC] i32."""
+    x_lo = torch.clamp(torch.div(rx0, 128, rounding_mode="floor") * 128, 0, AWp - REGW)
+    y_lo = torch.clamp(torch.div(ry0, 8, rounding_mode="floor") * 8, 0, AHp - REGH)
+    nx = torch.clamp(torch.div(torch.clamp(rx1 - x_lo, min=0), REGW, rounding_mode="floor")
+                     + 1, max=255)
+    ny = torch.clamp(torch.div(torch.clamp(ry1 - y_lo, min=0), REGH, rounding_mode="floor")
+                     + 1, max=255)
+    return x_lo, y_lo, nx, ny
+
+
 def region_extent(g, AHp, AWp):
     """Per record: the far corner (rx1, ry1) of its taps over all 256
     pixels and the origin (x_lo, y_lo) of the aligned region window that
     holds their near corner. All [IRC] i32."""
-    rx0 = g["c0"].amin(dim=1)
-    ry0 = g["r0"].amin(dim=1)
-    x_lo = torch.clamp(torch.div(rx0, 128, rounding_mode="floor") * 128, 0, AWp - REGW)
-    y_lo = torch.clamp(torch.div(ry0, 8, rounding_mode="floor") * 8, 0, AHp - REGH)
-    return g["c1"].amax(dim=1), g["r1"].amax(dim=1), x_lo, y_lo
+    rx1, ry1 = g["c1"].amax(dim=1), g["r1"].amax(dim=1)
+    x_lo, y_lo, _, _ = region_windows(g["c0"].amin(dim=1), g["r0"].amin(dim=1), rx1, ry1,
+                                      AHp, AWp)
+    return rx1, ry1, x_lo, y_lo
+
+
+def tap_extent_corners(tap_rec, wit, grid):
+    """Per record: (rx0, ry0, rx1, ry1), the least floor corner and the
+    greatest ceil corner of its taps, from the tile's four corner pixels
+    (0, 0), (15, 0), (0, 15) and (15, 15) alone: the extent kernels F
+    and G compute (`csrc/paint.cuh`, image_tap_corner_extent, which says
+    why it equals the 256-pixel min and max). All [IRC] i32."""
+    edge = ops.iota(2, tap_rec.device) * 15  # 0 and 15
+    g = tap_geometry(tap_rec, wit, grid, (edge[None, :] + 16 * edge[:, None]).reshape(4))
+    return g["c0"].amin(dim=1), g["r0"].amin(dim=1), g["c1"].amax(dim=1), g["r1"].amax(dim=1)
 
 
 def region_bad(g, AHp, AWp):
     """[IRC] bool: the record's taps span more than MAX_WIN region
     windows of the padded atlas (`_region_offsets`, image_tap.py:259-306,
     and the kernel's `nw > MAX_WIN`)."""
-    rx1, ry1, x_lo, y_lo = region_extent(g, AHp, AWp)
-    nx = torch.clamp(torch.div(torch.clamp(rx1 - x_lo, min=0), REGW, rounding_mode="floor")
-                     + 1, max=255)
-    ny = torch.clamp(torch.div(torch.clamp(ry1 - y_lo, min=0), REGH, rounding_mode="floor")
-                     + 1, max=255)
+    _, _, nx, ny = region_windows(g["c0"].amin(dim=1), g["r0"].amin(dim=1),
+                                  g["c1"].amax(dim=1), g["r1"].amax(dim=1), AHp, AWp)
     return ny * nx > MAX_WIN
 
 

@@ -25,6 +25,7 @@ from jello_tpu_torch.pipeline.render import geometry
 from .torch_reference import (
     CLIP_SCENES,
     check_msaa_frame,
+    deep_slab,
     full_scene,
     hand_built_slab,
     interpret_args,
@@ -69,6 +70,52 @@ def test_torch_interpreter_plain_matches_pallas_interpret(batch):
     err = np.abs(_premul(got.numpy()) - _premul(want)).max()
     print(f"plain vs Pallas interpret ({'H' if batch else 'G'}): {err:.3e}")
     assert err <= TOL
+
+
+@pytest.mark.parametrize("depth", [2, 8])
+def test_torch_interpreter_plain_matches_pallas_interpret_on_deep_tapes(depth):
+    """The deep tapes (a push at every depth up to BD and one past it, one
+    record, MC records, suppression past a staging chunk) and the ten
+    hand-built programs through the plain version and jello_tpu's one-tile
+    kernel in interpret mode. The seeded random programs between them are
+    left out of the row comparison: at MC 40 one of them (program 14 at BD
+    8) paints a repeating linear gradient whose t is 1.0 at a pixel, where
+    XLA's contraction in interpret mode and the port's separate roundings
+    land on either side of the seam (0.46 apart); overflow words are
+    compared for every program."""
+    h, k = deep_slab(depth)
+    want, want_ovf = _pallas(h, False)
+    got, got_ovf = interpret_tiles(*interpret_args(h))
+    assert np.array_equal(got_ovf.numpy(), want_ovf)
+    assert int(got_ovf[k["past_bd"]]) == 1 and int(got_ovf[k["to_bd"]]) == 0
+    held = list(range(10)) + list(k.values())
+    err = np.abs(_premul(got.numpy())[held] - _premul(want)[held]).max()
+    print(f"plain vs Pallas interpret, deep tapes at BD {depth}: {err:.3e}")
+    assert err <= TOL
+
+
+@pytest.mark.parametrize("depth", [2, 8, 60])
+def test_torch_interpreter_deep_tapes_on_the_plain_version(depth):
+    """What the deep tapes are built to show: overflow bit 0 on the push
+    past BD and on no other program's nesting, a one-record and an
+    MC-record tape, a clip-zero group past the staging chunk that paints
+    nothing (the tape without it gives the same row), pads at the base
+    color."""
+    h, k = deep_slab(depth)
+    MC = h["slab"].shape[1]
+    assert h["counts"][k["one_record"]] == 1 and h["counts"][k["mc_records"]] == MC
+    assert h["counts"][k["to_bd"]] == 3 * depth + 1
+    out, ovf = interpret_tiles(*interpret_args(h))
+    assert torch.isfinite(out).all()
+    assert int(ovf[k["past_bd"]]) == 1 and int(ovf[k["to_bd"]]) == 0
+    assert int((ovf & 1).sum()) == 1 + (depth == 2)  # at BD 2 the original program 8 too
+    assert np.allclose(out[-1].numpy(), h["base"][:, None])
+    j = k["suppressed_past_chunk"]
+    h2 = dict(h, slab=h["slab"].copy(), counts=h["counts"].copy())
+    h2["slab"][j, 1] = h["slab"][j, h["counts"][j] - 1]
+    h2["counts"][j] = 2
+    out2, _ = interpret_tiles(*interpret_args(h2))
+    assert torch.equal(out[j], out2[j])
 
 
 def test_torch_interpreter_semantics_on_the_hand_built_slab():

@@ -24,7 +24,15 @@ from jello_tpu.tpu.image_tap import image_tap as jax_image_tap
 from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.cuda.fine_v2 import build_records
 from jello_tpu_torch.cuda.render import upload, upload_atlas
-from jello_tpu_torch.pipeline.image_tap import atlas_planar, image_tap
+from jello_tpu_torch.cuda.image_tap import tap_records
+from jello_tpu_torch.pipeline.image_tap import (
+    MAX_WIN,
+    atlas_planar,
+    image_tap,
+    region_windows,
+    tap_extent_corners,
+    tap_geometry,
+)
 
 from .torch_reference import (
     as_np,
@@ -34,6 +42,7 @@ from .torch_reference import (
     numpy_geometry,
     over_minified,
     prepare_with_atlas,
+    random_tap_records,
     render_checked,
     tree_to_torch,
     u32,
@@ -135,6 +144,71 @@ def test_torch_image_tap_plain_matches_pallas_interpret(name):
     # whose region is over the limit (here the first tile's).
     assert not as_np(fg)[min(n_img, irc):].any()
     assert bool(as_np(fg)[0].any()) == (not want_region)
+
+
+# ---- the tap's extent from the tile's four corner pixels -------------------
+
+EXTENT_SEEDS = [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("seed", EXTENT_SEEDS)
+def test_torch_tap_extent_corners_equals_the_256_pixel_extent(seed):
+    """The corner extent kernels F and G compute equals the min of the
+    clamped floor corners and the max of the clamped ceil corners over
+    all 256 pixels, on every one of ~200 random records."""
+    rec, _ = random_tap_records(seed)
+    r = torch.from_numpy(rec.view(np.int32))
+    g = tap_geometry(r, 8, 64)
+    want = (g["c0"].amin(dim=1), g["r0"].amin(dim=1), g["c1"].amax(dim=1), g["r1"].amax(dim=1))
+    got = tap_extent_corners(r, 8, 64)
+    for name, a, b in zip(("rx0", "ry0", "rx1", "ry1"), got, want):
+        assert a.dtype == torch.int32 and a.shape == (rec.shape[0],)
+        bad = torch.nonzero(a != b).flatten().tolist()
+        assert not bad, f"{name} differs on records {bad[:10]}"
+
+
+@pytest.mark.parametrize("seed", EXTENT_SEEDS)
+def test_torch_tap_extent_corners_matches_region_offsets(seed):
+    """jello_tpu's `_region_offsets` (numpy) on the same records: the
+    window origin, the window count and the region flag taken from the
+    corner extent equal the y_lo, x_lo and nyx it returns, and its
+    ny * nx > MAX_WIN."""
+    from jello_tpu.tpu.image_tap import _region_offsets
+
+    rec, atlas = random_tap_records(seed)
+    _, AHp, AWp = atlas.shape
+    y_lo, x_lo, nyx = _region_offsets(np, rec, 8, 64, AHp, AWp)
+    rx0, ry0, rx1, ry1 = tap_extent_corners(torch.from_numpy(rec.view(np.int32)), 8, 64)
+    gx_lo, gy_lo, nx, ny = region_windows(rx0, ry0, rx1, ry1, AHp, AWp)
+    np.testing.assert_array_equal(as_np(gx_lo), x_lo)
+    np.testing.assert_array_equal(as_np(gy_lo), y_lo)
+    np.testing.assert_array_equal(as_np((ny << 8) | nx), nyx)
+    want_flag = ((nyx >> 8) * (nyx & 0xFF)) > MAX_WIN
+    np.testing.assert_array_equal(as_np(ny * nx > MAX_WIN), want_flag)
+    assert want_flag.any() and not want_flag.all()
+
+
+def test_torch_tap_records_wrapper_contract_on_the_cpu():
+    """The wrapper's outputs on CPU tensors (the plain version): the fg
+    table [IRC, 1024] f32, zero on rows that are not live image records,
+    and the region flag a 0-dim bool, set by a record past MAX_WIN
+    windows; inputs of another type or shape raise."""
+    rec, atlas = random_tap_records(0, n=24)
+    r = torch.from_numpy(rec.view(np.int32))
+    a = torch.from_numpy(atlas)
+    rows = torch.cat([r, torch.zeros((8, 16), dtype=torch.int32)])
+    fg, flag = tap_records(rows, a, 8, 64)
+    assert fg.shape == (32, 1024) and fg.dtype == torch.float32 and fg.is_contiguous()
+    assert flag.shape == () and flag.dtype == torch.bool and bool(flag)
+    assert not fg[24:].any() and fg[:24].any()
+    _, flag_ok = tap_records(rows[1:4], a, 8, 64)
+    assert flag_ok.shape == () and not bool(flag_ok)
+    with pytest.raises(ValueError):
+        tap_records(rows.to(torch.int64), a, 8, 64)
+    with pytest.raises(ValueError):
+        tap_records(rows[:, :8].contiguous(), a, 8, 64)
+    with pytest.raises(ValueError):
+        tap_records(rows, a[0], 8, 64)
 
 
 def _three_images(jt):

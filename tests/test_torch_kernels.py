@@ -43,6 +43,7 @@ from .torch_reference import (
     CLIP_SCENES,
     EXPAND_CASES,
     crossing_inputs,
+    deep_slab,
     euler_inputs,
     expand_counts,
     full_scene,
@@ -51,6 +52,7 @@ from .torch_reference import (
     over_minified,
     prepare,
     prepare_with_atlas,
+    random_tap_records,
     row_inputs,
 )
 
@@ -520,6 +522,36 @@ def test_torch_image_tap_kernel_matches_plain(cuda, monkeypatch):
     assert (got - want).abs().max().item() <= 1e-6
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_torch_image_tap_kernel_synthetic(cuda, seed):
+    """Kernel F on random records (rotated, sheared, mirrored, magnified,
+    minified past MAX_WIN windows, a few ulps off a texel boundary; images
+    at every atlas edge) with zero rows past them: equal to the plain
+    version (the same operations in the same order), region flag equal,
+    zero rows past the count and for the records past MAX_WIN; without
+    those records the flag is clear."""
+    rec, atlas = random_tap_records(seed)
+    rows = torch.cat([torch.from_numpy(rec.view(np.int32)),
+                      torch.zeros((40, 16), dtype=torch.int32)]).to(cuda)
+    a = torch.from_numpy(atlas).to(cuda)
+    n0 = ktap.tap_records.launches
+    got, flag = ktap.tap_records(rows, a, 8, 64)
+    assert ktap.tap_records.launches == n0 + 1
+    want, want_flag = plain_tap.tap_records_plain(rows, a, 8, 64)
+    torch.cuda.synchronize()
+    assert flag.shape == () and flag.dtype == torch.bool
+    assert bool(flag) and bool(want_flag)
+    assert torch.equal(got, want)
+    assert not got[rec.shape[0]:].any()
+    g = plain_tap.tap_geometry(rows, 8, 64)
+    bad = plain_tap.region_bad(g, a.shape[1], a.shape[2]) & g["valid"]
+    assert bad.any() and not got[bad].any()
+    got2, flag2 = ktap.tap_records(rows[~bad].contiguous(), a, 8, 64)
+    want2, _ = plain_tap.tap_records_plain(rows[~bad].contiguous(), a, 8, 64)
+    torch.cuda.synchronize()
+    assert not bool(flag2) and torch.equal(got2, want2)
+
+
 def test_torch_fine_kernel_with_images_matches_plain(cuda):
     cmds, area, rec, atlas_t, layout_t, ramps_t, caps, ld = _image_inputs(cuda)
     fg_tab, _, _ = plain_tap.image_tap(rec, cmds, atlas_t, layout_t, caps)
@@ -563,6 +595,33 @@ def test_torch_interpreter_kernels_match_plain(cuda, depth):
 
     assert torch.equal(ovf_g, ovf_p) and torch.equal(ovf_h, ovf_p)
     assert int(ovf_g[4]) == 2 and int(ovf_g[8]) == (1 if depth == 2 else 0)
+    assert not torch.isnan(got_g).any()
+    assert (premul(got_g) - premul(want)).abs().max().item() <= 1e-5
+    assert (premul(got_h) - premul(got_g)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("depth", [2, 8, 60])
+def test_torch_interpreter_kernels_deep_tapes(cuda, depth):
+    """Kernels G and H on the deep tapes (a push at every depth up to BD
+    and one past it: at BD 2 in G's shared levels, at 8 and 60 also in its
+    global scratch; tapes of 0, 1 and MC records, MC 40 or 192, across
+    G's 32-record staging chunks; a clip-zero group past a chunk; rowless
+    fills; the hand-built programs with a tripped image record):
+    premultiplied rows within 1e-5 of the plain version, H within 1e-6 of
+    G, overflow words equal."""
+    h, k = deep_slab(depth)
+    args = interpret_args(h, cuda)
+    got_g, ovf_g = kint.interpret_tiles(*args)
+    got_h, ovf_h = kint.interpret_tiles(*args, batch=True)
+    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
+    torch.cuda.synchronize()
+
+    def premul(o):
+        return torch.cat([o[:, :3] * o[:, 3:4], o[:, 3:4]], dim=1)
+
+    assert torch.equal(ovf_g, ovf_p) and torch.equal(ovf_h, ovf_p)
+    assert int(ovf_g[k["past_bd"]]) == 1 and int(ovf_g[k["to_bd"]]) == 0
+    assert int(ovf_g[4]) == 2
     assert not torch.isnan(got_g).any()
     assert (premul(got_g) - premul(want)).abs().max().item() <= 1e-5
     assert (premul(got_h) - premul(got_g)).abs().max().item() <= 1e-6
@@ -721,3 +780,5 @@ def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
         kint.interpret_tiles(*args[:4], args[4].cpu(), *args[5:])
     with pytest.raises(ValueError):
         kint.interpret_tiles(*args[:3], args[3][:, :, :8].contiguous(), *args[4:])
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        kint.interpret_tiles(*args[:4], args[4].view(-1)[1:257].view(1, 256), *args[5:])

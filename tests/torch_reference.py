@@ -448,12 +448,19 @@ def _fbits(x):
     return int(np.float32(x).view(np.uint32))
 
 
-def hand_built_slab(seed=0, n=16, MC=16, BD=2, grid=64, wit=8):
+def hand_built_slab(seed=0, n=16, MC=16, BD=2, grid=64, wit=8, deep=False):
     """Inputs of the per-tile interpreter, built by hand with numpy: `n`
     programs (the last two pads) whose tapes hold every record kind, clip
     depth up to BD and one past it, a clip-zero group with a nested group
     inside, an image record that fits the region window and one that trips
     it, and seeded random tapes over every mix and compose word.
+
+    With `deep`, the last five programs before the pads hold DEEP_TAPES:
+    a push at every depth up to BD ("to_bd"), the same one level deeper
+    ("past_bd"), a tape of one record, a tape of exactly MC records with
+    rowless fills, and a clip-zero group whose suppression runs past the
+    kernel's 32-record staging chunk; MC must hold 3 BD + 4 records and
+    should exceed 32.
 
     Returns a dict: counts [n] i32, tile_ids [n] i32, base [4] f32, slab
     [n, MC, 16] u32, rows [32, 256] f32, stops [NR, W] f32, atlas [4, AHp,
@@ -556,7 +563,22 @@ def hand_built_slab(seed=0, n=16, MC=16, BD=2, grid=64, wit=8):
          end(mix=10, compose=4), end(alpha=0.5)],
         [color(), begin(zero=True), color(), begin(), color(), end(mix=5), end(), color()],
     ]
-    tapes += [random_tape(t[k]) for k in range(len(tapes), n - 2)] + [[], []]
+    extra = []
+    if deep:
+        def nest(d):
+            tape = [color()]
+            for _ in range(d):
+                tape += [begin(), color(rowless=bool(rng.integers(0, 2)))]
+            return tape + [end(int(rng.integers(0, 16)), int(rng.integers(0, 14)),
+                               alpha=float(rng.random())) for _ in range(d)]
+
+        extra = [nest(BD), nest(BD + 1), [color()],
+                 [color(rowless=k % 3 == 0) for k in range(MC - 3)]
+                 + [begin(), color(), end(mix=3, alpha=0.9)],
+                 [color(), begin(zero=True)] + [color() for _ in range(34)]
+                 + [end(), color(even_odd=True)]]
+    tapes += [random_tape(t[k]) for k in range(len(tapes), n - 2 - len(extra))]
+    tapes += extra + [[], []]
     slab = np.zeros((n, MC, 16), np.uint32)
     for k, tape in enumerate(tapes):
         assert len(tape) <= MC
@@ -568,6 +590,83 @@ def hand_built_slab(seed=0, n=16, MC=16, BD=2, grid=64, wit=8):
         "base": np.array([0.9, 0.8, 0.7, 1.0], np.float32), "slab": slab, "rows": rows,
         "stops": stops, "atlas": atlas, "wit": wit, "grid": grid, "BD": BD,
     }
+
+
+def random_tap_records(seed, n=200, wit=8, grid=64, atlas_hw=(320, 1100)):
+    """Image records drawn to probe a tap's extent, with a planar atlas:
+    (rec [n, 16] u32, atlas [4, AHp, AWp] f32). In turn: rotations,
+    shears, negative scales, magnification, minification (some past
+    MAX_WIN region windows), and translations a few ulps either side of a
+    texel boundary at the tile's first pixel; images placed inside the
+    atlas or at one of its edges or corners."""
+    from jello_tpu_torch.pipeline.image_tap import atlas_planar
+
+    rng = np.random.default_rng(seed)
+    AH, AW = atlas_hw
+    atlas = atlas_planar(rng.random((AH, AW, 4)).astype(np.float32))
+    f32 = np.float32
+    rec = np.zeros((n, 16), np.uint32)
+    for i in range(n):
+        t = int(rng.integers(0, grid))
+        gx0, gy0 = f32((t % wit) * 16), f32((t // wit) * 16)
+        form = i % 6
+        if form == 4:  # minified: up to the whole atlas at 4x to 80x
+            iw, ih = int(rng.integers(AW // 2, AW + 1)), int(rng.integers(AH // 2, AH + 1))
+        else:
+            iw, ih = int(rng.integers(1, 200)), int(rng.integers(1, 120))
+        place = int(rng.integers(0, 4))  # inside, far edge, near edge, far corner
+        ax = [int(rng.integers(0, AW - iw + 1)), AW - iw, 0, AW - iw][place]
+        ay = [int(rng.integers(0, AH - ih + 1)), int(rng.integers(0, AH - ih + 1)), AH - ih,
+              AH - ih][place]
+        s = f32(rng.choice([-1.0, 1.0]) * rng.uniform(0.2, 3.0))
+        if form == 0:  # rotation
+            a = rng.uniform(0, 2 * np.pi)
+            m = [s * np.cos(a), s * np.sin(a), -s * np.sin(a), s * np.cos(a)]
+        elif form == 1:  # shear
+            m = [s, rng.uniform(-1, 1), rng.uniform(-1.5, 1.5), f32(rng.uniform(0.3, 2.0))]
+        elif form == 2:  # negative scales
+            m = [-abs(s), 0.0, 0.0, -f32(rng.uniform(0.2, 3.0))]
+        elif form == 3:  # magnification
+            m = [rng.uniform(0.02, 0.3), 0.0, 0.0, rng.uniform(0.02, 0.3)]
+        elif form == 4:  # minification
+            k = rng.uniform(4.0, 80.0)
+            m = [k, rng.uniform(-1, 1), rng.uniform(-1, 1), k * rng.uniform(0.5, 1.0)]
+        else:  # a plain scale, translated to a texel boundary below
+            m = [s, 0.0, 0.0, f32(rng.uniform(0.2, 3.0))]
+        m = [f32(v) for v in m]
+        # The tile's first pixel lands near (cx, cy) of the image (for half
+        # the minified records near its first texel, so that the tile
+        # spans much of it).
+        near = form == 4 and i % 12 == 4
+        cx = f32(rng.uniform(-4.0, 0.1 * iw if near else iw + 4.0))
+        cy = f32(rng.uniform(-4.0, 0.1 * ih if near else ih + 4.0))
+        ux0 = f32(m[0] * gx0) + f32(m[2] * gy0)
+        uy0 = f32(m[1] * gx0) + f32(m[3] * gy0)
+        if form == 5:
+            cx, cy = f32(round(float(cx))), f32(round(float(cy)))
+        xl, yl = f32(cx - ux0), f32(cy - uy0)
+        if form == 5:  # a few ulps either side of the boundary
+            for _ in range(int(rng.integers(1, 4))):
+                xl = np.nextafter(xl, f32(np.inf if rng.random() < 0.5 else -np.inf))
+                yl = np.nextafter(yl, f32(np.inf if rng.random() < 0.5 else -np.inf))
+        words = [5, 0, 2, t, 0, 0] + [_fbits(v) for v in (*m, xl, yl)] + [
+            (ay << 16) | ax, (iw << 16) | ih, i, 0]
+        rec[i] = np.array(words, np.uint64).astype(np.uint32)
+    return rec, atlas
+
+
+# The programs `hand_built_slab(deep=True)` puts before its two pads.
+DEEP_TAPES = ("to_bd", "past_bd", "one_record", "mc_records", "suppressed_past_chunk")
+
+
+def deep_slab(BD):
+    """`hand_built_slab(deep=True)` at blend depth BD: 24 programs, MC 40
+    (192 at BD 60), so that long tapes cross the kernel's 32-record
+    staging chunk. Returns (h, {DEEP_TAPES name: program})."""
+    n = 24
+    h = hand_built_slab(seed=5, n=n, MC=40 if BD < 12 else 192, BD=BD, deep=True)
+    first = n - 2 - len(DEEP_TAPES)
+    return h, {name: first + i for i, name in enumerate(DEEP_TAPES)}
 
 
 def interpret_args(h, device="cpu"):

@@ -3,7 +3,7 @@
 
     python3 tools/torch_frame_times.py [--configs 1,3,4,5] [--modes area,msaa8]
                                        [--frames 8] [--tag NAME] [--kernel-a]
-                                       [--kernels-de]
+                                       [--kernels-de] [--kernels-fg]
 
 Run from the root of a checkout: it renders the gate scenes of the
 `jello_tpu_torch` package it finds there (so the same script times two
@@ -12,7 +12,8 @@ at this script, and run it from there) through
 `Renderer(device="cuda").render_device`, and prints for each config and
 antialiasing mode the median, minimum and maximum host ms a frame over
 `--frames` frames that each end in `torch.cuda.synchronize()`, after two
-warm-up frames, and the card's name and power limit. A tree that cannot
+warm-up frames, the peak device memory those frames allocate above what
+was held before them, and the card's name and power limit. A tree that cannot
 render a mode (a frame that raises NotImplementedError) says so and goes
 on. Exits non-zero without a GPU. Config 2 takes half a minute to build
 and is left out unless asked for.
@@ -31,6 +32,17 @@ each kernel the bare entry launches (torch.profiler), and prints a
 SHA-256 of each kernel's outputs. The bare entries follow whichever
 entry layout the tree's `cuda/build.py` declares: the prefix computed in
 the entry, or (older trees) passed in, computed beforehand.
+
+With --kernels-fg it first times kernel F (the image tap) on the inputs
+the tap stage of config 5 gives it, and kernels G and H (the per-tile
+interpreter, one tile and eight tiles a CTA) on the inputs config 4's
+fine stage gives them in area mode and under msaa8 (the resolved
+branch), in the same way: wrapper and bare C entry (medians of 5 means
+of 100 calls), device time by kernel and memset, and a SHA-256 of the
+outputs (F's table and region flag; G's and H's rows and overflow
+words). The bare entries follow the tree's entry layout: F's flag a
+zeroed int32 (older trees) or a byte the entry clears; G's stack scratch
+as the tree's `cuda.fine_interp.scratch_shape` says, where it has one.
 `--configs ""` times no frames.
 """
 
@@ -57,6 +69,8 @@ def main():
                     help="also time kernel A's three modes on config 5's coverage inputs")
     ap.add_argument("--kernels-de", action="store_true",
                     help="also time kernels D, E, E' and E'' on config 5's and config 3's inputs")
+    ap.add_argument("--kernels-fg", action="store_true",
+                    help="also time kernel F on config 5's inputs, G and H on config 4's")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
@@ -74,6 +88,8 @@ def main():
     if opts.kernels_de:
         for k in (5, 3):
             kernels_de_times(opts.tag, smi, k)
+    if opts.kernels_fg:
+        kernels_fg_times(opts.tag, smi)
     r = Renderer(device="cuda")
     for k in (int(v) for v in opts.configs.split(",") if v):
         scene, params = GATE_SCENES[k]()
@@ -86,15 +102,18 @@ def main():
                 print(f"{opts.tag}: config{k} {mode}: not rendered ({e})")
                 continue
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
             times = []
             for _ in range(opts.frames):
                 t = time.perf_counter()
                 r.render_device(scene, p)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**20
             print(f"{opts.tag}: config{k} {mode}: render_device {statistics.median(times):.3f} "
                   f"ms/frame median of {opts.frames} (min {min(times):.3f}, max "
-                  f"{max(times):.3f}), on {smi}")
+                  f"{max(times):.3f}), peak device memory a frame {peak:.1f} MiB, on {smi}")
     return 0
 
 
@@ -145,8 +164,6 @@ def record_geometry_calls(k):
     """The arguments of each call of kernels D, E, E' and E'' in one
     geometry pass of config k at its calibrated class, on the card:
     {wrapper name: [args, ...]}."""
-    import importlib
-
     from jello_tpu_torch.cuda import Renderer
     from jello_tpu_torch.cuda.render import frame_routing
     from jello_tpu_torch.pipeline.render import geometry
@@ -157,8 +174,17 @@ def record_geometry_calls(k):
     r.render(scene, params)
     _, _, (scene_t, layout_t, _, atlas_t), _ = r._prepare(scene, params)
     caps = dict(r._caps, **frame_routing(0, atlas_t is not None, 0))
+    return spy_calls(GEOMETRY_WRAPPERS, lambda: geometry(scene_t, layout_t, caps))
+
+
+def spy_calls(wrappers, run):
+    """Run `run()` with each (module under jello_tpu_torch.cuda, name)
+    wrapper replaced by one that records its arguments: {name: [args,
+    ...]}."""
+    import importlib
+
     calls, saved = {}, []
-    for mod_name, name in GEOMETRY_WRAPPERS:
+    for mod_name, name in wrappers:
         mod = importlib.import_module(f"jello_tpu_torch.cuda.{mod_name}")
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
@@ -168,13 +194,32 @@ def record_geometry_calls(k):
             return _fn(*args)
 
         spy.launches = 0  # a wrapper counts on its module-level name
+        spy.launches_batch = 0
         setattr(mod, name, spy)
     try:
-        geometry(scene_t, layout_t, caps)
+        run()
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     return calls
+
+
+def bare_call(entry, tensors, ints):
+    """A call of the kernel library's `entry` on the pointers of `tensors`
+    (None: a null pointer; kept alive by the call), then `ints` and the
+    current stream, with no check, allocation or other host work."""
+    import torch
+    from jello_tpu_torch.cuda import build
+
+    fn = getattr(build.kernels(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [None if t is None else t.data_ptr() for t in tensors] + list(ints) + [stream]
+
+    def call():
+        build.check(entry, fn(*args))
+
+    call.buffers = tensors  # what the pointers point into
+    return call
 
 
 def bare_entries(calls):
@@ -186,25 +231,12 @@ def bare_entries(calls):
     from jello_tpu_torch.cuda import build
     from jello_tpu_torch.pipeline import expand as plain
 
-    lib = build.kernels()
-    stream = torch.cuda.current_stream().cuda_stream
     # Older trees pass the prefix in and expect zeroed records.
     prefix_in = len(build.SIGNATURES["jello_expand_euler"]) == 12
+    bare = bare_call
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device="cuda")
-
-    def bare(entry, tensors, ints):
-        """A call of `entry` on the pointers of `tensors` (kept alive by
-        the call) and then `ints` and the stream."""
-        args = [t.data_ptr() for t in tensors] + list(ints) + [stream]
-        fn = getattr(lib, entry)
-
-        def call():
-            build.check(entry, fn(*args))
-
-        call.buffers = tensors  # what the pointers point into
-        return call
 
     def prefix(counts, compact):
         """(the prefix tensors the entry takes after the table, total)."""
@@ -304,25 +336,32 @@ def steady_ms(fn):
     return statistics.median(mean_ms(fn, 100) for _ in range(5))
 
 
-def device_us(fn, n=10):
+def device_us(fn, n=10, tries=3):
     """{kernel or memset name: device us a call}, torch.profiler over n
-    calls of fn (after one warm-up)."""
+    calls of fn (after one warm-up). torch.profiler can drop a session's
+    device events, which shows as no event or as a count that is no whole
+    number a call; such a session is repeated, up to `tries` sessions
+    (the last one's numbers are returned whatever they are)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = name.split("(")[0].strip()
-            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+                name = name.split("(")[0].strip()
+                out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / n
+                count += 1
+        if count and count % n == 0:
+            break
     return out
 
 
@@ -350,6 +389,143 @@ def kernels_de_times(tag, smi, k):
               f"entry {steady_ms(call):.4f} ms (medians of 5 means of 100 calls), device: "
               f"{device}; outputs sha256 {digest(got)}, bare entry "
               f"{'equal' if same else 'DIFFERENT'}, on {smi}")
+
+
+def record_tap_call():
+    """The arguments of kernel F's call in the tap stage of config 5 at
+    its calibrated class, on the card."""
+    from jello_tpu_torch.cuda import Renderer
+    from jello_tpu_torch.cuda.coverage import compute_area_rows
+    from jello_tpu_torch.cuda.fine_v2 import build_records
+    from jello_tpu_torch.cuda.render import frame_routing
+    from jello_tpu_torch.pipeline.image_tap import image_tap
+    from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.scenes import GATE_SCENES
+
+    scene, params = GATE_SCENES[5]()
+    r = Renderer(device="cuda")
+    r.render(scene, params)
+    _, _, (scene_t, layout_t, _, atlas_t), _ = r._prepare(scene, params)
+    caps = dict(r._caps, **frame_routing(0, True, 0))
+    stages = geometry(scene_t, layout_t, caps)[0]
+    cmds = stages["cmds"]
+    _, ids, _ = compute_area_rows(cmds, stages["counted"], caps)
+    rec = build_records(dict(cmds, area_row=ids), caps)
+    calls = spy_calls([("image_tap", "tap_records")],
+                      lambda: image_tap(rec, cmds, atlas_t, layout_t, caps))
+    return calls["tap_records"][0]
+
+
+def record_interp_calls():
+    """{"area": args, "msaa8": args}: the arguments (without the batch
+    switch and the resolved switch) of kernel G's call in config 4's fine
+    stage at its calibrated class, on the card, and the resolved switch."""
+    from jello_tpu_torch.cuda import Renderer
+    from jello_tpu_torch.cuda.fine_hybrid import fine_hybrid
+    from jello_tpu_torch.cuda.render import frame_routing
+    from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.scenes import GATE_SCENES
+
+    scene, params = GATE_SCENES[4]()
+    r = Renderer(device="cuda")
+    r.render(scene, params)
+    _, _, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    caps = dict(r._caps, **frame_routing(layout_t["n_clips"], atlas_t is not None, depth))
+    stages = geometry(scene_t, layout_t, caps)[0]
+    out = {}
+    for mode in ("area", "msaa8"):
+        calls = spy_calls([("fine_interp", "interpret_tiles")], lambda: fine_hybrid(
+            stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t,
+            dict(caps, aa_mode=mode)))
+        args = calls["interpret_tiles"][0]
+        out[mode] = (args[:9], bool(args[10]))
+    return out
+
+
+def bare_tap(args):
+    """(bare, (out, flag bytes)): kernel F's bare C entry on `args` (the
+    wrapper's), into buffers allocated once. The flag is 4 zeroed bytes:
+    an int32 the kernel ORs into (older trees) or a byte the entry clears."""
+    import torch
+
+    tap_rec, atlas, wit, grid = args
+    IRC = tap_rec.shape[0]
+    _, AHp, AWp = atlas.shape
+    out = torch.empty((IRC, 1024), dtype=torch.float32, device="cuda")
+    flag = torch.zeros(4, dtype=torch.uint8, device="cuda")
+    return bare_call("jello_image_tap", [tap_rec, atlas, out, flag],
+                     [IRC, int(grid), int(wit), AHp, AWp]), (out, flag)
+
+
+def bare_interp(args, batch, resolved):
+    """(bare, (out, ovf)): kernel G's (or H's) bare C entry on `args`
+    (interpret_tiles' first nine), into buffers allocated once; H's slots
+    padded to a multiple of eight here, once."""
+    import torch
+    from jello_tpu_torch.cuda import fine_interp as kint
+
+    counts, ids, base, slab, rows, stops, atlas, wit, BD = args
+    n, MC, _ = slab.shape
+    if batch and n % 8:
+        pad = -n % 8
+        slab = torch.cat([slab, slab.new_zeros((pad, MC, 16))])
+        ids = torch.cat([ids, ids.new_zeros(pad)])
+        counts = torch.cat([counts[:n], counts.new_zeros(pad), counts[n:]])
+    n_run = ids.shape[0]
+    if hasattr(kint, "scratch_shape"):
+        shape = kint.scratch_shape(n_run, int(BD), batch)
+    else:  # the parent's rule: H always, G when BD levels exceed a CTA
+        shape = (n_run, int(BD), 4, 256) if batch or int(BD) * 4096 > 227 * 1024 else None
+    scratch = None if shape is None else torch.empty(shape, dtype=torch.float32, device="cuda")
+    out = torch.empty((n_run, 4, 256), dtype=torch.float32, device="cuda")
+    ovf = torch.empty(n_run, dtype=torch.int32, device="cuda")
+    NR, W = stops.shape
+    AHp, AWp = (0, 0) if atlas is None else atlas.shape[1:]
+    call = bare_call("jello_fine_interp",
+                     [counts, ids, base, slab, rows, stops, atlas, scratch, out, ovf],
+                     [n_run, MC, rows.shape[0], NR, W, int(wit), int(BD), AHp, AWp,
+                      1 if batch else 0, 1 if resolved else 0])
+    return call, (out[:n], ovf[:n])
+
+
+def kernels_fg_times(tag, smi):
+    """Kernel F on config 5's recorded inputs, G and H on config 4's (area
+    and msaa8): the wrapper and the bare C entry (median of 5 means of 100
+    calls), the device time of each kernel and memset a bare call puts on
+    the card, and a digest of the outputs (the bare entry's must equal the
+    wrapper's)."""
+    import torch
+    from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import image_tap as ktap
+
+    def report(what, fn, call, got, outs):
+        call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, outs))
+        device = "; ".join(f"{n} {us:.1f} us" for n, us in device_us(call).items())
+        print(f"{tag}: {what}: wrapper {steady_ms(fn):.4f} ms, bare C entry "
+              f"{steady_ms(call):.4f} ms (medians of 5 means of 100 calls), device: {device}; "
+              f"outputs sha256 {digest(got)}, bare entry {'equal' if same else 'DIFFERENT'}, "
+              f"on {smi}")
+
+    f_args = record_tap_call()
+    fg, flag = ktap.tap_records(*f_args)
+    call, (out, flag_bytes) = bare_tap(f_args)
+    call()
+    torch.cuda.synchronize()
+    n_img = int((f_args[0][:, 0] == 5).sum())
+    report(f"config5 tap_records ({f_args[0].shape[0]} rows, {n_img} image records)",
+           lambda: ktap.tap_records(*f_args), call, (fg, flag.reshape(1)),
+           (out, flag_bytes.any().reshape(1)))
+    for mode, (args, resolved) in record_interp_calls().items():
+        for batch, name in ((False, "G"), (True, "H")):
+            got = kint.interpret_tiles(*args, batch, resolved)
+            call, outs = bare_interp(args, batch, resolved)
+            resident = (f", {kint.resident_ctas(batch, args[8])} CTAs a multiprocessor"
+                        if hasattr(kint, "resident_ctas") else "")
+            report(f"config4 {mode} interpret_tiles, kernel {name} ({args[3].shape[0]} slots"
+                   f"{resident})", lambda: kint.interpret_tiles(*args, batch, resolved), call,
+                   got, outs)
 
 
 if __name__ == "__main__":
