@@ -103,14 +103,46 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      script's own reference call swaps the plain versions in for the
      kernel wrappers (the main path has no such switch) and checks that
      no kernel launched meanwhile; --config5-cpu-reference also renders
-     and times config 5's CPU reference. Then steady-state ms/frame
-     (median after 2 warm-ups) and the peak device memory those frames
-     allocate, each config's MSAA frames beside its area frame, and a
-     profiled frame (kernels, copies and memsets a frame, busy time,
-     kernel C's kernel a frame). Kernel times are CUDA-event means over
+     and times config 5's CPU reference;
+ 10. frames in flight: for configs 1 to 5 in area mode and config 4
+     under msaa8, the shape settled by render_surface, a first round of
+     FRAMES + 1 frames in flight (it pins the host buffers), then one
+     render_surface_async under torch.cuda.set_sync_debug_mode("warn")
+     (any host-device synchronization in a settled call fails, launch
+     counts read), then ROUNDS rounds of FRAMES synchronous frames
+     alternated with ROUNDS rounds of FRAMES frames enqueued back to back
+     and fetched: every frame within 1 u8 step of render_surface's
+     (differing pixels printed), no flag raised; ms/frame of each round,
+     the host ms to enqueue a frame, and each call's host ms split into
+     the renderer's spans (prepare, enqueue, flags, present, read, copy;
+     `Renderer.profiler`); how many launches the host can
+     enqueue behind a busy card before one blocks. Then a scene grown after its
+     class settled (400 discs at 1920x1080 scaled 1 -> 8, the same stream
+     shape): its frame in flight must raise flags on the card, render
+     again inside Frame.result() from the inputs it was enqueued with (the
+     Scene is changed after the enqueue) and equal a fresh renderer's
+     frame (flags_history printed);
+ 11. JELLO_IMAGE_TAP=0 at config 5: the frame through fine_hybrid, its
+     image tiles through kernel G (kernel F must not launch, no flag may
+     stay raised), within 1e-4 of the tap route's frame, area and msaa8;
+     the legacy slots' tapes and record kinds; kernel G on the recorded
+     slab vs its plain version (walk_tapes; <= 1e-5, 0 expected) and timed
+     (wrapper, bare C entry, device us, beside its bound), area and msaa8,
+     and the frame's ms;
+ 12. steady-state ms/frame (median after 2 warm-ups) and the peak device
+     memory those frames allocate, each config's MSAA frames beside its
+     area frame with their kernels a frame, and one profiled frame of
+     each config through Profiler.device_trace and xtrace.attribute:
+     kernels, copies and memsets a frame, busy time, kernel C's kernel a
+     frame, device ms and launches by stage (every stage but path_tiling,
+     which launches nothing, must launch, and the device ms outside them must stay under
+     OUTSIDE_MAX of the busy time), the top call sites and kernel kinds, and the
+     call sites of torch's outer-dimension scans (each must lie in
+     pipeline/); then the rerouted over-minified frame's ms/frame and
+     kernels a render. Kernel times are CUDA-event means over
      repeated calls on the same inputs, the kernel's wrapper beside its
      plain version;
- 10. one JSON line of kernel results, the nvidia-smi line, and the
+ 13. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
      call: the larger of its bytes (each input read once, each output
      written once; for B, G and H only the rows this run's records touch)
@@ -135,9 +167,14 @@ E_TOL = 1e-5  # E, E': end points and segments vs the plain version
 F_TOL = 1e-6
 G_TOL = 1e-4  # G, H vs the plain version, output rows of real slots
 H_TOL = 1e-6  # H vs G
+G_IMG_TOL = 1e-5  # G's image branch vs the plain version at config 5 (0 expected)
 IMG_TOL = 2e-3
 FRAMES = 8
 WARMUP = 2
+ROUNDS = 3  # alternated rounds of synchronous frames and frames in flight
+# Device ms of a profiled frame's launches outside the eight stage spans, as
+# a share of its busy ms (found 0.1-2.1% at configs 1 to 5 on an H100).
+OUTSIDE_MAX = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -196,71 +233,115 @@ def _frame_ms(fn, frames=FRAMES):
     return statistics.median(times), min(times), max(times), peak
 
 
-def _profile(fn, frames=3, count=()):
-    """torch.profiler over `frames` calls of fn: per frame, the kernels
-    launched, the copies and memsets, the device's busy ms (the union of
-    the kernels' intervals), the five kernel names with the most summed
-    time as [(name, ms a frame, launches a frame)], and for each name
-    fragment in `count` the launches a frame of the kernels whose name
-    holds it. The pipeline's record_function spans also come back as
-    device-side events that cover the frame; they carry the name of a
-    host-side event and are left out."""
+def _capture(fn, calls, tries=3):
+    """The `xtrace.attribute` table of the device (ms and launches a call)
+    for `calls` calls of fn, captured by `Profiler.device_trace` (after
+    one warm-up call). torch.profiler can drop a session's device events
+    (seen on an H100 host: none of five launches of one kernel, four of
+    five of another); a capture without any is repeated, up to `tries`
+    sessions, and then raises `NoDeviceEvents`."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    events = list(prof.events())
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in host_names]
-    copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    top = [(name, ms / frames, n / frames) for name, (ms, n) in top]
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    counted = {k: sum(n for name, (_, n) in by_name.items() if k in name) / frames
-               for k in count}
-    return len(spans) / frames, len(copies) / frames, busy_us / 1e3 / frames, top, counted
-
-
-def _device_ops(fn, calls=5, tries=3):
-    """(kernels, memsets and copies) that `calls` calls of fn put on the
-    device, per call, by torch.profiler (after one warm-up call).
-    torch.profiler can drop a session's device events (seen on an H100
-    host: none of ten launches of one kernel, nine of ten of another),
-    which shows as no kernel or as a count that is no whole number a
-    call; such a session is repeated, up to `tries` sessions. A dropped
-    event only lowers a count, so an operation too many still shows."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from jello_tpu_torch.profiler import NoDeviceEvents, Profiler
+    from jello_tpu_torch.xtrace import attribute
 
     fn()
     torch.cuda.synchronize()
+    for i in range(tries):
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                with Profiler().device_trace(d, frames=calls):
+                    for _ in range(calls):
+                        fn()
+                (table,) = attribute(d, calls).values()
+            return table
+        except NoDeviceEvents:
+            if i == tries - 1:
+                raise
+
+
+def _is_copy(kind):
+    return kind.startswith(("Memcpy", "Memset"))
+
+
+def _profile(fn, count=()):
+    """One profiled call of fn (a frame) through `xtrace.attribute`: (kernels
+    launched, copies and memsets, the device's busy ms (the union of the
+    device operations' intervals; the stage spans' own device-side
+    annotations are no device work), the five kernel kinds with the most
+    time as [(kind, ms, launches)], {name fragment in `count`: launches of
+    the kinds that hold it}, the attribution table)."""
+    tab = _capture(fn, 1)
+    kinds = tab["kinds"]
+    n_k = sum(n for k, (_, n) in kinds.items() if not _is_copy(k))
+    n_c = sum(n for k, (_, n) in kinds.items() if _is_copy(k))
+    top = sorted(((k, ms, n) for k, (ms, n) in kinds.items() if not _is_copy(k)),
+                 key=lambda t: -t[1])[:5]
+    counted = {frag: sum(n for k, (_, n) in kinds.items() if frag in k) for frag in count}
+    return n_k, n_c, tab["lines"]["all streams"][1], top, counted, tab
+
+
+def _device_table(fn, calls=5, tries=3):
+    """`_capture` of `calls` calls of fn, or None when no session captured
+    a device event. A session whose counts are no whole number a call
+    (dropped events) is repeated, up to `tries` sessions, and the last
+    one's numbers stand. A dropped event only lowers a count, so an
+    operation too many still shows."""
+    from jello_tpu_torch.profiler import NoDeviceEvents
+
+    tab = None
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
-        n_k, n_c = (len(device) - copies) / calls, copies / calls
-        if n_k >= 1 and n_k == int(n_k) and n_c == int(n_c):
+        try:
+            tab = _capture(fn, calls, 1)
+        except NoDeviceEvents:
+            continue
+        if all(round(n * calls) % calls == 0 for _, (_, n) in tab["kinds"].items()):
             break
-    return n_k, n_c
+    return tab
+
+
+def _device_ops(fn, calls=5):
+    """(kernels, memsets and copies) that a call of fn puts on the device
+    (`_device_table`; (0, 0) when no event was captured)."""
+    tab = _device_table(fn, calls)
+    kinds = tab["kinds"] if tab else {}
+    return (sum(n for k, (_, n) in kinds.items() if not _is_copy(k)),
+            sum(n for k, (_, n) in kinds.items() if _is_copy(k)))
+
+
+def _device_us(fn, n=10):
+    """{device operation: us a launch} of fn (`_device_table` over n calls;
+    empty when no event was captured), by name without its argument list:
+    the mean over the launches captured, which a dropped event does not
+    lower."""
+    tab = _device_table(fn, n)
+    out = {}
+    for _, name, ms, k in tab["ops"] if tab else []:
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+        out[name.split("(")[0].strip()] = ms / k * 1e3
+    return out
+
+
+def _syncs(fn):
+    """(fn's result, the file:line of each host-device synchronization fn
+    made), under torch.cuda.set_sync_debug_mode("warn"), which warns at
+    every synchronizing CUDA call torch makes."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
 
 
 def _ptxas_summary(log):
@@ -467,11 +548,30 @@ def _over_minified_scene(jt):
     return s, jt.RenderParams(width=512, height=512, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
+def _discs(jt, scale):
+    """A 1920x1080 frame of 400 translucent discs under one scale: the
+    stream shape (tags, paths, words) is the same at every scale, the
+    tiles, segments and coverage rows are not (at 8, some 40 times those
+    at 1)."""
+    import numpy as np
+
+    from jello_tpu_torch.scenes import circle
+
+    rng = np.random.default_rng(7)
+    s = jt.Scene()
+    for _ in range(400):
+        x, y, rad = rng.random(3) * [220, 120, 6] + [5, 5, 3]
+        s.fill(jt.Fill.NON_ZERO, jt.Affine.scale(scale),
+               jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.6)), None, circle(x, y, rad))
+    return s, jt.RenderParams(width=1920, height=1080, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
 def main():
     import argparse
     import dataclasses
     import json
     import os
+    import statistics
     import time
 
     import numpy as np
@@ -509,6 +609,9 @@ def main():
         tile_last_record,
     )
     from jello_tpu_torch.cuda.render import Renderer, frame_routing, present
+    from jello_tpu_torch.pipeline.render import STAGES
+    from jello_tpu_torch.profiler import Profiler
+    from jello_tpu_torch.xtrace import OUTSIDE
     from jello_tpu_torch.pipeline import coverage as plain_cov
     from jello_tpu_torch.pipeline import expand as plain_expand
     from jello_tpu_torch.pipeline import fine_interp as plain_int
@@ -518,12 +621,11 @@ def main():
     from jello_tpu_torch.pipeline import render as pipeline_render
     from jello_tpu_torch.pipeline.render import geometry
     from jello_tpu_torch.renderer.params import AaConfig
-    from jello_tpu_torch.scenes import GATE_SCENES
+    from jello_tpu_torch.scenes import GATE_SCENES, circle
     from tools.torch_frame_times import (
         bare_entries,
         bare_interp,
         bare_tap,
-        device_us,
         flat_outputs,
     )
 
@@ -1043,7 +1145,7 @@ def main():
     f_bare_ms = _time_ms(bare_f, 20)
     res["F"] = res["F"] + (f_bare_ms,)
     f_ops = _device_ops(lambda: ktap.tap_records(*f_args))
-    f_us = device_us(bare_f)
+    f_us = _device_us(bare_f)
     print(f"kernel F, config 5: IRC {f_args[0].shape[0]} rows for {n_img} live image records; "
           f"wrapper {res['F'][1]:.4f} ms, the bare C entry {f_bare_ms:.4f} ms; {f_ops[0]:g} "
           f"kernels and {f_ops[1]:g} memsets or copies a wrapper call; device: "
@@ -1341,7 +1443,7 @@ def main():
             if mode == "area":
                 res[name] = res[name] + (b_ms,)
             n_k, n_c = _device_ops(lambda: kint.interpret_tiles(*args, batch, resolved))
-            us = device_us(call)
+            us = _device_us(call)
             print(f"kernel {name}, config 4, {mode}: wrapper {w_ms:.4f} ms, the bare C entry "
                   f"{b_ms:.4f} ms; {n_k:g} kernels and {n_c:g} memsets or copies a wrapper "
                   "call; device: " + ("; ".join(f"{k} {u:.1f} us" for k, u in us.items())
@@ -1412,12 +1514,15 @@ def main():
     }
     def on_path(kernel, name):
         """Whether the run `name` (a config, then maybe the MSAA mode, then
-        maybe b8) must launch `kernel`: each entry of kernel A in its own
-        mode only, F with config 5's atlas, G or H on config 4."""
+        maybe b8; "tap0" for config 5 under JELLO_IMAGE_TAP=0) must launch
+        `kernel`: each entry of kernel A in its own mode only, F with config
+        5's atlas and the tap on, G or H on config 4 and on config 5 with
+        the tap off."""
         config, msaa, b8 = name.split("_")[0], "msaa" in name, name.endswith("b8")
+        tap0 = "tap0" in name
         return {"coverage_area": not msaa, "coverage_msaa": msaa,
-                "image_tap": config == "config5",
-                "fine_interp": config == "config4" and not b8,
+                "image_tap": config == "config5" and not tap0,
+                "fine_interp": (config == "config4" or tap0) and not b8,
                 "fine_interp_b8": b8}.get(kernel, True)
 
     def zero_counts():
@@ -1608,12 +1713,323 @@ def main():
             or ["image_region_overflow: rerouted to fine_ref"] not in cpu.last_retries):
         _fail("the over-minified image frame did not render through the reference fine stage")
 
+    # ---- 10. frames in flight --------------------------------------------
+    # Each scene's shape settled by render_surface (its u8 frame the one
+    # every frame in flight must equal), then one render_surface_async
+    # under the sync debug mode (no host-device synchronization allowed),
+    # then ROUNDS rounds of FRAMES synchronous frames alternated with
+    # ROUNDS rounds of FRAMES frames enqueued back to back and then
+    # fetched, each call's host time split into the renderer's own spans
+    # (`Renderer.profiler`).
+    def run_async(tag, scene, params):
+        want = r.render_surface(scene, params)
+        history = len(r.flags_history)
+
+        def check(px):
+            """Hold a frame's pixels to `want` (keeping no reference to them,
+            which would keep a frame in flight's pinned host buffer)."""
+            d = np.abs(px.astype(np.int32) - want.astype(np.int32)).max(axis=-1)
+            diff[0] = max(diff[0], int(d.max()))
+            diff[1] = max(diff[1], int((d > 0).sum()))
+            diff[2] += 1
+            if px.shape != want.shape or px.dtype != np.uint8:
+                _fail(f"{tag}: a frame of shape {px.shape}, {px.dtype}")
+
+        def sync_round(n):
+            """ms of each of n render_surface frames, each until the card is idle."""
+            out = []
+            for _ in range(n):
+                t1 = time.perf_counter()
+                px = r.render_surface(scene, params)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t1) * 1e3)
+                check(px)
+            return out
+
+        def in_flight(n):
+            """n frames enqueued back to back, then fetched: (host ms of
+            each enqueue, ms a frame). The frames go once fetched, so the
+            next round reuses their pinned host buffers."""
+            torch.cuda.synchronize()
+            enq, frames_n = [], []
+            t0 = time.perf_counter()
+            for _ in range(n):
+                t1 = time.perf_counter()
+                frames_n.append(r.render_surface_async(scene, params))
+                enq.append((time.perf_counter() - t1) * 1e3)
+            for f in frames_n:
+                f.result()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            for f in frames_n:
+                check(f.result())
+                if any(f.flags.values()):
+                    raised.append(f.flags)
+            return enq, ms
+
+        def spans():
+            """{call label: {span: [host ms of each call]}} of the calls
+            since the last read, "total" the whole call."""
+            out = {}
+            for res in r.profiler.collect():
+                parts = out.setdefault(res.label, {})
+                parts.setdefault("total", []).append(res.duration * 1e3)
+                by = {}
+                for c in res.children:
+                    by[c.label] = by.get(c.label, 0.0) + c.duration * 1e3
+                for k, v in by.items():
+                    parts.setdefault(k, []).append(v)
+            return out
+
+        diff, raised = [0, 0, 0], []  # max u8 diff, most differing pixels, frames
+        in_flight(FRAMES + 1)  # pins the host buffers, kept by the caching host allocator
+        zero_counts()
+        first, sites = _syncs(lambda: r.render_surface_async(scene, params))
+        if sites:
+            _fail(f"{tag}: a settled render_surface_async synchronized with the device at "
+                  f"{sites}")
+        check(first.result())
+        del first
+        launches[tag] = read_counts(tag)
+        r.profiler = Profiler()
+        sync_ms, flight_ms, enq, host = [], [], [], {}
+        for _ in range(ROUNDS):
+            sync_ms.append(statistics.median(sync_round(FRAMES)))
+            e, ms = in_flight(FRAMES)
+            enq += e
+            flight_ms.append(ms)
+            for label, parts in spans().items():
+                for k, v in parts.items():
+                    host.setdefault(label, {}).setdefault(k, []).extend(v)
+        r.profiler = None
+        du8, n_diff = diff[:2]
+        split = "; ".join(
+            f"{label} {statistics.median(parts.pop('total')):.3f} (" + ", ".join(
+                f"{k} {statistics.median(v):.3f}" for k, v in parts.items()) + ")"
+            for label, parts in host.items())
+        print(f"{tag}: {diff[2]} frames (render_surface and render_surface_async), max u8 "
+              f"diff vs the first render_surface "
+              f"{du8}, differing pixels {n_diff} (of {want.shape[0] * want.shape[1]}); "
+              f"{ROUNDS} rounds of {FRAMES} frames each way, alternated: ms/frame synchronous "
+              f"{[round(v, 3) for v in sync_ms]} (median {statistics.median(sync_ms):.3f}), in "
+              f"flight {[round(v, 3) for v in flight_ms]} (median "
+              f"{statistics.median(flight_ms):.3f}); host ms to enqueue a frame: median "
+              f"{statistics.median(enq):.3f} (min {min(enq):.3f}, max {max(enq):.3f}); host ms "
+              f"a call by span, medians: {split}; 0 host-device synchronizations in a settled "
+              f"call; on {smi}")
+        if du8 > 1 or raised or len(r.flags_history) != history:
+            _fail(f"{tag}: frames in flight differ from render_surface or raised a flag")
+
+    for name, (scene, params) in scenes.items():
+        run_async(f"{name}_async", scene, params)
+    run_async("config4_msaa8_async", *msaa_frames["config4_msaa8"][:2])
+
+    # How far the host can run ahead: launches enqueued behind a card held
+    # busy (torch.cuda._sleep, ~1 s) before one launch blocks the host.
+    one = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    queued, blocked_ms = 0, 0.0
+    while queued < 50_000:
+        t = time.perf_counter()
+        one.add_(1)
+        blocked_ms = (time.perf_counter() - t) * 1e3
+        if blocked_ms > 2.0:
+            break
+        queued += 1
+    torch.cuda.synchronize()
+    print(f"launch queue: {queued} one-kernel launches enqueued behind a busy card before a "
+          f"launch blocked the host ({blocked_ms:.1f} ms); a frame is ~2,600 launches; on {smi}")
+
+    # A scene grown after its class settled, with the same stream shape:
+    # the frame in flight raises flags on the card, and Frame.result()
+    # renders it again from the inputs it was enqueued with (the Scene is
+    # changed after the enqueue).
+    scene_g, params_g = _discs(jello_tpu_torch, 1.0)
+    r_g = Renderer(device="cuda")
+    r_g.render_surface(scene_g, params_g)
+    grown = _discs(jello_tpu_torch, 8.0)[0]
+    zero_counts()
+    frame_g, sites = _syncs(lambda: r_g.render_surface_async(grown, params_g))
+    if sites:
+        _fail(f"the grown scene's enqueue synchronized with the device at {sites}")
+    grown.fill(jello_tpu_torch.Fill.NON_ZERO, jello_tpu_torch.Affine.identity(),
+               jello_tpu_torch.SolidBrush(jello_tpu_torch.Color.rgba(0, 0, 0, 1)), None,
+               circle(960, 540, 400))
+    got_g = frame_g.result()
+    launches["discs_grown_async"] = read_counts("discs_grown_async")
+    fresh = Renderer(device="cuda")
+    want_g = fresh.render_surface(*_discs(jello_tpu_torch, 8.0))
+    raised_g = sorted(k for k, v in frame_g.flags.items() if v)
+    du8_g = int(np.abs(got_g.astype(np.int32) - want_g.astype(np.int32)).max())
+    print(f"grown scene in flight (400 discs scaled 1 -> 8, 1920x1080): the frame raised "
+          f"{raised_g}; flags_history {r_g.flags_history}; frames run again for "
+          f"{r_g.last_retries}; max u8 diff vs a fresh renderer's frame {du8_g} (the fresh "
+          f"renderer's first render ran again for {fresh.last_retries})")
+    if (not raised_g or r_g.flags_history[:1] != [raised_g] or du8_g > 1
+            or any(r_g.last_flags.values())):
+        _fail("the grown scene was not caught and rendered again in Frame.result()")
+    del scene_g, grown, frame_g, got_g, want_g, r_g, fresh
+
+    # ---- 11. JELLO_IMAGE_TAP=0: config 5's image paints through kernel G --
+    os.environ["JELLO_IMAGE_TAP"] = "0"
+    try:
+        r0 = Renderer(device="cuda")
+    finally:
+        del os.environ["JELLO_IMAGE_TAP"]
+    if r0.use_image_tap:
+        _fail("JELLO_IMAGE_TAP=0 did not turn the image tap off")
+    t = time.perf_counter()
+    r0.render(scene5, params5)
+    print(f"config5_tap0: first render {time.perf_counter() - t:.2f} s, frames run again for "
+          f"{r0.last_retries}")
+    zero_counts()
+    img_t0 = r0.render(scene5, params5)
+    launches["config5_tap0"] = read_counts("config5_tap0")
+    err_t0 = float(np.abs(img_t0 - frames["config5"][0]).max())
+    stats_t0 = dict(r0.last_stats)
+    print(f"config5_tap0: legacy tiles {stats_t0['legacy_tiles']} of legacy_tiles_cap "
+          f"{r0._caps['legacy_tiles_cap']}, cmds_per_tile {r0._caps['cmds_per_tile']}, image "
+          f"records {stats_t0['img_recs']}; max|frame diff| vs the tap route's frame "
+          f"{err_t0:.3e}; flags raised {[k for k, v in r0.last_flags.items() if v]}")
+    if (not err_t0 <= B_TOL or any(r0.last_flags.values())
+            or launches["config5_tap0"]["image_tap"] != 0 or not np.isfinite(img_t0).all()):
+        _fail("config 5 under JELLO_IMAGE_TAP=0 differs from the tap route, raised a flag "
+              "or launched the tap")
+    _, _, (scene_t, layout_t, ramps_t, atlas_t), _ = r0._prepare(scene5, params5)
+    g5 = {}
+    for aa in ("area", "msaa8"):
+        caps = dict(r0._caps, **frame_routing(0, True, 0, aa, image_tap=False))
+        stages = geometry(scene_t, layout_t, caps)[0]
+        out = {}
+        calls_t0 = _record_calls(
+            [(kint, "interpret_tiles")],
+            lambda: out.update(fine=khybrid.fine_hybrid(stages["cmds"], stages["counted"],
+                                                        ramps_t, atlas_t, layout_t, caps)))
+        if any(bool(v) for v in out["fine"][1].values()):
+            _fail(f"config5_tap0, {aa}: the fine stage raised a flag at the calibrated class")
+        g5[aa] = calls_t0["interpret_tiles"][0][:9]
+        del stages, out, calls_t0
+    gi_args = g5["area"]
+    gi_counts, gi_ids, _, gi_slab, gi_rows = gi_args[:5]
+    GRID5 = caps["tile_grid_cap"]
+    real5 = gi_ids < GRID5
+    steps = torch.arange(gi_slab.shape[1], device=gi_slab.device)[None, :] < gi_counts[:-1, None]
+    kinds5 = gi_slab[:, :, 0][steps]
+    lens5 = gi_counts[:-1][real5]
+    print("config5_tap0 legacy-slot tapes: " + ", ".join(
+        f"{label} records {int(((lens5 >= lo) & (lens5 <= hi)).sum())}"
+        for label, lo, hi in (("1", 1, 1), ("2-3", 2, 3), ("4-7", 4, 7), ("8-15", 8, 15),
+                              ("16-31", 16, 31), ("32+", 32, 2**31 - 1)))
+        + f"; {int(real5.sum())} legacy slots of {gi_slab.shape[0]}, longest "
+        f"{int(lens5.max())}; records by kind: " + ", ".join(
+            f"{nm} {int((kinds5 == k).sum())}" for k, nm in (
+                (1, "solid"), (2, "linear"), (3, "radial"), (4, "sweep"), (5, "image"),
+                (6, "BeginClip"), (7, "EndClip"))))
+    gi_res = {}
+    for aa, resolved in (("area", False), ("msaa8", True)):
+        args = g5[aa]
+        got_gi, ovf_gi = kint.interpret_tiles(*args, False, resolved)
+        want_gi, ovf_pi = plain_int.interpret_plain(args[0][:-1], *args[1:], resolved=resolved)
+        torch.cuda.synchronize()
+        err_gi = _max_diff(got_gi[real5], want_gi[real5])
+        print(f"kernel G with images, config5_tap0, {aa}: max|row diff| vs plain {err_gi:.3e}, "
+              f"overflow words equal {torch.equal(ovf_gi, ovf_pi)}, any overflow "
+              f"{bool(ovf_gi.any())}")
+        if (not err_gi <= G_IMG_TOL or not torch.equal(ovf_gi, ovf_pi) or bool(ovf_gi.any())
+                or torch.isnan(got_gi[real5]).any()):
+            _fail(f"kernel G's image branch disagrees with its plain version ({aa})")
+        # Bound, from what this run's tapes make the kernel touch: 64 B a
+        # record walked, 1 KB of coverage for each record with a row, 4 KB
+        # and a word written a slot, counts, ids, stops, the base color and
+        # the atlas once (as F's bound counts it); ~12 float operations a
+        # pixel of a solid record, ~60 of an image record (its four taps
+        # and their blend, as F's), ~14 to composite either.
+        n_walk5 = int(steps.sum())
+        n_rowed5 = int((gi_slab[:, :, 2][steps] > 0).sum())
+        n_img5 = int((kinds5 == 5).sum())
+        gi_bytes = (n_walk5 * 64 + n_rowed5 * 1024 + gi_slab.shape[0] * (4096 + 4)
+                    + _nbytes(args[0], args[1], args[2], args[5], args[6]))
+        gi_bound = _bound(gi_bytes, 256 * (26 * (n_walk5 - n_img5) + 74 * n_img5))
+        w_ms = _time_ms(lambda: kint.interpret_tiles(*args, False, resolved), 20)
+        call, outs = bare_interp(args, False, resolved)
+        call()
+        if not all(torch.equal(a, b) for a, b in zip(outs, (got_gi, ovf_gi))):
+            _fail(f"kernel G's bare C entry differs from its wrapper (config5_tap0, {aa})")
+        b_ms = _time_ms(call, 20)
+        p_ms = _time_ms(lambda: plain_int.interpret_plain(args[0][:-1], *args[1:],
+                                                          resolved=resolved), 2)
+        us = _device_us(call)
+        n_k, n_c = _device_ops(lambda: kint.interpret_tiles(*args, False, resolved))
+        gi_res[aa] = (err_gi, w_ms, p_ms, gi_bound, b_ms)
+        print(f"kernel G with images, config5_tap0, {aa}: {n_walk5} records walked ({n_img5} "
+              f"image), {n_rowed5} read a row, {gi_bytes / 1e6:.1f} MB needed; wrapper "
+              f"{w_ms:.4f} ms, the bare C entry {b_ms:.4f} ms, plain {p_ms:.3f} ms; device: "
+              + ("; ".join(f"{k} {u:.1f} us" for k, u in us.items()) or "no event captured")
+              + f"; bound {gi_bound[0]:.4f} ms by {gi_bound[1]} ({100 * gi_bound[0] / b_ms:.1f}% "
+              f"of the bare entry); {n_k:g} kernels and {n_c:g} memsets or copies a call; "
+              f"on {smi}")
+        if n_k > 1 or n_c > 0:
+            _fail("kernel G: a call puts more than one kernel on the device, or a memset or copy")
+        del got_gi, want_gi, ovf_gi, ovf_pi, call, outs
+    params5_m = msaa_frames["config5_msaa8"][1]
+    img_t0m = r0.render(scene5, params5_m)
+    err_t0m = float(np.abs(img_t0m - msaa_frames["config5_msaa8"][2]).max())
+    if not err_t0m <= B_TOL or any(r0.last_flags.values()):
+        _fail("config 5 under msaa8 and JELLO_IMAGE_TAP=0 differs from the tap route")
+    for tag, prm in (("config5_tap0", params5), ("config5_tap0_msaa8", params5_m)):
+        med, lo, hi, peak = _frame_ms(lambda: r0.render_device(scene5, prm))
+        print(f"{tag}: render_device {med:.3f} ms/frame median of {FRAMES} (min {lo:.3f}, max "
+              f"{hi:.3f}), peak device memory {peak:.1f} MiB; max|frame diff| vs the tap route's "
+              f"{err_t0 if tag == 'config5_tap0' else err_t0m:.3e}; on {smi}")
+    del g5, gi_args, gi_slab, gi_rows, steps, kinds5, img_t0, img_t0m, r0
+    torch.cuda.empty_cache()
+
+    # ---- 12. ms/frame, and where a frame's device time goes ---------------
+    def attribution(tag, tab, med):
+        """Print one profiled frame's attribution (`xtrace.attribute`):
+        device ms and launches by stage (launches outside every stage
+        under their own name), the top 8 call sites, the top 5 kernel
+        kinds, and the call sites of torch's outer-dimension scans. Every
+        stage but path_tiling (which hands path_count's segments on,
+        `pipeline/tiling.py::path_tiling`) must launch, the launches outside the stages must take under
+        OUTSIDE_MAX of the busy time, and every scan launch must come from
+        a call site in pipeline/."""
+        busy = tab["lines"]["all streams"][1]
+        stages = sorted(tab["stages"].items(), key=lambda kv: -kv[1][0])
+        calls = tab["lines"]["host launch calls"]
+        print(f"{tag}: device busy {busy:.3f} ms of the {med:.3f} ms frame "
+              f"({100 * busy / med:.0f}%); the host spent {calls[1]:.3f} ms in {calls[2]:g} "
+              f"CUDA launch, copy and memset calls; by stage: "
+              + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in stages))
+        print(f"{tag}: top call sites: " + "; ".join(
+            f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in
+            sorted(tab["sources"].items(), key=lambda kv: -kv[1][0])[:8]))
+        print(f"{tag}: top kernel kinds: " + "; ".join(
+            f"{k[:70]} {ms:.3f} ms x{n:g}" for k, (ms, n) in
+            sorted(tab["kinds"].items(), key=lambda kv: -kv[1][0])[:5]))
+        scans = sorted(((ms, n, st, src, kind) for (st, src, kind), (ms, n)
+                        in tab["sites"].items() if "scan_outer_dim" in kind), reverse=True)
+        print(f"{tag}: outer-dimension scans, {sum(t[1] for t in scans):g} launches, "
+              f"{sum(t[0] for t in scans):.3f} ms: " + "; ".join(
+                  f"{src} ({st}, {kind.split('::')[-1]}) {ms:.3f} ms x{n:g}"
+                  for ms, n, st, src, kind in scans))
+        quiet = [k for k in STAGES if k != "path_tiling"
+                 and tab["stages"].get(k, (0.0, 0))[1] == 0]
+        outside = tab["stages"].get(OUTSIDE, (0.0, 0))[0]
+        if quiet or not outside <= OUTSIDE_MAX * busy:
+            _fail(f"{tag}: stages without a launch {quiet}; {outside:.3f} of {busy:.3f} busy "
+                  f"ms outside the stages")
+        if any(not src.startswith("pipeline/") for _, _, _, src, _ in scans):
+            _fail(f"{tag}: an outer-dimension scan launch has no call site in pipeline/")
+
     for name, (scene, params) in scenes.items():
         for aa in ("msaa8", "msaa16") if name == "config4" else ("msaa8",):
             params_m = msaa_frames[f"{name}_{aa}"][1]
             med, lo, hi, peak = _frame_ms(lambda: r.render_device(scene, params_m))
+            n_k, n_c = _profile(lambda: r.render_device(scene, params_m))[:2]
             print(f"{name}_{aa}: render_device {med:.3f} ms/frame median of {FRAMES} "
-                  f"(min {lo:.3f}, max {hi:.3f}), peak device memory {peak:.1f} MiB, on {smi}")
+                  f"(min {lo:.3f}, max {hi:.3f}), peak device memory {peak:.1f} MiB; "
+                  f"profiled: {n_k:g} kernels and {n_c:g} copies or memsets a frame; on {smi}")
         for what, fn in (("render_device", r.render_device),
                          ("render_surface", r.render_surface)):
             if name == "config2" and what == "render_surface":
@@ -1623,21 +2039,26 @@ def main():
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
             if what == "render_device":
-                n_k, n_c, busy, top, counted = _profile(lambda: fn(scene, params),
-                                                        count=("land_kernel",))
-                print(f"{name}: profiled {what}: {n_k:.0f} kernels and {n_c:.0f} copies or "
-                      f"memsets a frame, kernel busy {busy:.3f} ms a frame, "
-                      f"{100 * busy / med:.0f}% of the unprofiled median frame; most time in: "
-                      + "; ".join(f"{k[:70]} {ms:.2f} ms x{n:.0f}" for k, ms, n in top)
-                      + f"; kernel C's kernel {counted['land_kernel']:g} a frame for "
-                      f"{launches[name]['monotone_land']} calls")
+                n_k, n_c, busy, top, counted, tab = _profile(lambda: fn(scene, params),
+                                                             count=("land_kernel",))
+                print(f"{name}: profiled {what}: {n_k:g} kernels and {n_c:g} copies or "
+                      f"memsets a frame, kernel C's kernel {counted['land_kernel']:g} a frame "
+                      f"for {launches[name]['monotone_land']} calls")
+                attribution(name, tab, med)
+    # The over-minified frame, rerouted to the reference fine stage on
+    # every render (its first frame raises image_region_overflow).
+    med, lo, hi, peak = _frame_ms(lambda: r_o.render_device(scene_o, params_o))
+    n_k, n_c, busy, _, _, tab = _profile(lambda: r_o.render_device(scene_o, params_o))
+    print(f"over-minified image (rerouted): render_device {med:.3f} ms/frame median of {FRAMES} "
+          f"(min {lo:.3f}, max {hi:.3f}), two frames a render; profiled: {n_k:g} kernels and "
+          f"{n_c:g} copies or memsets a render, busy {busy:.3f} ms; on {smi}")
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jello_tpu")]
     if loaded:
         _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
-    # ---- 10. results -----------------------------------------------------
+    # ---- 13. results -----------------------------------------------------
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, bare_ms=None,
               counter=None, configs=None):
         """One kernel's line; its launches are the main path's, summed over

@@ -187,3 +187,14 @@ def stream_of(t) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def host_to_device(t, device):
+    """A host tensor on `device`. A CUDA copy goes from pinned memory and
+    does not make the host wait for the queue (a pageable copy would)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

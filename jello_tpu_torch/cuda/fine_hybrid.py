@@ -136,7 +136,9 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
     ranks = ops.gather_guarded(tile2rank, torch.clamp(legacy_ids, 0, GRID - 1))
     live = (legacy_ids < GRID) & (ranks >= 0)
     row0 = torch.where(live[0], ranks[0], 0)
-    val0 = torch.where(live[0], legacy_out[0], compact[row0.long()])
+    # (index_select: indexing with a 0-dim device index reads it to the host.)
+    val0 = torch.where(live[0], legacy_out[0],
+                       compact.index_select(0, row0.long().reshape(1))[0])
     compact.index_copy_(0, torch.where(live, ranks, row0).long(),
                         torch.where(live[:, None, None], legacy_out, val0))
     return (compact, tile2rank), flags

@@ -71,7 +71,7 @@ from ..pipeline.image_tap import image_tap
 from ..pipeline.ops import F32, I32
 from ..pipeline.paint import gradient_fg
 from ..pmath import rdiv
-from .build import check, check_tensor, kernels, stream_of
+from .build import check, check_tensor, host_to_device, kernels, stream_of
 from .coverage import compute_area_rows
 
 
@@ -246,8 +246,8 @@ def assemble_compact(compact, tile2rank, ld):
     H = int(ld["target_height"])
     base = np.asarray(ld["base_color"], dtype=np.float32)
     ba = max(float(base[3]), 1e-6)
-    base_un = torch.tensor([base[0] / ba, base[1] / ba, base[2] / ba, base[3]],
-                           dtype=F32, device=compact.device)
+    base_un = host_to_device(torch.tensor([base[0] / ba, base[1] / ba, base[2] / ba, base[3]],
+                                          dtype=F32), compact.device)
     rank = tile2rank[: wit * hit]
     rows = compact[torch.clamp(rank, 0, compact.shape[0] - 1).long()]
     rows = torch.where((rank >= 0)[:, None, None], rows, base_un[None, :, None])

@@ -7,8 +7,18 @@ capacity class, and capacities are calibrated from the device's own
 run: the first frame of a scene shape runs at the estimated class with
 its exact counters, `calibrate_caps` shrinks the class, and the frame
 runs again (the protocol of `tpu/render.py:445-461`). Overflow flags
-grow the implicated capacities (`grow_caps`) and retry. Flags are read
-on every frame.
+grow the implicated capacities (`grow_caps`) and retry. A frame's flags
+and stats come back packed in one int32 vector (`pack_flags`, as
+`tpu/render.py:114-121` packs them) and are read to the host once a
+frame by `render`, `render_surface` and `render_device`, or kept on the
+device by `render_device(check_flags=False)` until `read_flags()`.
+
+Frames in flight (`render_surface_async`, `Frame`; `tpu/render.py:162-190,
+526-547`): once a scene shape is settled, a frame is only enqueued, and
+its pixels and packed flags come back in one asynchronous copy. Unlike
+jello_tpu, whose settled async frames read no flag, `Frame.result()`
+reads the frame's flags with its pixels, and on a raised flag grows the
+class and renders that frame again from the inputs it was enqueued with.
 
 Every single-device frame jello_tpu renders: fills and strokes with
 solid, gradient and image paints, clip layers and blend groups, under
@@ -21,11 +31,14 @@ per-tile interpreter). A frame whose image minifies past the region
 windows of the tap or of the interpreter raises `image_region_overflow`
 and runs again through the reference fine stage (`pipeline/fine_ref.py`,
 plain torch on any device), as jello_tpu reroutes it
-(`tpu/render.py:428-434`).
+(`tpu/render.py:428-434`). Under JELLO_IMAGE_TAP=0 (jello_tpu's kill
+switch, `tpu/render.py:58-65`) image paints skip the tap: a clip-free
+frame with images takes `fine_hybrid`, its image tiles the interpreter.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -46,6 +59,7 @@ from ..renderer.estimate import (
 )
 from ..renderer.params import RenderParams
 from ..renderer.resolve import Resolver
+from .build import host_to_device
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
 
@@ -73,22 +87,24 @@ def upload_atlas(atlas, device):
     no atlas."""
     if atlas is None:
         return None
-    return torch.from_numpy(atlas_planar(atlas)).to(torch.device(device))
+    return host_to_device(torch.from_numpy(atlas_planar(atlas)), device)
 
 
 def upload(scene_u32, ld, ramps, caps, device):
     """The inputs `jello_tpu` feeds `render_frame`, as torch inputs on
-    `device`: scene words as int32 bit patterns, the layout's integer
-    fields as host ints plus `base_color` as a f32 [4] tensor, the stop
-    table as f32. The atlas goes through `upload_atlas`.
+    `device` (copied without a host wait): scene words as int32 bit
+    patterns, the layout's integer fields as host ints plus `base_color`
+    as a f32 [4] tensor, the stop table as f32. The atlas goes through
+    `upload_atlas`.
     Returns (scene, layout, ramps, caps)."""
     device = torch.device(device)
     scene = torch.from_numpy(np.asarray(scene_u32, dtype=np.uint32).view(np.int32).copy())
     layout = {k: int(v) for k, v in ld.items() if k != "base_color"}
-    layout["base_color"] = torch.tensor(np.asarray(ld["base_color"], dtype=np.float32),
-                                        device=device)
+    layout["base_color"] = host_to_device(
+        torch.from_numpy(np.asarray(ld["base_color"], dtype=np.float32)), device)
     ramps_t = torch.from_numpy(np.ascontiguousarray(ramps, dtype=np.float32))
-    return scene.to(device), layout, ramps_t.to(device), dict(caps)
+    return (host_to_device(scene, device), layout, host_to_device(ramps_t, device),
+            dict(caps))
 
 
 def clip_nesting_depth(scene_u32, layout) -> int:
@@ -101,27 +117,51 @@ def clip_nesting_depth(scene_u32, layout) -> int:
 
 
 def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
-                  aa_mode: str = "area") -> dict:
+                  aa_mode: str = "area", image_tap: bool = True) -> dict:
     """jello_tpu's routing on its accelerator (`tpu/render.py:332-365`),
     set per frame and never kept in the class that calibrate_caps and
     grow_caps see: the antialiasing mode ("area", "msaa8", "msaa16"), read
     by the coverage and fine stages; the streaming expansions (kernels C,
     D, E) always; for
-    a scene with an atlas the image tap (kernel F); for a clip-free frame
-    the dense coarse branch, and with it the record-stream fine stage
-    alone (a frame with clip layers takes `fine_hybrid`); the 8-tile
+    a scene with an atlas the image tap (kernel F) unless `image_tap` is
+    off (JELLO_IMAGE_TAP=0); for a clip-free frame the dense coarse
+    branch; the 8-tile
     interpreter (kernel H) under JELLO_INTERP_BATCH=1, the reference's own
     switch. `clip_depth_cap` is the scene's own nesting depth."""
     routing = {"_expand_pallas": True, "aa_mode": aa_mode}
-    if has_atlas:
+    if has_atlas and image_tap:
         routing["_image_tap"] = True
     if n_clips == 0:
         routing["_coarse_dense"] = True
     else:
         routing["clip_depth_cap"] = max(int(clip_depth), 1)
-        if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
-            routing["_interp_batch"] = True
+    if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
+        routing["_interp_batch"] = True
     return routing
+
+
+def pack_flags(flags: dict, stats: dict):
+    """A frame's flags and stats as one int32 vector on their device,
+    flags then stats, each in sorted key order (`tpu/render.py:114-121`).
+    Returns (packed, flag keys, stat keys)."""
+    fkeys, skeys = sorted(flags), sorted(stats)
+    packed = torch.stack([flags[k].to(torch.int32).reshape(()) for k in fkeys]
+                         + [stats[k].to(torch.int32).reshape(()) for k in skeys])
+    return packed, fkeys, skeys
+
+
+def unpack_flags(values, fkeys, skeys):
+    """Host values of a `pack_flags` vector (a sequence of ints) ->
+    (flags {name: bool}, stats {name: int})."""
+    values = [int(v) for v in values]
+    return ({k: bool(v) for k, v in zip(fkeys, values)},
+            dict(zip(skeys, values[len(fkeys):])))
+
+
+def fetch_flags(packed, fkeys, skeys):
+    """Read a `pack_flags` vector to the host (one copy; the host waits
+    for the frame) -> (flags, stats)."""
+    return unpack_flags(packed.cpu().tolist(), fkeys, skeys)
 
 
 def assemble(fine_out, ld):
@@ -167,13 +207,35 @@ class Renderer:
         self._caps = None
         self._est_key = None
         self._calib_key = None
+        # The stream shape whose class the last checked frame found clean:
+        # its async frames are only enqueued.
+        self._settled_key = None
         self._frame = None
-        self.last_flags: dict = {}
-        self.last_stats: dict = {}
+        # A `Profiler` (jello_tpu_torch.profiler): each render_surface and
+        # render_surface_async call is a group of it, with host spans for
+        # its parts (prepare, enqueue, flags, present, read, copy).
+        self.profiler = None
+        self._group = None
+        # jello_tpu's kill switch for the image tap (`tpu/render.py:58-65`),
+        # read once: with JELLO_IMAGE_TAP=0 image paints take the
+        # interpreter (kernel G).
+        self.use_image_tap = os.environ.get("JELLO_IMAGE_TAP", "1") != "0"
+        # None after a frame whose flags were not read (check_flags=False
+        # or an async frame): such a frame is never reported clean.
+        self.last_flags: dict | None = {}
+        self.last_stats: dict | None = {}
         # What made each frame of the last render run again: the raised
         # flags of a grown class, ["calibrated"], or the reroute of an
         # `image_region_overflow` frame to the reference fine stage.
         self.last_retries: list = []
+        # The raised flags of every frame that raised one, in order
+        # (`tpu/render.py:421-427`).
+        self.flags_history: list = []
+        # The packed flags and stats of every frame rendered with
+        # check_flags=False since the last `read_flags()`, on the device:
+        # {(flag keys, stat keys): packed}, the frames of one key set merged
+        # by their maximum (a flag raised by any of them stays raised).
+        self.unread_flags: dict = {}
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
@@ -184,83 +246,284 @@ class Renderer:
                        srgb: bool = True, max_retries: int = 4) -> np.ndarray:
         """Render to u8 [H, W, 4] surface pixels; assembly, premultiply,
         sRGB and quantization run on the device."""
-        fine_out, ld = self.render_device(scene, params, max_retries)
-        return present(assemble(fine_out, ld), premul, srgb).cpu().numpy()
+        with self._call("render_surface"):
+            fine_out, ld = self.render_device(scene, params, max_retries)
+            with self._span("present"):
+                u8 = present(assemble(fine_out, ld), premul, srgb)
+            with self._span("read"):
+                return u8.cpu().numpy()
+
+    def render_surface_async(self, scene, params: RenderParams, premul: bool = True,
+                             srgb: bool = True, max_retries: int = 4) -> "Frame":
+        """Enqueue a frame and return a `Frame` in flight: the host can
+        encode frame N+1 while frame N renders (`tpu/render.py:162-190`).
+
+        The first render of a scene shape settles its class as
+        `render_surface` does (blocking, with retry, grow and calibrate).
+        After that a call only enqueues: the frame, its present, and one
+        asynchronous copy of the u8 surface and the packed flags into
+        pinned host memory. The flags are read by `Frame.result()`."""
+        with self._call("render_surface_async"):
+            prepared = self._prepare(scene, params)
+            unread = None
+            if self._settled_key == prepared[0] == self._est_key:
+                fine_out, unread = self._enqueue(prepared, params, self._caps)
+                self.last_flags = self.last_stats = None
+                self.last_retries = []
+            else:
+                fine_out = self._render_checked(prepared, params, max_retries)
+            with self._span("present"):
+                u8 = present(assemble(fine_out, prepared[1]), premul, srgb)
+            with self._span("copy"):
+                return Frame(self, prepared, params, dict(self._caps),
+                             (premul, srgb, max_retries), u8, unread, self.last_flags)
+
+    @contextlib.contextmanager
+    def _call(self, label):
+        """One call as a group of `profiler` (nothing without one), whose
+        parts `_span` times."""
+        if self.profiler is None:
+            yield
+            return
+        self._group = self.profiler.start(label)
+        try:
+            yield
+        finally:
+            self._group.end()
+            self._group = None
+
+    def _span(self, label):
+        """A host span of the current `_call` group (none without one)."""
+        return contextlib.nullcontext() if self._group is None else self._group.nest(label)
 
     def _prepare(self, scene, params):
         """Resolve and upload (cached per scene revision and params)."""
-        rev = getattr(scene, "_rev", None)
-        key = None
-        if rev is not None:
-            key = (id(scene), rev, params.width, params.height,
-                   params.antialiasing_method.value, params.base_color)
-            if self._frame is not None and self._frame[0] == key:
-                return self._frame[2]
-        enc = scene.encoding if hasattr(scene, "encoding") else scene
-        layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
-        ld = build_layout_dict(layout, params)
-        est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
-                   params.width, params.height)
-        if self._est_key != est_key:
-            # A new stream shape starts from its own estimate, as
-            # jello_tpu's host calibration does: the class settled (or
-            # grown) for the previous shape says nothing about this one.
-            self._caps = estimate_caps_from_scene(
-                scene_u32, layout, params.width, params.height)
-            self._est_key = est_key
-        inputs = upload(scene_u32, ld, stops_table_or_empty(ramps), {}, self.device)[:3]
-        inputs += (upload_atlas(build_image_atlas(images), self.device),)
-        frame = (est_key, ld, inputs, clip_nesting_depth(scene_u32, layout))
-        if key is not None:
-            # Hold the scene so its id() stays unique while cached.
-            self._frame = (key, scene, frame)
-        return frame
+        with self._span("prepare"):
+            rev = getattr(scene, "_rev", None)
+            key = None
+            if rev is not None:
+                key = (id(scene), rev, params.width, params.height,
+                       params.antialiasing_method.value, params.base_color)
+                if self._frame is not None and self._frame[0] == key:
+                    return self._frame[2]
+            enc = scene.encoding if hasattr(scene, "encoding") else scene
+            layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
+            ld = build_layout_dict(layout, params)
+            est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
+                       params.width, params.height)
+            if self._est_key != est_key:
+                # A new stream shape starts from its own estimate, as
+                # jello_tpu's host calibration does: the class settled (or
+                # grown) for the previous shape says nothing about this one.
+                self._caps = estimate_caps_from_scene(
+                    scene_u32, layout, params.width, params.height)
+                self._est_key = est_key
+            inputs = upload(scene_u32, ld, stops_table_or_empty(ramps), {}, self.device)[:3]
+            inputs += (upload_atlas(build_image_atlas(images), self.device),)
+            frame = (est_key, ld, inputs, clip_nesting_depth(scene_u32, layout))
+            if key is not None:
+                # Hold the scene so its id() stays unique while cached.
+                self._frame = (key, scene, frame)
+            return frame
 
-    def render_device(self, scene, params: RenderParams, max_retries: int = 4):
-        """Render and return (the fine output on the device, ld): (compact,
-        tile2rank), or the dense [4, GRID, 256] of a frame that was rerouted
-        to the reference fine stage (`assemble` takes either)."""
-        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t), clip_depth = self._prepare(
-            scene, params)
-        routing = frame_routing(layout_t["n_clips"], atlas_t is not None, clip_depth,
-                                params.antialiasing_method.value)
-        fine_impl = fine_v2 if routing.get("_coarse_dense") else fine_hybrid
-        calibrated = self._calib_key == est_key
+    def _enqueue(self, prepared, params, caps, reroute=False):
+        """Enqueue one frame of `prepared` at the class `caps`: (fine
+        output, (packed flags and stats, flag keys, stat keys)), nothing
+        read. `reroute` takes the reference fine stage."""
+        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t), clip_depth = prepared
+        has_atlas = atlas_t is not None
+        routing = frame_routing(layout_t["n_clips"], has_atlas, clip_depth,
+                                params.antialiasing_method.value, self.use_image_tap)
+        # The record-stream stage alone takes a clip-free frame whose images,
+        # if any, ride the tap; any other frame the hybrid (kernel B and the
+        # interpreter; `tpu/render.py:342-351`).
+        alone = routing.get("_coarse_dense") and routing.get("_image_tap", not has_atlas)
+        fine_impl = None if reroute else fine_v2 if alone else fine_hybrid
+        with self._span("enqueue"):
+            fine_out, flags_t, stats_t = render_frame(
+                scene_t, layout_t, ramps_t, atlas_t, dict(caps, **routing), fine_impl)
+            return fine_out, pack_flags(flags_t, stats_t)
+
+    def _render_checked(self, prepared, params, max_retries, caps=None):
+        """Render `prepared`, reading each frame's flags: grow and retry
+        on a raised flag, reroute an `image_region_overflow` frame to the
+        reference fine stage, calibrate a new shape's class once.
+
+        `caps` None renders at the renderer's class, which the call grows,
+        calibrates and, once a frame is clean, settles; a class given (a
+        frame of a shape the renderer has left since) is grown for this
+        call only. Returns the fine output of the first clean frame;
+        raises if flags are still raised after `max_retries`."""
+        est_key = prepared[0]
+        own = caps is None
+        if own:
+            caps = self._caps
+        calibrated = not own or self._calib_key == est_key
+        reroute = False
         flags = {}
         self.last_retries = []
         for _ in range(max_retries + 2):
-            fine_out, flags_t, stats_t = render_frame(
-                scene_t, layout_t, ramps_t, atlas_t, dict(self._caps, **routing), fine_impl)
-            fkeys, skeys = sorted(flags_t), sorted(stats_t)
-            vals = torch.stack([flags_t[k].to(torch.int64).reshape(()) for k in fkeys]
-                               + [stats_t[k].to(torch.int64).reshape(()) for k in skeys]).cpu()
-            flags = {k: bool(v) for k, v in zip(fkeys, vals[:len(fkeys)].tolist())}
-            stats = {k: int(v) for k, v in zip(skeys, vals[len(fkeys):].tolist())}
+            fine_out, packed = self._enqueue(prepared, params, caps, reroute)
+            with self._span("flags"):
+                flags, stats = fetch_flags(*packed)
             self.last_flags, self.last_stats = flags, stats
+            raised = sorted(k for k, v in flags.items() if v)
+            if raised:
+                self.flags_history.append(raised)
             if flags.get("image_region_overflow"):
                 # No capacity to grow: the frame runs again through the
                 # reference fine stage, as jello_tpu reroutes it
                 # (`tpu/render.py:428-434`). The decision lives in this
-                # call's `fine_impl` only (None: `render_frame` takes
-                # `fine_ref.fine`), never in the kept class.
+                # call only (`render_frame` takes `fine_ref.fine`), never
+                # in the kept class.
                 self.last_retries.append(["image_region_overflow: rerouted to fine_ref"])
-                fine_impl = None
+                reroute = True
                 continue
-            if any(flags.values()):
-                self.last_retries.append(sorted(k for k, v in flags.items() if v))
-                self._caps = grow_caps(self._caps, flags)
+            if raised:
+                self.last_retries.append(raised)
+                caps = grow_caps(caps, flags)
+                if own:
+                    self._caps = caps
                 continue
             if not calibrated:
                 calibrated = True
                 self._calib_key = est_key
-                new_caps = calibrate_caps(self._caps, stats)
-                if caps_shrank(new_caps, self._caps):
+                new_caps = calibrate_caps(caps, stats)
+                if caps_shrank(new_caps, caps):
                     self.last_retries.append(["calibrated"])
-                    self._caps = new_caps
+                    caps = self._caps = new_caps
                     continue
             break
         if any(flags.values()):
             raise RuntimeError(
                 f"render overflowed after {max_retries} retries; flags still raised: "
                 f"{[k for k, v in flags.items() if v]}")
-        return fine_out, ld
+        if own:
+            self._settled_key = est_key
+        return fine_out
+
+    def render_device(self, scene, params: RenderParams, max_retries: int = 4,
+                      check_flags: bool = True):
+        """Render and return (the fine output on the device, ld): (compact,
+        tile2rank), or the dense [4, GRID, 256] of a frame that was rerouted
+        to the reference fine stage (`assemble` takes either).
+
+        check_flags=False renders one frame at the current class and reads
+        nothing to the host (`tpu/render.py:247,406-408`): the frame's
+        packed flags stay on the device in `unread_flags` (merged with
+        those of the other unread frames), `last_flags` is None, and
+        `read_flags()` reads them."""
+        prepared = self._prepare(scene, params)
+        if check_flags:
+            return self._render_checked(prepared, params, max_retries), prepared[1]
+        fine_out, (packed, fkeys, skeys) = self._enqueue(prepared, params, self._caps)
+        keys = (tuple(fkeys), tuple(skeys))
+        kept = self.unread_flags.get(keys)
+        self.unread_flags[keys] = packed if kept is None else torch.maximum(kept, packed)
+        self.last_flags = self.last_stats = None
+        self.last_retries = []
+        return fine_out, prepared[1]
+
+    def read_flags(self) -> dict:
+        """Read the flags of every frame rendered with check_flags=False
+        since the last read to the host (the host waits for them): sets
+        `last_flags` (a flag raised by any of those frames is raised) and
+        `last_stats` (each the largest), records raised flags in
+        `flags_history`, and returns the flags."""
+        if not self.unread_flags:
+            raise RuntimeError("read_flags: no frame rendered with check_flags=False is unread")
+        flags, stats = {}, {}
+        for (fkeys, skeys), packed in self.unread_flags.items():
+            f, s = fetch_flags(packed, fkeys, skeys)
+            raised = sorted(k for k, v in f.items() if v)
+            if raised:
+                self.flags_history.append(raised)
+            for k, v in f.items():
+                flags[k] = flags.get(k, False) or v
+            for k, v in s.items():
+                stats[k] = max(stats.get(k, v), v)
+        self.unread_flags = {}
+        self.last_flags, self.last_stats = flags, stats
+        return flags
+
+    def _render_again(self, prepared, params, caps, flags, max_retries):
+        """An enqueued frame came back with `flags` raised at the class
+        `caps`: render it again, checked, from the same inputs. For the
+        shape the renderer holds, its class is grown if it is still the
+        frame's (an earlier frame in flight, or a checked render, may
+        have moved it since); a frame of a shape the renderer has left
+        grows its own class for this call only. Returns the fine output."""
+        raised = sorted(k for k, v in flags.items() if v)
+        self.flags_history.append(raised)
+        if prepared[0] != self._est_key:
+            fine_out = self._render_checked(prepared, params, max_retries,
+                                            grow_caps(caps, flags))
+        else:
+            if self._caps == caps:
+                self._caps = grow_caps(caps, flags)
+            fine_out = self._render_checked(prepared, params, max_retries)
+        self.last_retries.insert(0, raised)
+        return fine_out
+
+
+class Frame:
+    """A frame in flight, from `Renderer.render_surface_async`: its u8
+    surface pixels and packed flags in one device buffer, copied to pinned
+    host memory behind a CUDA event (`tpu/render.py:526-547`; on the CPU
+    the frame is done when enqueued). `ready()` polls without blocking;
+    `result()` waits, reads the flags and, if one is raised, grows the
+    class and renders the frame again from the inputs it was enqueued with
+    (not from the Scene, which the caller may have changed since)."""
+
+    def __init__(self, renderer, prepared, params, caps, present_args, u8, unread, flags):
+        self._renderer = renderer
+        self._prepared = prepared
+        self._params = params
+        self._caps = caps
+        self._present_args = present_args
+        self._shape = tuple(u8.shape)
+        self._n = u8.numel()
+        self._keys = None
+        parts = [u8.reshape(-1)]
+        if unread is not None:
+            packed, fkeys, skeys = unread
+            parts.append(packed.view(torch.uint8))
+            self._keys = (fkeys, skeys)
+        buf = torch.cat(parts)
+        self._event = None
+        if buf.is_cuda:
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            buf = host
+        self._host = buf
+        self._pixels = None
+        # The frame's flags: read when the frame was rendered checked (the
+        # first of a shape), else None until `result()` reads them.
+        self.flags = flags
+
+    def ready(self) -> bool:
+        """Whether `result()` would not wait."""
+        return self._pixels is not None or self._event is None or self._event.query()
+
+    def result(self) -> np.ndarray:
+        """The frame's u8 [H, W, 4] surface pixels on the host."""
+        if self._pixels is not None:
+            return self._pixels
+        if self._event is not None:
+            self._event.synchronize()
+        pixels = self._host[:self._n].view(self._shape).numpy()
+        if self._keys is not None:
+            flags, _ = unpack_flags(self._host[self._n:].view(torch.int32).tolist(),
+                                    *self._keys)
+            self.flags = flags
+            if any(flags.values()):
+                r = self._renderer
+                premul, srgb, max_retries = self._present_args
+                fine_out = r._render_again(self._prepared, self._params, self._caps, flags,
+                                           max_retries)
+                pixels = present(assemble(fine_out, self._prepared[1]), premul,
+                                 srgb).cpu().numpy()
+        self._pixels = pixels
+        return pixels

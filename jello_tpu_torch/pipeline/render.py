@@ -8,28 +8,33 @@ overflow through a 0-dim flag instead of failing, and the renderer
 re-renders with a larger class.
 
 Stage order: flatten -> draw_leaf -> clip_leaf -> binning
-+ tile_alloc -> path_count -> path_tiling -> coarse -> fine.
++ tile_alloc -> path_count -> path_tiling -> coarse -> fine, each in a
+`profiler.named_scope` span of its name (`STAGES`).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..encoding.draw import DRAW_TAG_NOP
+from ..profiler import named_scope
 
 from . import clips, coarse, drawobjs, fine_ref, flatten, ops, tiling
+
+# The stage spans of a frame, in order (`xtrace.attribute` reads them).
+STAGES = ("flatten", "draw_leaf", "clip_leaf", "tile_alloc", "path_count", "path_tiling",
+          "coarse", "fine")
 
 
 def geometry(scene, layout, caps):
     """Every stage before fine. Returns (stages dict with fl, dm, info,
     paths, counted, segs, cmds; flags; stats), flags and stats as 0-dim
     device tensors."""
-    with record_function("flatten"):
+    with named_scope("flatten"):
         fl = flatten.flatten_stage(scene, layout, caps)
 
     D = caps["n_draws_cap"]
-    with record_function("draw_leaf"):
+    with named_scope("draw_leaf"):
         i = ops.iota(D, scene.device)
         tag = torch.where(i < layout["n_draw_objects"],
                           ops.gather_guarded(scene, layout["draw_tag_base"] + i),
@@ -37,7 +42,7 @@ def geometry(scene, layout, caps):
         dm = drawobjs.draw_monoid_scan(tag)
         info, clip_idx_arr, clip_path_arr = drawobjs.draw_leaf(
             scene, layout, dm, fl["path_trans_idx"], fl["path_draw_flags"], caps, tag)
-    with record_function("clip_leaf"):
+    with named_scope("clip_leaf"):
         clip_bboxes, dm_path, dm_scene = clips.clip_leaf_vectorized(
             clip_idx_arr, clip_path_arr, fl["path_bbox"], dm["path_idx"],
             dm["scene_offset"], layout, caps)
@@ -48,14 +53,14 @@ def geometry(scene, layout, caps):
     sc4 = ops.gather_guarded(scene, torch.cat([dd + k for k in range(4)])).reshape(4, D)
     dtab = torch.cat([sc4.t(), info[:, 1:10]], dim=1)
 
-    with record_function("tile_alloc"):
+    with named_scope("tile_alloc"):
         draw_bbox = coarse.binning_bboxes(dm, fl["path_bbox"], clip_bboxes)
         paths = tiling.tile_alloc(draw_bbox, tag, layout, caps)
-    with record_function("path_count"):
+    with named_scope("path_count"):
         counted = tiling.path_count(fl, paths, caps)
-    with record_function("path_tiling"):
+    with named_scope("path_tiling"):
         segs = tiling.path_tiling(fl, counted, caps)
-    with record_function("coarse"):
+    with named_scope("coarse"):
         cmds = coarse.build_commands(layout, dm, tag, dtab, draw_bbox, paths, counted,
                                      fl["path_draw_flags"], caps)
         cmds["dtab"] = dtab
@@ -113,7 +118,7 @@ def render_frame(scene, layout, ramps, atlas, caps, fine_impl):
     `blend_depth_overflow` its only flag).
     Returns (fine_out, flags, stats)."""
     stages, flags, stats = geometry(scene, layout, caps)
-    with record_function("fine"):
+    with named_scope("fine"):
         if fine_impl is None:
             fine_out, depth_overflow = fine_ref.fine(stages["cmds"], stages["segs"], ramps,
                                                      atlas, layout, caps)

@@ -219,7 +219,7 @@ def path_count(lines, paths, caps):
 
     # Backdrop row deltas (column 0 of each path row).
     r_rec, r_within, r_valid, _, r_total = expand_by_counts(n_rows_per_line, RC)
-    PR = ops.gather_guarded(P[:, ROW_COLS], r_rec)
+    PR = ops.gather_guarded(row_table(P), r_rec)
     r_slot, r_delta = backdrop_rows(PR, r_within, r_valid, T)
     backdrop = ops.scatter_add(zeros_t1, r_slot, r_delta)
 
@@ -241,6 +241,15 @@ def path_count(lines, paths, caps):
 # Columns of the P table that the backdrop-row expansion reads: ymin,
 # tiles_base, bb1, stride, delta (jello_tpu's PRT table).
 ROW_COLS = [13, 10, 7, 9, 12]
+
+
+def row_table(P):
+    """P's ROW_COLS columns, [L, 5]. Taken column by column: indexing with
+    the list copies it to the device, which makes the host wait for the
+    queue."""
+    return torch.stack([P[:, c] for c in ROW_COLS], dim=1)
+
+
 SEG_KEYS = ("seg_x0", "seg_y0", "seg_x1", "seg_y1", "seg_y_edge")
 
 
@@ -329,7 +338,7 @@ def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
     # (ROADMAP queue 3 rule 5); jello_tpu's kernel reads it as float32.
     Pc = ops.gather_guarded(P, idx_c)
     ncc = torch.where(ops.iota(LCC, dev) < n_nz_c, ops.gather_guarded(n_cross, idx_c), 0)
-    PRTc = ops.gather_guarded(P[:, ROW_COLS], idx_r)
+    PRTc = ops.gather_guarded(row_table(P), idx_r)
     nrr = torch.where(ops.iota(RLC, dev) < n_nz_r,
                       ops.gather_guarded(n_rows_per_line, idx_r), 0)
 

@@ -54,6 +54,7 @@ from .torch_reference import (
     prepare_with_atlas,
     random_tap_records,
     row_inputs,
+    solid_image_slab,
 )
 
 pytestmark = pytest.mark.cuda
@@ -625,6 +626,31 @@ def test_torch_interpreter_kernels_deep_tapes(cuda, depth):
     assert not torch.isnan(got_g).any()
     assert (premul(got_g) - premul(want)).abs().max().item() <= 1e-5
     assert (premul(got_h) - premul(got_g)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_torch_interpreter_kernel_image_branch_matches_plain(cuda, seed):
+    """Kernel G's image branch on tapes of solid and image records with no
+    clip pair (the legacy tiles of a clip-free image frame under
+    JELLO_IMAGE_TAP=0): premultiplied rows within 1e-5 of the plain
+    version (`walk_tapes`), overflow words equal; images sample the atlas
+    and the largest minifications raise the region bit in both."""
+    h = solid_image_slab(seed)
+    args = interpret_args(h, cuda)
+    got, ovf = kint.interpret_tiles(*args)
+    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
+    no_atlas, _ = plain_int.interpret_plain(args[0][:-1], *args[1:6], None, *args[7:])
+    torch.cuda.synchronize()
+
+    def premul(o):
+        return torch.cat([o[:, :3] * o[:, 3:4], o[:, 3:4]], dim=1)
+
+    kinds = h["slab"][:, :, 0][np.arange(h["slab"].shape[1]) < h["counts"][:, None]]
+    assert (kinds == 5).sum() > 100 and (kinds == 1).sum() > 100
+    assert torch.equal(ovf, ovf_p) and bool((ovf != 0).any()) and bool((ovf == 0).any())
+    assert not torch.isnan(got).any()
+    assert (premul(got) - premul(want)).abs().max().item() <= 1e-5
+    assert (premul(want) - premul(no_atlas)).abs().max().item() > 1e-2
 
 
 def test_torch_interpreter_kernels_resolved_match_plain(cuda):

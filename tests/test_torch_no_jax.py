@@ -1,7 +1,8 @@
 """jello_tpu_torch imports neither JAX nor anything of jello_tpu: with
 `jax` and `jello_tpu` both blocked in sys.modules, the port imports and
 renders config 1, a small image-plus-stroke scene and a scene with
-nested blend layers on the CPU. The
+nested blend layers on the CPU (and imports the profiler and the trace
+parser). The
 comparison with the oracle runs in this process, which may import
 jello_tpu, on the image the blocked process saved."""
 
@@ -56,6 +57,8 @@ sys.modules["jello_tpu"] = None
 import numpy as np
 import jello_tpu_torch as jt
 import jello_tpu_torch.cuda
+import jello_tpu_torch.profiler
+import jello_tpu_torch.xtrace
 from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.scenes import GATE_SCENES
 """ + BUILD + """

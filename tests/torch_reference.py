@@ -656,6 +656,62 @@ def random_tap_records(seed, n=200, wit=8, grid=64, atlas_hw=(320, 1100)):
 
 
 # The programs `hand_built_slab(deep=True)` puts before its two pads.
+def solid_image_slab(seed, n=64, MC=24, grid=256, wit=16):
+    """Inputs of the per-tile interpreter whose tapes hold solid and image
+    records only, no clip pair: the legacy tiles of a clip-free frame with
+    image paints under JELLO_IMAGE_TAP=0. Tapes of 1 to MC records; images
+    from sub-rectangles of one atlas (up to 120 rows), magnified and
+    minified (0.2 to 8 texels a pixel, any rotation; the tallest taps leave
+    the 64-row region window, as both versions flag), rowless or on rows
+    of raw winding; even-odd and rowless fills. Returns the dict of `hand_built_slab`."""
+    from jello_tpu_torch.pipeline.image_tap import atlas_planar
+
+    rng = np.random.default_rng(seed)
+    R, AH, AW = 48, 160, 96
+    stops = np.zeros((1, 16), np.float32)
+    stops[:, 0] = 3
+    stops[:, 1:4] = [0.0, 0.5, 1.0]
+    rows = (rng.random((R, 256)) * 5 - 2.5).astype(np.float32)
+    rows[::2] = np.clip(rows[::2], 0, 1)
+    atlas = atlas_planar(rng.random((AH, AW, 4)).astype(np.float32))
+    tile_ids = np.concatenate([rng.permutation(grid)[:n - 2], [grid, grid]]).astype(np.int32)
+
+    def cover(rowless):
+        return [-1, 0] if rowless else [int(rng.integers(0, R)), 3]
+
+    def color(tile):
+        rgba = rng.random(4)
+        return ([1] + cover(rng.random() < 0.2) + [0, int(rng.random() < 0.3)]
+                + [_fbits(c * rgba[3]) for c in rgba[:3]] + [_fbits(rgba[3])] + [0] * 7)
+
+    def image(tile):
+        scale, rot = float(np.exp(rng.uniform(np.log(0.2), np.log(8.0)))), rng.uniform(-3.2, 3.2)
+        w, h = int(rng.integers(4, 41)), int(rng.integers(4, 121))
+        ax, ay = int(rng.integers(0, AW - w + 1)), int(rng.integers(0, AH - h + 1))
+        c, s_ = np.cos(rot) * scale, np.sin(rot) * scale
+        m = np.array([c, s_, -s_, c], np.float32)
+        gx0, gy0 = (tile % wit) * 16, (tile // wit) * 16
+        ox, oy = rng.uniform(-4, w), rng.uniform(-4, h)
+        xl = ox - (m[0] * gx0 + m[2] * gy0)
+        yl = oy - (m[1] * gx0 + m[3] * gy0)
+        return ([5] + cover(rng.random() < 0.3) + [0, 0, 0] + [_fbits(v) for v in (*m, xl, yl)]
+                + [(ay << 16) | ax, (w << 16) | h, 0, 0])
+
+    tapes = [[image(int(t)) if rng.random() < 0.5 else color(int(t))
+              for _ in range(int(rng.integers(1, MC + 1)))] for t in tile_ids[:n - 2]]
+    tapes += [[], []]
+    slab = np.zeros((n, MC, 16), np.uint32)
+    for k, tape in enumerate(tapes):
+        for ci, w in enumerate(tape):
+            slab[k, ci] = np.array(w, np.int64).astype(np.uint32)
+            slab[k, ci, 3] = tile_ids[k]
+    return {
+        "counts": np.array([len(tp) for tp in tapes], np.int32), "tile_ids": tile_ids,
+        "base": np.array([0.9, 0.8, 0.7, 1.0], np.float32), "slab": slab, "rows": rows,
+        "stops": stops, "atlas": atlas, "wit": wit, "grid": grid, "BD": 2,
+    }
+
+
 DEEP_TAPES = ("to_bd", "past_bd", "one_record", "mc_records", "suppressed_past_chunk")
 
 
