@@ -142,7 +142,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      kernels a render. Kernel times are CUDA-event means over
      repeated calls on the same inputs, the kernel's wrapper beside its
      plain version;
- 13. one JSON line of kernel results, the nvidia-smi line, and the
+ 13. multi-GPU (`cuda/sharded.py`, stripes; `cuda/sharded2.py`, geometry):
+     configs 5 and 4 at full size, at the class a single-card Renderer
+     settled for each; at world size 1 over NCCL in this process, the
+     stripes with kernel G and with the reference fine stage, the
+     geometry-sharded frame in area and msaa8 mode: each frame within
+     FRAME_TOL of the single-card frame, no flag, every kernel of its path
+     launched (counts set to 0 before, read after), its ms/frame (median
+     of FRAMES), kernels a frame and busy ms (`xtrace.attribute`), and for
+     the geometry-sharded frames no host-device synchronization in a
+     settled frame; then world size 4 on the one card over gloo, chosen
+     explicitly (NCCL takes one card a rank), in spawned ranks: the three
+     dry runs (stripes; geometry with the full-profile scene through the
+     image tap, area and msaa8), config 4 through the stripes, configs 4,
+     5 and 3 through the geometry-sharded path, every rank's frame equal,
+     each held to the single-card frame; only flatten_overflow and
+     segs_overflow may rise there (shard_caps gives a rank beta / n = 1/2
+     of the line and segment capacities, and the tag ranges balance tags,
+     not lines), printed as a finding with the rank that raised it and
+     each rank's Euler work items, line slots and crossings beside its
+     capacities, the frame then not held and never retried; on rank 1 (a
+     nonzero stripe base) the first call of G (the stripes' launch and the
+     legacy slots), A, B and F held to their plain versions; each rank's
+     ms/frame, which is four processes sharing one card, not a multi-GPU
+     speed;
+ 14. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
      call: the larger of its bytes (each input read once, each output
      written once; for B, G and H only the rows this run's records touch)
@@ -169,6 +193,7 @@ G_TOL = 1e-4  # G, H vs the plain version, output rows of real slots
 H_TOL = 1e-6  # H vs G
 G_IMG_TOL = 1e-5  # G's image branch vs the plain version at config 5 (0 expected)
 IMG_TOL = 2e-3
+FRAME_TOL = 1e-3  # a sharded frame vs the single-card frame (jello_tpu/tpu/sharded.py:250)
 FRAMES = 8
 WARMUP = 2
 ROUNDS = 3  # alternated rounds of synchronous frames and frames in flight
@@ -380,7 +405,8 @@ def _record_calls(wrappers, run):
             return _fn(*args)
 
         # A wrapper counts its launches on the module's name for itself.
-        spy.launches = 0
+        for attr in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(spy, attr, 0)
         setattr(mod, name, spy)
     try:
         run()
@@ -469,6 +495,150 @@ class _PlainKernels:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+def _counters():
+    """{kernel: (wrapper, the attribute that counts its launches)}."""
+    from jello_tpu_torch.cuda import coverage as kcov
+    from jello_tpu_torch.cuda import expand as kx
+    from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import fine_v2 as kfine
+    from jello_tpu_torch.cuda import image_tap as ktap
+    from jello_tpu_torch.cuda import land as kland
+    from jello_tpu_torch.cuda import lockstep as kwalk
+
+    return {
+        "coverage_area": (kcov.coverage_rows, "launches"),
+        "coverage_msaa": (kcov.coverage_rows, "launches_msaa"),
+        "fine_v2": (kfine.composite_records, "launches"),
+        "monotone_land": (kland.monotone_land, "launches"),
+        "lockstep_walk": (kwalk.lockstep_walk, "launches"),
+        "expand_euler": (kx.expand_euler, "launches"),
+        "expand_crossings": (kx.expand_crossings, "launches"),
+        "expand_rows": (kx.expand_rows, "launches"),
+        "image_tap": (ktap.tap_records, "launches"),
+        "fine_interp": (kint.interpret_tiles, "launches"),
+        "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
+    }
+
+
+def _sharded_kernels(path, aa, has_atlas):
+    """The kernels a sharded frame must launch: the geometry's (C, D, E,
+    E', E''); with `path` "19a" kernel A in its mode and G over the stripe;
+    with "19b" A, B and G (fine_hybrid runs G even without a legacy tile)
+    and F with an atlas; with "19a_fine_ref" nothing more."""
+    out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows"}
+    coverage = "coverage_area" if aa == "area" else "coverage_msaa"
+    if path == "19a":
+        out |= {coverage, "fine_interp"}
+    if path == "19b":
+        out |= {coverage, "fine_v2", "fine_interp"} | ({"image_tap"} if has_atlas else set())
+    return out
+
+
+def _hold_stripe_kernels(calls, ld, grid):
+    """Each kernel's first recorded call of a sharded frame (`_record_calls`)
+    against its plain version on the same inputs: G's output rows of real
+    slots and overflow words, A's rows, B's assembled image, F's rows and
+    region flag. Fails on a disagreement. Returns {kernel: (max abs diff,
+    what was held)}."""
+    import torch
+
+    from jello_tpu_torch.cuda import coverage as kcov
+    from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import fine_v2 as kfine
+    from jello_tpu_torch.cuda import image_tap as ktap
+    from jello_tpu_torch.pipeline import coverage as plain_cov
+    from jello_tpu_torch.pipeline import fine_interp as plain_int
+    from jello_tpu_torch.pipeline import image_tap as plain_tap
+
+    out = {}
+    if calls.get("interpret_tiles"):
+        a = calls["interpret_tiles"][0]
+        real = a[1] < grid
+        got, ovf = kint.interpret_tiles(*a)
+        want, ovf_p = plain_int.interpret_plain(a[0][:-1], *a[1:9], resolved=a[10])
+        err = _max_diff(got[real], want[real])
+        if int(real.sum()) and (not err <= G_TOL or not torch.equal(ovf, ovf_p)):
+            _fail(f"kernel G at stripe shapes disagrees with its plain version ({err:.3e})")
+        out["G"] = (err, f"{int(real.sum())} real slots of {a[1].shape[0]}, first tile id "
+                         f"{int(a[1][0])}")
+    if calls.get("coverage_rows"):
+        a = calls["coverage_rows"][0]
+        err = _max_diff(kcov.coverage_rows(*a), plain_cov.coverage_rows_plain(*a))
+        if not err <= (A_TOL if len(a) == 4 else MSAA_TOL):
+            _fail(f"kernel A at stripe shapes disagrees with its plain version ({err:.3e})")
+        out["A"] = (err, f"{a[1].shape[0]} rows, {'area' if len(a) == 4 else 'msaa'}")
+    if calls.get("composite_records"):
+        a = calls["composite_records"][0]
+        t2r = kfine.tile_last_record(a[4], a[5])
+        err = _max_diff(kfine.assemble_compact(kfine.composite_records(*a), t2r, ld),
+                        kfine.assemble_compact(kfine.composite_records_plain(*a), t2r, ld))
+        if not err <= B_TOL:
+            _fail(f"kernel B at stripe shapes disagrees with its plain version ({err:.3e})")
+        out["B"] = (err, f"{a[0].shape[0]} records")
+    if calls.get("tap_records"):
+        a = calls["tap_records"][0]
+        (fg, flag), (fg_p, flag_p) = ktap.tap_records(*a), plain_tap.tap_records_plain(*a)
+        err = _max_diff(fg, fg_p)
+        if not err <= F_TOL or bool(flag) != bool(flag_p):
+            _fail(f"kernel F at stripe shapes disagrees with its plain version ({err:.3e})")
+        out["F"] = (err, f"{a[0].shape[0]} tap rows")
+    return out
+
+
+def _sharded_rank(group, jobs, frames):
+    """One rank of the world-size-4 run: for each job (tag, make, frame
+    inputs, caps, options, path), one frame with the kernel wrappers
+    recorded, rank 1's calls held to their plain versions
+    (`_hold_stripe_kernels`); then the launch counts of one frame, set to
+    0 just before it and read just after; then `frames` frames timed
+    (host clock to an idle card, after WARMUP). A kernel that disagrees,
+    or any exception, ends the rank with a nonzero exit. Returns {tag:
+    (fine_out, flags, per-rank flags or None, per-rank load or None,
+    launches, (median, min, max) ms, holds)} on the host."""
+    import statistics
+    import time
+
+    import torch
+
+    from jello_tpu_torch.cuda import coverage as kcov
+    from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import fine_v2 as kfine
+    from jello_tpu_torch.cuda import image_tap as ktap
+    from jello_tpu_torch.cuda.render import upload, upload_atlas
+
+    counters = _counters()
+    out = {}
+    for tag, make, inputs, caps, opts, _ in jobs:
+        scene_u32, ld, ramps, atlas, _ = inputs
+        args = upload(scene_u32, ld, ramps, {}, group.device)[:3] + (
+            upload_atlas(atlas, group.device),)
+        run = make(group, caps, **opts)
+        calls = _record_calls([(kint, "interpret_tiles"), (kcov, "coverage_rows"),
+                               (kfine, "composite_records"), (ktap, "tap_records")],
+                              lambda: run(*args))
+        holds = _hold_stripe_kernels(calls, ld, caps["tile_grid_cap"]) if group.rank == 1 else {}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        res = run(*args)
+        torch.cuda.synchronize()
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        for _ in range(WARMUP):
+            run(*args)
+        times = []
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        dbg = res[2] if len(res) > 2 else {}
+        out[tag] = (res[0].cpu(), {k: bool(v) for k, v in res[1].items()},
+                    dbg["raised"].cpu() if "raised" in dbg else None,
+                    dbg["load"].cpu() if "load" in dbg else None, launches,
+                    (statistics.median(times), min(times), max(times)), holds)
+    return out
 
 
 def _max_diff(a, b, mask=None):
@@ -564,6 +734,167 @@ def _discs(jt, scale):
         s.fill(jt.Fill.NON_ZERO, jt.Affine.scale(scale),
                jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.6)), None, circle(x, y, rad))
     return s, jt.RenderParams(width=1920, height=1080, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _multi_gpu(scenes, launches, smi):
+    """Phase 13: both sharded paths at full size on `scenes` (configs 5, 4
+    and 3; config 3 at world size 4 only), at world size 1 over NCCL in
+    this process and at world size 4 over gloo in spawned ranks on the
+    one card, each frame held to the single-card frame of the same scene
+    at the class a single-card Renderer settled for it (FRAME_TOL, no
+    flag) and required to launch every kernel of its path; the launch
+    counts go into `launches`. Returns {kernel: max abs diff vs plain at
+    stripe shapes, on rank 1}."""
+    import dataclasses
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import torch
+
+    from jello_tpu_torch.cuda import collectives, sharded, sharded2
+    from jello_tpu_torch.cuda.render import Renderer, assemble, upload, upload_atlas
+    from jello_tpu_torch.renderer.params import AaConfig
+
+    counters = _counters()
+
+    def zero_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def sharded_counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    def hold_sharded(tag, img, single, flags, launched, path, aa, has_atlas):
+        """A gathered frame against the single-card frame, with its flags
+        and launches (`_sharded_kernels`). Returns the max abs diff."""
+        raised = [k for k, v in flags.items() if v]
+        err = _max_diff(img, single)
+        missing = sorted(k for k in _sharded_kernels(path, aa, has_atlas) if launched[k] < 1)
+        print(f"{tag}: max|frame diff| vs the single-card frame {err:.3e}, flags raised "
+              f"{raised}, kernels of the path that never launched {missing}; launches "
+              f"{launched}")
+        if (raised or not err <= FRAME_TOL or missing or not bool(torch.isfinite(img).all())
+                or (launched["coverage_area"] and launched["coverage_msaa"])):
+            _fail(f"{tag}: the sharded frame is wrong")
+        return err
+
+    full = {}  # (config, aa): (frame inputs, class, the single-card image on the card)
+    for name, (scene, params) in scenes.items():
+        rs = Renderer(device="cuda")
+        inputs = sharded.frame_inputs(scene, params)
+        for aa in ("area", "msaa8") if name != "config3" else ("area",):
+            img = rs.render(scene, dataclasses.replace(params, antialiasing_method=AaConfig(aa)))
+            full[(name, aa)] = (inputs, sharded.sharded_caps(rs._caps, inputs, aa),
+                                torch.from_numpy(img).cuda())
+        n_tags, n_slots = int(inputs[1]["n_path_tags"]), rs._caps["n_tag_slots"]
+        print(f"{name}: {n_tags} path tags in {n_slots} tag slots; at 4 ranks "
+              f"{sharded2.shard_caps(rs._caps, 4)['n_tag_slots']} a rank")
+        del rs
+    modes = (("19a", sharded, {"pallas_fine": True}, "area"),
+             ("19a_fine_ref", sharded, {"pallas_fine": False}, "area"),
+             ("19b", sharded2, {}, "area"),
+             ("19b", sharded2, {}, "msaa8"))
+    with tempfile.TemporaryDirectory() as d, collectives.init_group(
+            0, 1, "nccl", Path(d) / "store", torch.device("cuda", 0)) as group:
+        print(f"world size 1 over NCCL, in this process, on {smi}")
+        for name in ("config5", "config4"):
+            for path, mod, opts, aa in modes:
+                inputs, caps_s, single = full[(name, aa)]
+                scene_u32, ld, ramps, atlas, _ = inputs
+                args = upload(scene_u32, ld, ramps, {}, "cuda")[:3] + (upload_atlas(atlas, "cuda"),)
+                run = mod.make_sharded_render(group, caps_s, **opts)
+                tag = f"{name}_ws1_{path}_{aa}"
+                run(*args)
+                zero_counts()
+                fine_out, flags = run(*args)
+                torch.cuda.synchronize()
+                launches[tag] = sharded_counts()
+                hold_sharded(tag, assemble(fine_out, ld), single, flags, launches[tag], path, aa,
+                             atlas is not None)
+                med, lo, hi, peak = _frame_ms(lambda: run(*args))
+                n_k, n_c, busy = _profile(lambda: run(*args))[:3]
+                print(f"{tag}: {med:.3f} ms/frame median of {FRAMES} (min {lo:.3f}, max "
+                      f"{hi:.3f}), peak device memory {peak:.1f} MiB; profiled: {n_k:g} kernels "
+                      f"and {n_c:g} copies or memsets a frame, device busy {busy:.3f} ms; on "
+                      f"{smi}")
+                if path == "19b":
+                    _, where = _syncs(lambda: run(*args))
+                    print(f"{tag}: host-device synchronizations in a settled frame: {len(where)}"
+                          + (f" at {sorted(set(where))}" if where else ""))
+                    if where:
+                        _fail(f"{tag}: a settled geometry-sharded frame synchronized with the "
+                              "host")
+                del args, run, fine_out
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    print(f"world size 4 on one card over gloo, chosen explicitly (NCCL takes one card a "
+          f"rank): four processes share the card, so the times below are no multi-GPU "
+          f"speed; on {smi}")
+    for label, dry in (
+            ("sharded.dryrun(4)", lambda: sharded.dryrun(4, "cuda", "gloo")),
+            ("sharded2.dryrun(4, full_profile=True, image_tap=True)",
+             lambda: sharded2.dryrun(4, "cuda", "gloo", full_profile=True, image_tap=True)),
+            ("sharded2.dryrun(4, full_profile=True, image_tap=True, aa='msaa8')",
+             lambda: sharded2.dryrun(4, "cuda", "gloo", full_profile=True, image_tap=True,
+                                     aa="msaa8"))):
+        t = time.perf_counter()
+        err = dry()
+        print(f"{label} over gloo: max|frame diff| vs the single-card frame {err:.3e} "
+              f"({time.perf_counter() - t:.1f} s with the ranks' start, on {smi})")
+    jobs = [("config4_ws4_19a_area", sharded.make_sharded_render, full[("config4", "area")][0],
+             full[("config4", "area")][1], {"pallas_fine": True}, "19a")]
+    for name in ("config4", "config5", "config3"):
+        inputs, caps_s, _ = full[(name, "area")]
+        jobs.append((f"{name}_ws4_19b_area", sharded2.make_sharded_render, inputs, caps_s,
+                     {"debug": True}, "19b"))
+    t = time.perf_counter()
+    stripe_err = {}  # kernel: max abs diff vs plain at stripe shapes, on rank 1
+    per_rank = collectives.run_ranks(_sharded_rank, 4, "gloo", "cuda", (jobs, FRAMES))
+    print(f"world size 4, configs 4, 5 and 3 at full size: {time.perf_counter() - t:.1f} s "
+          f"with the ranks' start, on {smi}")
+    for tag, _, inputs, caps_s, _, path in jobs:
+        name = tag.split("_")[0]
+        outs = [pr[tag] for pr in per_rank]
+        fine_out, flags, raised_by_rank, load = outs[0][:4]
+        launches[tag] = {k: sum(o[4][k] for o in outs) for k in counters}
+        if any(not torch.equal(o[0], fine_out) for o in outs[1:]):
+            _fail(f"{tag}: the ranks gathered different frames")
+        print(f"{tag}: ms/frame by rank (median of {FRAMES}, min, max): "
+              + "; ".join(f"rank {r} {o[5][0]:.3f} ({o[5][1]:.3f}, {o[5][2]:.3f})"
+                          for r, o in enumerate(outs)) + f"; on {smi}")
+        if load is not None:
+            cl = sharded2.shard_caps(caps_s, 4)
+            print(f"{tag}: by rank, Euler work items {load[:, 0].tolist()} of "
+                  f"{cl['work_a_cap'] + cl['work_b_cap']}, line slots {load[:, 1].tolist()} of "
+                  f"{cl['line_cap']}, crossings {load[:, 2].tolist()} of {cl['seg_cap']}")
+        for kernel, (err, what) in outs[1][6].items():
+            print(f"{tag}: rank 1, kernel {kernel} at stripe shapes ({what}): max|diff| vs "
+                  f"plain {err:.3e}")
+            stripe_err[kernel] = max(stripe_err.get(kernel, 0.0), err)
+        if any(flags.values()):
+            # shard_caps gives a rank beta / n of the single-card line and
+            # segment capacities, and the tag ranges balance tags, not
+            # lines: a rank whose range holds more than that of the lines
+            # overflows them. jello_tpu has no retry for it; the frame is
+            # a finding, not held. Any other flag fails.
+            keys = sorted(flags)
+            by_rank = {r: [k for k, v in zip(keys, row.tolist()) if v]
+                       for r, row in enumerate(raised_by_rank) if row.any()}
+            N_l = sharded2.shard_caps(caps_s, 4)["n_tag_slots"]
+            n_tags = int(inputs[1]["n_path_tags"])
+            share = [min(max(n_tags - r * N_l, 0), N_l) / n_tags for r in range(4)]
+            print(f"FINDING {tag}: flags raised by rank {by_rank}; the ranks' shares of the "
+                  f"{n_tags} path tags {[round(x, 3) for x in share]} at {N_l} tag slots a "
+                  f"rank; the frame is not held")
+            if any(set(ks) - {"flatten_overflow", "segs_overflow"} for ks in by_rank.values()):
+                _fail(f"{tag}: a flag other than the line capacities' rose")
+            continue
+        hold_sharded(tag, assemble(fine_out, inputs[1]).cuda(), full[(name, "area")][2], flags,
+                     launches[tag], path, "area", inputs[3] is not None)
+    del per_rank, full
+    return stripe_err
 
 
 def main():
@@ -1499,19 +1830,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 9. main path ----------------------------------------------------
-    counters = {
-        "coverage_area": (coverage_rows, "launches"),
-        "coverage_msaa": (coverage_rows, "launches_msaa"),
-        "fine_v2": (composite_records, "launches"),
-        "monotone_land": (kland.monotone_land, "launches"),
-        "lockstep_walk": (kwalk.lockstep_walk, "launches"),
-        "expand_euler": (kx.expand_euler, "launches"),
-        "expand_crossings": (kx.expand_crossings, "launches"),
-        "expand_rows": (kx.expand_rows, "launches"),
-        "image_tap": (ktap.tap_records, "launches"),
-        "fine_interp": (kint.interpret_tiles, "launches"),
-        "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
-    }
+    counters = _counters()
     def on_path(kernel, name):
         """Whether the run `name` (a config, then maybe the MSAA mode, then
         maybe b8; "tap0" for config 5 under JELLO_IMAGE_TAP=0) must launch
@@ -2053,12 +2372,16 @@ def main():
           f"(min {lo:.3f}, max {hi:.3f}), two frames a render; profiled: {n_k:g} kernels and "
           f"{n_c:g} copies or memsets a render, busy {busy:.3f} ms; on {smi}")
 
+    # ---- 13. multi-GPU: the stripe- and geometry-sharded paths ------------
+    stripe_err = _multi_gpu({k: scenes[k] for k in ("config5", "config4", "config3")},
+                            launches, smi)
+
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jello_tpu")]
     if loaded:
         _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
-    # ---- 13. results -----------------------------------------------------
+    # ---- 14. results -----------------------------------------------------
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, bare_ms=None,
               counter=None, configs=None):
         """One kernel's line; its launches are the main path's, summed over
@@ -2072,9 +2395,13 @@ def main():
                 "bound_by": bound[1], "library_ms": library_ms}
         return line if bare_ms is None else dict(line, bare_ms=bare_ms)
 
+    # The holds at stripe shapes (phase 13) join each kernel's error.
+    for kernel, key in (("B", "B"), ("F", "F"), ("G", "G")):
+        res[key] = (max(res[key][0], stripe_err.get(kernel, 0.0)),) + res[key][1:]
     kernels = [
         entry("coverage_area", "coverage.cu", "coverage_pallas.py:266",
-              max(err_rows, err_a, err_a5, err_a4), a_ms, a_plain_ms, a_bound, None),
+              max(err_rows, err_a, err_a5, err_a4, stripe_err.get("A", 0.0)), a_ms, a_plain_ms,
+              a_bound, None),
         # Kernel A's MSAA body, at config 4's coverage inputs.
         entry("coverage_msaa8", "coverage.cu", "coverage_pallas.py:266", *res["A msaa8"],
               counter="coverage_msaa", configs=[t for t in launches if "msaa8" in t]),

@@ -70,14 +70,17 @@ def fill_coverage(seg_start, seg_count, backdrop, even_odd, segs, aa="area", chu
     return torch.where(even_odd[:, None], eo, nz)
 
 
-def fine(cmds, segs, ramps, atlas, layout, caps):
+def fine(cmds, segs, ramps, atlas, layout, caps, tile_base=0):
     """Walk every tile's tape of the command stream into the final tiles.
 
     cmds: the sorted command stream of `coarse.build_commands` (with
     `dtab`); segs: `path_tiling`'s tile-ordered segments; ramps [NR, W]
     the stop table; atlas f32 [4, AHp, AWp] premultiplied planar or None
     (the same texels jello_tpu's reference premultiplies per tap from its
-    [AH, AW, 4] plane); caps: `blend_depth`, `aa_mode`, `fine_seg_chunk`.
+    [AH, AW, 4] plane); caps: `blend_depth`, `aa_mode`, `fine_seg_chunk`;
+    tile_base: the global id of the first tile of `tile_start`/`tile_end`,
+    nonzero when they hold one stripe of the grid
+    (`jello_tpu/pipeline/fine_ref.py:194-212`, for `cuda/sharded.py`).
     Returns (fine_out [4, GRID, 256] un-premultiplied, blend depth
     overflow 0-dim bool)."""
     start = cmds["tile_start"]
@@ -100,8 +103,9 @@ def fine(cmds, segs, ramps, atlas, layout, caps):
 
     n_slots = int((end - start).max()) if GRID else 0
     out, ovf = walk_tapes(n_slots, lambda ci: (rec[at(ci)], (start + ci) < end), coverage,
-                          ops.iota(GRID, rec.device), layout["base_color"], ramps, atlas,
-                          layout["width_in_tiles"], caps["blend_depth"], one_window=False)
+                          ops.iota(GRID, rec.device) + tile_base, layout["base_color"], ramps,
+                          atlas, layout["width_in_tiles"], caps["blend_depth"],
+                          one_window=False)
     return out.permute(1, 0, 2), ((ovf & OVF_BLEND_DEPTH) != 0).any()
 
 

@@ -382,7 +382,7 @@ def slot_geometry(tags, tags_next, pts_raw, pts_next_raw, seg_type0,
     }
 
 
-def flatten_stage(scene, layout, caps):
+def flatten_stage(scene, layout, caps, shard=None):
     """Run the flatten stage.
 
     scene: int32 scene words; layout: dict of host ints (path_tag_base,
@@ -390,40 +390,66 @@ def flatten_stage(scene, layout, caps):
     capacity class (n_tag_slots, max_iters, work_a_cap, work_b_cap,
     euler_line_cap, simple_line_cap, arc_line_cap, line_cap,
     n_paths_cap). Returns the line soup, per-path bboxes/flags, the
-    actual-use counters and the overflow flag."""
+    actual-use counters and the overflow flag.
+
+    shard: for a tag-range shard of `cuda/sharded2.py`, {"tag_lo": the
+    host int first slot (a multiple of 4), "monoid_base": int32 [5], the
+    monoid deltas of the tags before it (`pathtag.tag_monoid_scan`)}: the
+    stage then flattens slots [tag_lo, tag_lo + n_tag_slots), decoding 4
+    slots more so that the last slot's successor is local
+    (`jello_tpu/pipeline/flatten.py:728-780`). Either way it returns the
+    raw per-path bbox accumulator `bb_acc` too, for the caller to combine
+    across shards by maximum before `finalize_path_bbox`."""
     dev = scene.device
     N = caps["n_tag_slots"]
     IT = caps["max_iters"]
     n_paths_cap = caps["n_paths_cap"]
 
-    tags = decode_tag_stream(scene, layout["path_tag_base"], N)
-    mono = tag_monoid_scan(tags)
-    active = ops.iota(N, dev) < layout["n_path_tags"]
+    # Slots decoded (_e): the stage's own, and under a shard the 4 past it.
+    if shard is None:
+        Ne, tag_lo, base = N, 0, None
 
-    def nxt(a):
-        return torch.cat([a[1:], a[:1]])
+        def cur(a):
+            return a
 
-    trans_idx = mono["trans_idx"] - 1
-    style_idx = mono["style_idx"] - 2
-    path_idx = mono["path_idx"]
-    seg_off = mono["path_seg_offset"]
+        def nxt(a):
+            return torch.cat([a[1:], a[:1]])
+    else:
+        Ne, tag_lo, base = N + 4, shard["tag_lo"], shard["monoid_base"]
 
-    style_flags = ops.gather_guarded(scene, layout["style_base"] + style_idx)
+        def cur(a):
+            return a[:N]
+
+        def nxt(a):
+            return a[1:N + 1]
+
+    tags_e = decode_tag_stream(scene, layout["path_tag_base"] + tag_lo // 4, Ne)
+    mono = tag_monoid_scan(tags_e, base)
+    tags = cur(tags_e)
+    active = ops.iota(N, dev) + tag_lo < layout["n_path_tags"]
+
+    trans_idx = cur(mono["trans_idx"]) - 1
+    style_idx_e = mono["style_idx"] - 2
+    path_idx = cur(mono["path_idx"])
+    seg_off_e = mono["path_seg_offset"]
+
+    style_flags_e = ops.gather_guarded(scene, layout["style_base"] + style_idx_e)
+    style_flags = cur(style_flags_e)
     linewidth = ops.bitcast_u32_f32(
-        ops.gather_guarded(scene, layout["style_base"] + style_idx + 1))
+        ops.gather_guarded(scene, layout["style_base"] + cur(style_idx_e) + 1))
 
     marker = active & ((tags & PATH_TAG_PATH) != 0)
     tgt_idx = torch.where(marker, path_idx, n_paths_cap)
 
-    raw = _read_points(scene, layout["path_data_base"] + seg_off, tags)
-    pts_raw, seg_type0 = raw[:8], raw[8]
-    is_stroke = (style_flags & ops.s32(FLAGS_STYLE_BIT)) != 0
+    raw = _read_points(scene, layout["path_data_base"] + seg_off_e, tags_e)
+    pts_raw_e, seg_type0_e = raw[:8], raw[8]
+    is_stroke_e = (style_flags_e & ops.s32(FLAGS_STYLE_BIT)) != 0
     T = _transform_read(scene, layout["transform_base"], trans_idx)
     miter_limit = f16_to_f32(style_flags & MITER_LIMIT_MASK)
 
     g = slot_geometry(
-        tags, nxt(tags), list(pts_raw), [nxt(a) for a in pts_raw],
-        seg_type0, nxt(seg_type0), is_stroke, nxt(is_stroke),
+        tags, nxt(tags_e), [cur(a) for a in pts_raw_e], [nxt(a) for a in pts_raw_e],
+        cur(seg_type0_e), nxt(seg_type0_e), cur(is_stroke_e), nxt(is_stroke_e),
         style_flags, linewidth, miter_limit, T, path_idx, active,
     )
 
@@ -558,6 +584,7 @@ def flatten_stage(scene, layout, caps):
         "s_total": s_counts.sum(), "a_total": arc_n.to(I32).sum(),
         "lockstep_iters": lockstep_iters,
         "path_bbox": finalize_path_bbox(bb_acc),
+        "bb_acc": bb_acc,
         "path_draw_flags": path_draw_flags,
         "path_trans_idx": path_trans_idx,
         "overflow": overflow,

@@ -1,7 +1,9 @@
 """Path tag monoid scan, in torch.
 
 Counterpart of `jello_tpu/cpu/pathtag.py` (`tag_monoid_deltas`,
-`tag_monoid_scan`). The path tag stream is decoded by an exclusive
+`tag_monoid_scan`) and of the two-level scan of a tag-range shard in
+`jello_tpu/pipeline/flatten.py` (`exclusive_monoids(base=)`,
+`monoid_delta_totals`). The path tag stream is decoded by an exclusive
 prefix scan of a 5-component monoid over tag bytes: (trans_idx,
 path_seg_idx, path_seg_offset, style_idx, path_idx). path_seg_offset
 counts u32 words of path data (2 per f32 point, 1 per i16 point; the
@@ -40,10 +42,22 @@ def tag_monoid_deltas(tags: torch.Tensor) -> dict:
     }
 
 
-def tag_monoid_scan(tags: torch.Tensor) -> dict:
+def tag_monoid_scan(tags: torch.Tensor, base=None) -> dict:
     """Exclusive prefix monoid per tag byte: all five fields ride one
-    column cumsum."""
+    column cumsum. `base` (int32 [5] in FIELDS order), for a tag-range
+    shard, adds the deltas of every tag before the range
+    (`jello_tpu/pipeline/flatten.py:106-125`, `exclusive_monoids`)."""
     deltas = tag_monoid_deltas(tags)
     d = torch.stack([deltas[k] for k in FIELDS], dim=1)
     c = torch.cumsum(d, dim=0, dtype=torch.int32) - d
+    if base is not None:
+        c = c + base
     return {k: c[:, i] for i, k in enumerate(FIELDS)}
+
+
+def monoid_delta_totals(tags: torch.Tensor) -> torch.Tensor:
+    """The sums of the monoid deltas over a tag range, int32 [5] in FIELDS
+    order: the per-shard level of the two-level scan
+    (`jello_tpu/pipeline/flatten.py:128-131`)."""
+    deltas = tag_monoid_deltas(tags)
+    return torch.stack([deltas[k].sum(dtype=torch.int32) for k in FIELDS])

@@ -26,13 +26,11 @@ STAGES = ("flatten", "draw_leaf", "clip_leaf", "tile_alloc", "path_count", "path
           "coarse", "fine")
 
 
-def geometry(scene, layout, caps):
-    """Every stage before fine. Returns (stages dict with fl, dm, info,
-    paths, counted, segs, cmds; flags; stats), flags and stats as 0-dim
-    device tensors."""
-    with named_scope("flatten"):
-        fl = flatten.flatten_stage(scene, layout, caps)
-
+def draw_stages(scene, layout, fl, caps):
+    """The stages between flatten and path_count, on flatten's per-path
+    outputs (`path_bbox`, `path_draw_flags`, `path_trans_idx`): draw_leaf,
+    clip_leaf, binning and tile_alloc. Returns (dm, info, tag, dtab,
+    draw_bbox, paths)."""
     D = caps["n_draws_cap"]
     with named_scope("draw_leaf"):
         i = ops.iota(D, scene.device)
@@ -56,6 +54,16 @@ def geometry(scene, layout, caps):
     with named_scope("tile_alloc"):
         draw_bbox = coarse.binning_bboxes(dm, fl["path_bbox"], clip_bboxes)
         paths = tiling.tile_alloc(draw_bbox, tag, layout, caps)
+    return dm, info, tag, dtab, draw_bbox, paths
+
+
+def geometry(scene, layout, caps):
+    """Every stage before fine. Returns (stages dict with fl, dm, info,
+    paths, counted, segs, cmds; flags; stats), flags and stats as 0-dim
+    device tensors."""
+    with named_scope("flatten"):
+        fl = flatten.flatten_stage(scene, layout, caps)
+    dm, info, tag, dtab, draw_bbox, paths = draw_stages(scene, layout, fl, caps)
     with named_scope("path_count"):
         counted = tiling.path_count(fl, paths, caps)
     with named_scope("path_tiling"):

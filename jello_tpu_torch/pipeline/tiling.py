@@ -180,16 +180,12 @@ def line_dda_clip(x0, y0, x1, y1, lvalid, bb0, bb1, bb2, bb3):
     }
 
 
-def path_count(lines, paths, caps):
-    """Per-line crossings and backdrop rows -> slot-sorted segments,
-    per-tile counts/starts and the backdrop prefix (cpu.go PathCount +
-    PathTiling). With `_expand_pallas` in caps the expansions run on
-    jello_tpu's streaming route (`_path_count_expand`)."""
-    dev = lines["line_x0"].device
-    T = caps["tiles_cap"]
-    SC = caps["seg_cap"]
-    RC = caps["row_cap"]
-
+def path_count_params(lines, paths, caps):
+    """The per-line half of path_count: each line's DDA and bbox-clip
+    parameters (`jello_tpu/pipeline/tiling.py:259-341`). Returns (P [L,
+    21] f64 table, n_cross [L] i32, n_rows_per_line [L] i32, the five
+    backdrop-row columns (ymin f32, tiles_base i32, bb1 f32, stride i32,
+    delta i32))."""
     pidx = torch.clamp(lines["line_path"], max=paths["rect_x0"].shape[0] - 1)
     ptab = torch.stack([paths["rect_x0"], paths["rect_y0"], paths["rect_x1"],
                         paths["rect_y1"], paths["tile_offset"]], dim=1).to(F32)
@@ -204,9 +200,22 @@ def path_count(lines, paths, caps):
         prow[:, 0], prow[:, 1], prow[:, 2], d["stride"], prow[:, 4], d["s0y"],
         d["delta"], d["ymin"], d["xy0x"], d["xy0y"], d["xy1x"], d["xy1y"],
         d["is_down"], d["count"], d["is_positive"])], dim=1)
-    n_rows_per_line = d["n_rows"].to(I32)
-    n_cross = d["n_cross"].to(I32)
+    prt = (d["ymin"], prow[:, 4].to(I32), prow[:, 1], d["stride"].to(I32),
+           d["delta"].to(I32))
+    return P, d["n_cross"].to(I32), d["n_rows"].to(I32), prt
 
+
+def path_count(lines, paths, caps):
+    """Per-line crossings and backdrop rows -> slot-sorted segments,
+    per-tile counts/starts and the backdrop prefix (cpu.go PathCount +
+    PathTiling). With `_expand_pallas` in caps the expansions run on
+    jello_tpu's streaming route (`_path_count_expand`)."""
+    dev = lines["line_x0"].device
+    T = caps["tiles_cap"]
+    SC = caps["seg_cap"]
+    RC = caps["row_cap"]
+
+    P, n_cross, n_rows_per_line, _ = path_count_params(lines, paths, caps)
     stats = {
         "real_cross": n_cross.sum(),
         "real_bd_rows": n_rows_per_line.sum(),
@@ -304,20 +313,20 @@ def crossings(PC, within, valid, T):
     return tile_slot, seg, bump_slot, bump_delta
 
 
-def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
-    """path_count on jello_tpu's `_expand_pallas` route
-    (`jello_tpu/pipeline/tiling.py:389-490`): both nonzero-line
-    compactions land through kernel C, the crossing and row expansions
-    run as kernels E' and E'', and the top-edge bumps ride the slot sort
-    (`_sort_count_tail`'s sorted-run branch)."""
+def path_count_expansions(P, n_cross, n_rows_per_line, caps):
+    """The lines' crossings and backdrop rows on jello_tpu's
+    `_expand_pallas` route: both nonzero-line compactions land through
+    kernel C, and the crossing and row expansions run as kernels E' and
+    E'' on the compacted tables (`jello_tpu/pipeline/tiling.py:389-448`
+    with `tpu/expand_pallas.py::path_count_expansions(assume_compact=
+    True)`). Returns (tile_slot, segments dict of f64, bump_slot,
+    bump_delta, c_total, r_slot, r_delta, r_total, compact_overflow)."""
     from ..cuda import expand as kx
     from ..cuda.land import monotone_land
 
     dev = P.device
     L = P.shape[0]
     T = caps["tiles_cap"]
-    SC = caps["seg_cap"]
-    RC = caps["row_cap"]
     LCC = caps["cross_lines_cap"]
     RLC = caps["row_lines_cap"]
 
@@ -342,9 +351,24 @@ def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
     nrr = torch.where(ops.iota(RLC, dev) < n_nz_r,
                       ops.gather_guarded(n_rows_per_line, idx_r), 0)
 
-    tile_slot, seg_pre, bump_slot, bump_delta, c_total = kx.expand_crossings(
-        Pc.contiguous(), ncc.to(I32), SC, T)
-    r_slot, r_delta, r_total = kx.expand_rows(PRTc.contiguous(), nrr.to(I32), RC, T)
+    crossings = kx.expand_crossings(Pc.contiguous(), ncc.to(I32), caps["seg_cap"], T)
+    rows = kx.expand_rows(PRTc.contiguous(), nrr.to(I32), caps["row_cap"], T)
+    return crossings + rows + (compact_overflow,)
+
+
+def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
+    """path_count on jello_tpu's `_expand_pallas` route
+    (`jello_tpu/pipeline/tiling.py:389-490`): `path_count_expansions`,
+    with the top-edge bumps riding the slot sort (`_sort_count_tail`'s
+    sorted-run branch)."""
+    from ..cuda.land import monotone_land
+
+    dev = P.device
+    T = caps["tiles_cap"]
+    SC = caps["seg_cap"]
+    RC = caps["row_cap"]
+    (tile_slot, seg_pre, bump_slot, bump_delta, c_total, r_slot, r_delta, r_total,
+     compact_overflow) = path_count_expansions(P, n_cross, n_rows_per_line, caps)
     backdrop = ops.scatter_add(torch.zeros(T + 1, dtype=I32, device=dev), r_slot, r_delta)
 
     # Top-edge bumps ride the sort as a sixth payload where the bump

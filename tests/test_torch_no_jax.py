@@ -1,8 +1,8 @@
 """jello_tpu_torch imports neither JAX nor anything of jello_tpu: with
 `jax` and `jello_tpu` both blocked in sys.modules, the port imports and
 renders config 1, a small image-plus-stroke scene and a scene with
-nested blend layers on the CPU (and imports the profiler and the trace
-parser). The
+nested blend layers on the CPU (and imports the profiler, the trace
+parser, the multi-GPU paths and the entry points). The
 comparison with the oracle runs in this process, which may import
 jello_tpu, on the image the blocked process saved."""
 
@@ -59,6 +59,9 @@ import jello_tpu_torch as jt
 import jello_tpu_torch.cuda
 import jello_tpu_torch.profiler
 import jello_tpu_torch.xtrace
+import jello_tpu_torch.cuda.sharded
+import jello_tpu_torch.cuda.sharded2
+import jello_tpu_torch.entry
 from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.scenes import GATE_SCENES
 """ + BUILD + """
@@ -105,7 +108,24 @@ def test_torch_port_sources_do_not_import_jax_or_jello_tpu():
     jello = re.compile(r"^\s*(import|from)\s+jello_tpu(\.|\s|$)", re.M)
     files = [p for p in (REPO / "jello_tpu_torch").rglob("*.py") if "_build" not in p.parts]
     # chip_smoke.py imports its bare-entry helpers from the frame-times tool.
-    for path in files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_frame_times.py"]:
+    for path in files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_frame_times.py",
+                         REPO / "tools" / "sharded_frames.py", REPO / "tools" / "nccl_one_card.py",
+                         REPO / "examples" / "render_demo_torch.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert not jello.search(text), path
+
+
+def test_torch_run_ranks_refuses_nccl_without_a_card_per_rank():
+    """NCCL is asked for and there are fewer cards than ranks (none here):
+    run_ranks raises before it starts a rank and does not switch to gloo."""
+    import pytest
+
+    from jello_tpu_torch.cuda import collectives
+    from jello_tpu_torch.cuda.sharded import rank_frames
+
+    for device in ("cuda", "cpu"):
+        with pytest.raises(RuntimeError, match="needs a card per rank"):
+            collectives.run_ranks(rank_frames, 2, "nccl", device, ([],))
+    with pytest.raises(ValueError, match="backend"):
+        collectives.run_ranks(rank_frames, 2, "mpi", "cpu", ([],))
