@@ -15,7 +15,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once, and prints ptxas's registers, spills
      and static shared memory for kernels A, C, D, E (E's three bodies),
-     F, G and H, and kernel A's persistent grid;
+     F, G and H (each of H's builds), and kernel A's persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
      kernel wrappers C, D, E, E' and E'' recorded;
@@ -64,8 +64,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      gradient, 1920x1080) at its calibrated class, its fine stage's real
      inputs recorded from one frame: kernel G (the per-tile interpreter)
      vs its plain version on all legacy slots (output rows within 1e-4,
-     overflow words equal); kernel H (eight tiles a CTA) vs G on the same
-     slab (real slots within 1e-6, overflow words equal) and vs plain;
+     overflow words equal); kernel H (eight tiles a CTA, a warp group a
+     tile) vs G on the same slab (real slots within 1e-6, overflow words
+     equal) and vs plain;
      kernel B with clip groups vs its plain version on config 4's records
      (<= 1e-4 on the assembled image); kernel A's three modes vs plain on
      config 4's coverage inputs, timed (the JSON line's two MSAA entries);
@@ -75,7 +76,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      and H's bare C entries beside their wrappers (area and msaa8), their
      device time, resident CTAs and stack scratch, and their device
      operations a call (more than one kernel, or any memset or copy,
-     fails); and G and
+     fails); kernel H at every point of its design space (warps a slot,
+     CTAs a multiprocessor its register cap allows, stack levels in shared
+     memory; `tools/torch_frame_times.py::h_sweep`), area and msaa8, each
+     equal to G bit for bit, its bare ms and device us beside G's with its
+     registers, spills, resident CTAs and scratch, and the lockstep
+     efficiency of the parent's mapping (records walked over eight times
+     the longest tape of each CTA) against a warp group a slot; and G and
      H through fine_interp over the full tile grid of a small scene with
      clips, blends, gradients and an image vs the plain version;
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
@@ -155,17 +162,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      explicitly (NCCL takes one card a rank), in spawned ranks: the three
      dry runs (stripes; geometry with the full-profile scene through the
      image tap, area and msaa8), config 4 through the stripes, configs 4,
-     5 and 3 through the geometry-sharded path, every rank's frame equal,
-     each held to the single-card frame; only flatten_overflow and
-     segs_overflow may rise there (shard_caps gives a rank beta / n = 1/2
-     of the line and segment capacities, and the tag ranges balance tags,
-     not lines), printed as a finding with the rank that raised it and
-     each rank's Euler work items, line slots and crossings beside its
-     capacities, the frame then not held and never retried; on rank 1 (a
-     nonzero stripe base) the first call of G (the stripes' launch and the
-     legacy slots), A, B and F held to their plain versions; each rank's
-     ms/frame, which is four processes sharing one card, not a multi-GPU
-     speed;
+     5 and 3 through the geometry-sharded path with the retrying caller
+     (`sharded2.RetryingRender`: shard_caps gives a rank beta / n = 1/2 of
+     the line and segment capacities and the tag ranges balance tags, not
+     lines, so a rank may raise flatten_overflow or segs_overflow; the
+     caller grows only the ranks that raised, by their load, and renders
+     again), every rank's frame equal, each held to the single-card
+     frame with no flag raised and every kernel of its path launched in a
+     settled frame; each rank's grown capacities, the retries taken, and
+     each rank's ms/frame and peak device memory in the settled frame
+     (beside the single card's frame's peak); a settled frame that grows
+     again fails; on rank 1 (a nonzero stripe base) the first call of G
+     (the stripes' launch and the legacy slots), A, B and F held to their
+     plain versions; each rank's ms/frame, which is four processes
+     sharing one card, not a multi-GPU speed;
  14. one JSON line of kernel results, the nvidia-smi line, and the
      device line. bound_ms is the least time an H100 could take for the
      call: the larger of its bytes (each input read once, each output
@@ -179,6 +189,7 @@ Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
 """
 
+import functools
 import sys
 
 sys.modules["jax"] = None  # any import of JAX fails loudly
@@ -593,10 +604,15 @@ def _sharded_rank(group, jobs, frames):
     recorded, rank 1's calls held to their plain versions
     (`_hold_stripe_kernels`); then the launch counts of one frame, set to
     0 just before it and read just after; then `frames` frames timed
-    (host clock to an idle card, after WARMUP). A kernel that disagrees,
-    or any exception, ends the rank with a nonzero exit. Returns {tag:
-    (fine_out, flags, per-rank flags or None, per-rank load or None,
-    launches, (median, min, max) ms, holds)} on the host."""
+    (host clock to an idle card, after WARMUP) and the peak device memory
+    they allocate in this rank's process. With `max_retries` in the
+    options the frames go through `sharded2.RetryingRender`: the recorded
+    frame settles the class (retries and growth), and the counted and
+    timed frames are settled ones. A kernel that disagrees, or any
+    exception (a flag still raised after the retries), ends the rank with
+    a nonzero exit. Returns {tag: {"frame", "flags", "launches", "ms"
+    (median, min, max), "peak_mib", "holds", and for a retried job
+    "retries", "grown", "seg_ex_cap", "settled_retries"}} on the host."""
     import statistics
     import time
 
@@ -607,6 +623,7 @@ def _sharded_rank(group, jobs, frames):
     from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda.render import upload, upload_atlas
+    from jello_tpu_torch.cuda.sharded2 import RetryingRender
 
     counters = _counters()
     out = {}
@@ -614,30 +631,44 @@ def _sharded_rank(group, jobs, frames):
         scene_u32, ld, ramps, atlas, _ = inputs
         args = upload(scene_u32, ld, ramps, {}, group.device)[:3] + (
             upload_atlas(atlas, group.device),)
-        run = make(group, caps, **opts)
+        retry = None
+        if "max_retries" in opts:
+            retry = RetryingRender(group, opts["max_retries"])
+
+            def run(retry=retry, caps=caps):
+                return retry(caps, *args)
+        else:
+            run = functools.partial(make(group, caps, **opts), *args)
         calls = _record_calls([(kint, "interpret_tiles"), (kcov, "coverage_rows"),
-                               (kfine, "composite_records"), (ktap, "tap_records")],
-                              lambda: run(*args))
+                               (kfine, "composite_records"), (ktap, "tap_records")], run)
+        info = {}
+        if retry is not None:
+            st = retry.state(caps, args[0], args[1])
+            info = {"retries": list(retry.last_retries), "grown": st[1], "seg_ex_cap": st[2]}
         holds = _hold_stripe_kernels(calls, ld, caps["tile_grid_cap"]) if group.rank == 1 else {}
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
-        res = run(*args)
+        res = run()
         torch.cuda.synchronize()
         launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        if retry is not None:
+            info["settled_retries"] = list(retry.last_retries)
         for _ in range(WARMUP):
-            run(*args)
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         times = []
         for _ in range(frames):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            run(*args)
+            run()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        dbg = res[2] if len(res) > 2 else {}
-        out[tag] = (res[0].cpu(), {k: bool(v) for k, v in res[1].items()},
-                    dbg["raised"].cpu() if "raised" in dbg else None,
-                    dbg["load"].cpu() if "load" in dbg else None, launches,
-                    (statistics.median(times), min(times), max(times)), holds)
+        out[tag] = dict(info, frame=res[0].cpu(), flags={k: bool(v) for k, v in res[1].items()},
+                        launches=launches,
+                        ms=(statistics.median(times), min(times), max(times)),
+                        peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20, holds=holds)
     return out
 
 
@@ -736,15 +767,18 @@ def _discs(jt, scale):
     return s, jt.RenderParams(width=1920, height=1080, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def _multi_gpu(scenes, launches, smi):
+def _multi_gpu(scenes, launches, smi, card_peak):
     """Phase 13: both sharded paths at full size on `scenes` (configs 5, 4
     and 3; config 3 at world size 4 only), at world size 1 over NCCL in
     this process and at world size 4 over gloo in spawned ranks on the
     one card, each frame held to the single-card frame of the same scene
     at the class a single-card Renderer settled for it (FRAME_TOL, no
     flag) and required to launch every kernel of its path; the launch
-    counts go into `launches`. Returns {kernel: max abs diff vs plain at
-    stripe shapes, on rank 1}."""
+    counts go into `launches`. At world size 4 the geometry-sharded frames
+    go through `sharded2.RetryingRender` (a raised flag grows the ranks
+    that raised it), and each rank's peak memory is printed beside
+    `card_peak` ({config: the single card's frame's peak MiB}). Returns
+    {kernel: max abs diff vs plain at stripe shapes, on rank 1}."""
     import dataclasses
     import tempfile
     import time
@@ -848,7 +882,7 @@ def _multi_gpu(scenes, launches, smi):
     for name in ("config4", "config5", "config3"):
         inputs, caps_s, _ = full[(name, "area")]
         jobs.append((f"{name}_ws4_19b_area", sharded2.make_sharded_render, inputs, caps_s,
-                     {"debug": True}, "19b"))
+                     {"max_retries": sharded2.MAX_RETRIES}, "19b"))
     t = time.perf_counter()
     stripe_err = {}  # kernel: max abs diff vs plain at stripe shapes, on rank 1
     per_rank = collectives.run_ranks(_sharded_rank, 4, "gloo", "cuda", (jobs, FRAMES))
@@ -857,40 +891,34 @@ def _multi_gpu(scenes, launches, smi):
     for tag, _, inputs, caps_s, _, path in jobs:
         name = tag.split("_")[0]
         outs = [pr[tag] for pr in per_rank]
-        fine_out, flags, raised_by_rank, load = outs[0][:4]
-        launches[tag] = {k: sum(o[4][k] for o in outs) for k in counters}
-        if any(not torch.equal(o[0], fine_out) for o in outs[1:]):
+        fine_out, flags = outs[0]["frame"], outs[0]["flags"]
+        launches[tag] = {k: sum(o["launches"][k] for o in outs) for k in counters}
+        if any(not torch.equal(o["frame"], fine_out) for o in outs[1:]):
             _fail(f"{tag}: the ranks gathered different frames")
-        print(f"{tag}: ms/frame by rank (median of {FRAMES}, min, max): "
-              + "; ".join(f"rank {r} {o[5][0]:.3f} ({o[5][1]:.3f}, {o[5][2]:.3f})"
-                          for r, o in enumerate(outs)) + f"; on {smi}")
-        if load is not None:
+        print(f"{tag}: settled frame, ms/frame by rank (median of {FRAMES}, min, max): "
+              + "; ".join(f"rank {r} {o['ms'][0]:.3f} ({o['ms'][1]:.3f}, {o['ms'][2]:.3f})"
+                          for r, o in enumerate(outs))
+              + "; peak device memory a frame by rank (MiB) "
+              + ", ".join(f"{o['peak_mib']:.1f}" for o in outs)
+              + f" (the single card's frame: {card_peak.get(name, float('nan')):.1f}); on {smi}")
+        if "retries" in outs[0]:
+            if any(o["retries"] != outs[0]["retries"] or o["grown"] != outs[0]["grown"]
+                   for o in outs[1:]):
+                _fail(f"{tag}: the ranks grew different classes")
             cl = sharded2.shard_caps(caps_s, 4)
-            print(f"{tag}: by rank, Euler work items {load[:, 0].tolist()} of "
-                  f"{cl['work_a_cap'] + cl['work_b_cap']}, line slots {load[:, 1].tolist()} of "
-                  f"{cl['line_cap']}, crossings {load[:, 2].tolist()} of {cl['seg_cap']}")
-        for kernel, (err, what) in outs[1][6].items():
+            grown = {r: {k: f"{cl[k]} -> {v}" for k, v in g.items()}
+                     for r, g in outs[0]["grown"].items()}
+            print(f"{tag}: {len(outs[0]['retries'])} retries to settle "
+                  f"({[(raised, what) for raised, what, _ in outs[0]['retries']]}); grown by "
+                  f"rank {grown}; seg_ex_cap {cl['seg_ex_cap']} -> "
+                  f"{outs[0]['seg_ex_cap'] or cl['seg_ex_cap']} on every rank; retries of the "
+                  f"settled frame {len(outs[0]['settled_retries'])}")
+            if outs[0]["settled_retries"]:
+                _fail(f"{tag}: a settled frame grew its class again")
+        for kernel, (err, what) in outs[1]["holds"].items():
             print(f"{tag}: rank 1, kernel {kernel} at stripe shapes ({what}): max|diff| vs "
                   f"plain {err:.3e}")
             stripe_err[kernel] = max(stripe_err.get(kernel, 0.0), err)
-        if any(flags.values()):
-            # shard_caps gives a rank beta / n of the single-card line and
-            # segment capacities, and the tag ranges balance tags, not
-            # lines: a rank whose range holds more than that of the lines
-            # overflows them. jello_tpu has no retry for it; the frame is
-            # a finding, not held. Any other flag fails.
-            keys = sorted(flags)
-            by_rank = {r: [k for k, v in zip(keys, row.tolist()) if v]
-                       for r, row in enumerate(raised_by_rank) if row.any()}
-            N_l = sharded2.shard_caps(caps_s, 4)["n_tag_slots"]
-            n_tags = int(inputs[1]["n_path_tags"])
-            share = [min(max(n_tags - r * N_l, 0), N_l) / n_tags for r in range(4)]
-            print(f"FINDING {tag}: flags raised by rank {by_rank}; the ranks' shares of the "
-                  f"{n_tags} path tags {[round(x, 3) for x in share]} at {N_l} tag slots a "
-                  f"rank; the frame is not held")
-            if any(set(ks) - {"flatten_overflow", "segs_overflow"} for ks in by_rank.values()):
-                _fail(f"{tag}: a flag other than the line capacities' rose")
-            continue
         hold_sharded(tag, assemble(fine_out, inputs[1]).cuda(), full[(name, "area")][2], flags,
                      launches[tag], path, "area", inputs[3] is not None)
     del per_rank, full
@@ -958,6 +986,8 @@ def main():
         bare_interp,
         bare_tap,
         flat_outputs,
+        h_sweep,
+        h_sweep_lines,
     )
 
     config1, config2, config3, config4, config5 = (GATE_SCENES[k] for k in (1, 2, 3, 4, 5))
@@ -1786,6 +1816,17 @@ def main():
             if n_k > 1 or n_c > 0:  # as F's
                 _fail(f"kernel {name}: a call puts more than one kernel on the device, or a "
                       "memset or copy")
+    # Kernel H's design space on the same slots, area and msaa8: every point
+    # (warps a slot, the CTAs a multiprocessor its register cap allows,
+    # stack levels in shared memory) equal to G bit for bit (h_sweep raises
+    # otherwise), its bare ms and device us beside G's, with its registers,
+    # spills, resident CTAs and scratch; and the lockstep efficiency of the
+    # parent's eight tiles in lockstep against a warp group a slot.
+    for mode, args, resolved in (("area", g_args, False), ("msaa8", gm_args, True)):
+        table = h_sweep(args, resolved, build.LOG["fine_interp.cu"])
+        for line in h_sweep_lines(f"kernel H design space, config 4, {mode}", args, resolved,
+                                  table, smi):
+            print(line)
     del gn_args, got_gn, got_hn, want_gn, by_rule
     img_km = assemble_compact(composite_records(*bm_args), t2r, ld4)
     img_pm = assemble_compact(composite_records_plain(*bm_args), t2r, ld4)
@@ -2341,6 +2382,7 @@ def main():
         if any(not src.startswith("pipeline/") for _, _, _, src, _ in scans):
             _fail(f"{tag}: an outer-dimension scan launch has no call site in pipeline/")
 
+    card_peak = {}  # config: peak device MiB of its render_device frame
     for name, (scene, params) in scenes.items():
         for aa in ("msaa8", "msaa16") if name == "config4" else ("msaa8",):
             params_m = msaa_frames[f"{name}_{aa}"][1]
@@ -2354,6 +2396,8 @@ def main():
             if name == "config2" and what == "render_surface":
                 continue
             med, lo, hi, peak = _frame_ms(lambda: fn(scene, params))
+            if what == "render_device":
+                card_peak[name] = peak
             print(f"{name}: {what} {med:.3f} ms/frame median of {FRAMES} "
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
@@ -2374,7 +2418,7 @@ def main():
 
     # ---- 13. multi-GPU: the stripe- and geometry-sharded paths ------------
     stripe_err = _multi_gpu({k: scenes[k] for k in ("config5", "config4", "config3")},
-                            launches, smi)
+                            launches, smi, card_peak)
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jello_tpu")]

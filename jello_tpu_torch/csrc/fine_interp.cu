@@ -53,14 +53,23 @@
 // the slots, and a tile that stays shallow never touches it. The output
 // row is written with vector stores.
 //
-// H: a CTA of 256 threads walks eight slots in lockstep, record index by
-// record index up to the longest of its eight tapes, a thread holding
-// its pixel of all eight tiles in registers and each record staged in
-// shared memory between two barriers. Eight stacks at BD 8 are 256 KB,
-// more than a CTA's shared memory, so H keeps its stacks in a global
-// scratch [n][BD][4][256]; every access is a coalesced 1 KB row private
-// to the CTA.
-//
+// H: a CTA owns eight consecutive slots (the grid of the Pallas kernel,
+// n / 8 programs), but the lockstep that the TPU needed for its scalar
+// dispatch is gone: each slot has its own warp group of W warps (32 W
+// threads of 256 / (32 W) pixels each) that walks its tape on its own,
+// as G's CTA does, with no block barrier. A group stages its tape in its
+// own part of the dynamic shared memory with 16-byte cp.async and
+// synchronises with __syncwarp (W = 1) or a named barrier of its 32 W
+// threads (bar.sync 1 + group), keeps the next record's row in flight,
+// and keeps the first `levels` stack levels of its slot in shared memory
+// (eight slots x levels x 4 KB); deeper levels go to a per-slot scratch
+// [n][BD - levels][4][256], so no row pool is needed. A thread's pixels
+// are vectors of four (or its whole share) at a stride of 4 x 32 W
+// pixels, so that every row, stack and output access of a warp is one
+// coalesced run. W is a template parameter (1, 2 or 4) and `levels` a
+// launch argument; the shipped pair (kHWarps, kHLevels) was chosen by
+// measurement on config 4's legacy slots (chip_smoke.py, phase 8).
+
 // What bounds it on an H100: per record 64 B of tape, 1 KB of coverage
 // for a fill, and per push or pop 4 KB of stack traffic; per slot 4 KB
 // written: 44 MB at config 4, 13 us at the card's memory rate. The
@@ -85,10 +94,14 @@ namespace {
 
 using namespace jello;
 
-constexpr int kBatchTiles = 8;               // H: tiles a CTA
+constexpr int kBatchTiles = 8;               // H: slots a CTA
+constexpr int kHWarps = 4;                   // H: warps a slot, as shipped
+constexpr int kHMinCtas = 1;                 // H: CTAs a multiprocessor it is built for
+constexpr int kHLevels = 0;                  // H: stack levels a slot in shared memory
+constexpr int kHMaxLevels = 4;               // H: the most levels a launch may ask for
 constexpr int kTileThreads = 128;            // G: threads a tile
 constexpr int kPx = kPixels / kTileThreads;  // G: pixels a thread
-constexpr int kChunk = 32;                   // G: records staged at once
+constexpr int kChunk = 32;                   // G, H: records staged at once
 constexpr int kSmemLevels = 4;               // G: stack levels in shared memory
 constexpr int kMaxDevices = 16;
 
@@ -116,10 +129,18 @@ __device__ __forceinline__ bool reads_row(const int* w, int zero_depth) {
          w[2] > 0;
 }
 
-// PX consecutive floats at p (16-, 8- or 4-byte aligned), and their store.
-template <int PX>
+// A thread's PX floats at p: vectors of V = min(PX, 4) consecutive floats
+// (16-, 8- or 4-byte aligned), vector s at p + s * STRIDE; and their store.
+template <int PX, int STRIDE>
 __device__ __forceinline__ void load_px(const float* p, float (&a)[PX]) {
-  if constexpr (PX == 4) {
+  static_assert(PX <= 4 || (PX % 4 == 0 && STRIDE > 0), "PX > 4 needs a stride");
+  if constexpr (PX > 4) {
+#pragma unroll
+    for (int s = 0; s < PX / 4; ++s) {
+      const float4 q = *reinterpret_cast<const float4*>(p + s * STRIDE);
+      a[4 * s] = q.x; a[4 * s + 1] = q.y; a[4 * s + 2] = q.z; a[4 * s + 3] = q.w;
+    }
+  } else if constexpr (PX == 4) {
     const float4 q = *reinterpret_cast<const float4*>(p);
     a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
   } else if constexpr (PX == 2) {
@@ -130,9 +151,14 @@ __device__ __forceinline__ void load_px(const float* p, float (&a)[PX]) {
   }
 }
 
-template <int PX>
+template <int PX, int STRIDE>
 __device__ __forceinline__ void store_px(float* p, const float (&a)[PX]) {
-  if constexpr (PX == 4) {
+  if constexpr (PX > 4) {
+#pragma unroll
+    for (int s = 0; s < PX / 4; ++s)
+      *reinterpret_cast<float4*>(p + s * STRIDE) =
+          make_float4(a[4 * s], a[4 * s + 1], a[4 * s + 2], a[4 * s + 3]);
+  } else if constexpr (PX == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
   } else if constexpr (PX == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
@@ -141,10 +167,17 @@ __device__ __forceinline__ void store_px(float* p, const float (&a)[PX]) {
   }
 }
 
-// A thread's PX consecutive pixels of record w's row (word 1).
-template <int PX>
+// The pixel (0..255) of a thread's j-th float under load_px<PX, STRIDE>,
+// from the pixel of its first.
+template <int PX, int STRIDE>
+__device__ __forceinline__ int px_of(int p0, int j) {
+  return PX > 4 ? p0 + (j / 4) * STRIDE + (j % 4) : p0 + j;
+}
+
+// A thread's PX pixels of record w's row (word 1).
+template <int PX, int STRIDE>
 __device__ __forceinline__ void load_row(const Tables& tb, const int* w, int p0, float (&a)[PX]) {
-  load_px<PX>(tb.rows + (size_t)clamp_i(w[1], 0, tb.n_rows - 1) * kPixels + p0, a);
+  load_px<PX, STRIDE>(tb.rows + (size_t)clamp_i(w[1], 0, tb.n_rows - 1) * kPixels + p0, a);
 }
 
 // The control part of one record: the clip, suppression and blend depths
@@ -174,12 +207,13 @@ __device__ __forceinline__ int control_step(const int* w, Ctl& c, int BD, bool* 
   return -1;
 }
 
-// The pixel part of one record for a thread's PX pixels: coverage, paint,
+// The pixel part of one record for a thread's PX pixels (laid out as
+// load_px<PX, STRIDE> reads them): coverage, paint,
 // push or pop-and-blend. `sup` is the suppression before the record, `a`
 // its row (read where reads_row says so), `lvl` the thread's column of
 // the stack level control_step named (null: none), (ox, oy) the tile's
 // first pixel.
-template <int PX>
+template <int PX, int STRIDE>
 __device__ __forceinline__ void pixel_step(const int* w, bool sup, float* lvl, bool push,
                                            const float (&a)[PX], const float (&gx)[PX],
                                            const float (&gy)[PX], float (&v)[PX][4],
@@ -237,7 +271,7 @@ __device__ __forceinline__ void pixel_step(const int* w, bool sup, float* lvl, b
         c[j] = v[j][ch];
         v[j][ch] = 0.0f;
       }
-      store_px<PX>(lvl + ch * kPixels, c);
+      store_px<PX, STRIDE>(lvl + ch * kPixels, c);
     }
     return;
   }
@@ -245,7 +279,7 @@ __device__ __forceinline__ void pixel_step(const int* w, bool sup, float* lvl, b
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
     float c[PX];
-    load_px<PX>(lvl + ch * kPixels, c);
+    load_px<PX, STRIDE>(lvl + ch * kPixels, c);
 #pragma unroll
     for (int j = 0; j < PX; ++j) bg[j][ch] = c[j];
   }
@@ -333,7 +367,7 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
     cp_async_wait_all();
     __syncthreads();
     float a[kPx] = {};
-    if (reads_row(tape, c.zero_depth)) load_row<kPx>(tb, tape, p0, a);
+    if (reads_row(tape, c.zero_depth)) load_row<kPx, 0>(tb, tape, p0, a);
     for (int ci = 0; ci < nc; ++ci) {
       const int* w = tape + ci * 16;
       const bool sup = c.zero_depth > 0;
@@ -341,7 +375,7 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
       const int level = control_step(w, c, tb.BD, &push);
       // The next record's row, in flight while this one paints.
       float a_next[kPx] = {};
-      if (ci + 1 < nc && reads_row(w + 16, c.zero_depth)) load_row<kPx>(tb, w + 16, p0, a_next);
+      if (ci + 1 < nc && reads_row(w + 16, c.zero_depth)) load_row<kPx, 0>(tb, w + 16, p0, a_next);
       if (level >= levels && deep == nullptr) {  // uniform: the tile's first deep push
         if (t == 0) {
           claimed = claim_row(rows);
@@ -353,7 +387,7 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
       float* lvl = level < 0        ? nullptr
                    : level < levels ? stack + (size_t)level * 4 * kPixels
                                     : deep + (size_t)(level - levels) * 4 * kPixels;
-      pixel_step<kPx>(w, sup, lvl, push, a, gx, gy, v, area, c.ovf, tb, ox, oy);
+      pixel_step<kPx, 0>(w, sup, lvl, push, a, gx, gy, v, area, c.ovf, tb, ox, oy);
 #pragma unroll
       for (int j = 0; j < kPx; ++j) a[j] = a_next[j];
     }
@@ -367,7 +401,7 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
   for (int ch = 0; ch < 4; ++ch) {
 #pragma unroll
     for (int j = 0; j < kPx; ++j) q[j] = ch < 3 ? v[j][ch] * inv[j] : v[j][3];
-    store_px<kPx>(o + ch * kPixels, q);
+    store_px<kPx, 0>(o + ch * kPixels, q);
   }
   if (t == 0) ovf[slot] = c.ovf;
   if (deep != nullptr) {  // give the row back once every thread's stores are out
@@ -377,69 +411,98 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
   }
 }
 
-// Kernel H: eight slots a CTA in lockstep, one pixel of each a thread;
-// scratch [n][BD][4][256] f32.
-__global__ void __launch_bounds__(kPixels)
+// Synchronise the 32 W threads of warp group g (W warps): __syncwarp for
+// one warp, else the named barrier 1 + g (barrier 0 is __syncthreads').
+template <int W>
+__device__ __forceinline__ void group_sync(int g) {
+  if constexpr (W == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(32 * W) : "memory");
+  }
+}
+
+// Kernel H: eight slots a CTA, a warp group of W warps a slot, each
+// walking its own tape; built for at least M CTAs a multiprocessor (the
+// register cap of __launch_bounds__). Dynamic shared memory: the eight
+// groups' staged tapes [8][kChunk][16] i32, then their stack levels
+// [8][levels][4][256] f32. scratch: [n][BD - levels][4][256] f32, null
+// when BD <= levels.
+template <int W, int M>
+__global__ void __launch_bounds__(kBatchTiles * 32 * W, M)
 interp_batch_kernel(const int* __restrict__ counts, const int* __restrict__ tile_ids,
                     const float* __restrict__ base, const int* __restrict__ slab,
                     float* __restrict__ scratch, float* __restrict__ out,
-                    int* __restrict__ ovf, Tables tb, int MC, int wit) {
-  __shared__ int w[kBatchTiles][16];
-  const int p = threadIdx.x;
-  const int slot0 = blockIdx.x * kBatchTiles;
+                    int* __restrict__ ovf, Tables tb, int MC, int wit, int levels) {
+  constexpr int kThreads = 32 * W;             // a slot's threads
+  constexpr int kPxH = kPixels / kThreads;     // pixels a thread: 8, 4 or 2
+  constexpr int kVec = kPxH < 4 ? kPxH : 4;    // floats a vector access
+  constexpr int kStride = kThreads * kVec;     // pixels between a thread's vectors
+  extern __shared__ float4 smem[];
+  const int g = threadIdx.x / kThreads;
+  const int t = threadIdx.x % kThreads;
+  const int p0 = t * kVec;
+  const int slot = blockIdx.x * kBatchTiles + g;
+  int* tape = reinterpret_cast<int*>(smem) + g * kChunk * 16;
+  float* stack = reinterpret_cast<float*>(smem) + kBatchTiles * kChunk * 16 +
+                 (size_t)g * levels * 4 * kPixels + p0;
+  float* deep = scratch == nullptr
+                    ? nullptr
+                    : scratch + (size_t)slot * (tb.BD - levels) * 4 * kPixels + p0;
 
-  float v[kBatchTiles][1][4], area[kBatchTiles][1], gx[kBatchTiles][1], gy[kBatchTiles][1];
-  int n[kBatchTiles], ox[kBatchTiles], oy[kBatchTiles];
-  Ctl ctl[kBatchTiles];
-  int n_max = 0;
+  const int tile = __ldg(tile_ids + slot);
+  const int count = min(__ldg(counts + slot), MC);
+  const int ox = (tile % wit) * 16, oy = (tile / wit) * 16;
+  float gx[kPxH], gy[kPxH], v[kPxH][4], area[kPxH];
 #pragma unroll
-  for (int k = 0; k < kBatchTiles; ++k) {
-    const int t = tile_ids[slot0 + k];
-    n[k] = min(counts[slot0 + k], MC);
-    n_max = max(n_max, n[k]);
-    ox[k] = (t % wit) * 16;
-    oy[k] = (t / wit) * 16;
-    gx[k][0] = (float)(p & 15) + (float)ox[k];
-    gy[k][0] = (float)(p >> 4) + (float)oy[k];
+  for (int j = 0; j < kPxH; ++j) {
+    const int px = px_of<kPxH, kStride>(p0, j);
+    gx[j] = (float)(px & 15) + (float)ox;
+    gy[j] = (float)(px >> 4) + (float)oy;
+    area[j] = 0.0f;
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch) v[k][0][ch] = base[ch];
-    area[k][0] = 0.0f;
-    ctl[k] = Ctl{0, 0, 0, 0};
+    for (int ch = 0; ch < 4; ++ch) v[j][ch] = __ldg(base + ch);
   }
+  Ctl c{0, 0, 0, 0};
 
-  for (int ci = 0; ci < n_max; ++ci) {
-    __syncthreads();
-    if (p < kBatchTiles * 16) {
-      const int k = p >> 4;
-      w[k][p & 15] = slab[((size_t)(slot0 + k) * MC + ci) * 16 + (p & 15)];
+  for (int c0 = 0; c0 < count; c0 += kChunk) {
+    const int nc = min(kChunk, count - c0);
+    if (c0 > 0) group_sync<W>(g);  // the group is done with the last chunk
+    const int4* src = reinterpret_cast<const int4*>(slab + ((size_t)slot * MC + c0) * 16);
+    for (int k = t; k < nc * 4; k += kThreads) cp_async16(tape + 4 * k, src + k);
+    cp_async_wait_all();
+    group_sync<W>(g);
+    float a[kPxH] = {};
+    if (reads_row(tape, c.zero_depth)) load_row<kPxH, kStride>(tb, tape, p0, a);
+    for (int ci = 0; ci < nc; ++ci) {
+      const int* w = tape + ci * 16;
+      const bool sup = c.zero_depth > 0;
+      bool push;
+      const int level = control_step(w, c, tb.BD, &push);
+      // The next record's row, in flight while this one paints.
+      float a_next[kPxH] = {};
+      if (ci + 1 < nc && reads_row(w + 16, c.zero_depth))
+        load_row<kPxH, kStride>(tb, w + 16, p0, a_next);
+      float* lvl = level < 0        ? nullptr
+                   : level < levels ? stack + (size_t)level * 4 * kPixels
+                                    : deep + (size_t)(level - levels) * 4 * kPixels;
+      pixel_step<kPxH, kStride>(w, sup, lvl, push, a, gx, gy, v, area, c.ovf, tb, ox, oy);
+#pragma unroll
+      for (int j = 0; j < kPxH; ++j) a[j] = a_next[j];
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBatchTiles; ++k) {
-      if (ci < n[k]) {
-        const bool sup = ctl[k].zero_depth > 0;
-        float a[1] = {0.0f};
-        if (reads_row(w[k], ctl[k].zero_depth)) load_row<1>(tb, w[k], p, a);
-        bool push;
-        const int level = control_step(w[k], ctl[k], tb.BD, &push);
-        float* lvl = level < 0 ? nullptr
-                               : scratch + ((size_t)(slot0 + k) * tb.BD + level) * 4 * kPixels + p;
-        pixel_step<1>(w[k], sup, lvl, push, a, gx[k], gy[k], v[k], area[k], ctl[k].ovf, tb,
-                      ox[k], oy[k]);
-      }
-    }
   }
 
+  float* o = out + (size_t)slot * 4 * kPixels + p0;
+  float inv[kPxH], q[kPxH];
 #pragma unroll
-  for (int k = 0; k < kBatchTiles; ++k) {
-    const float inv_a = 1.0f / fmaxf(v[k][0][3], 1e-6f);
-    float* o = out + (size_t)(slot0 + k) * 4 * kPixels + p;
-    o[0] = v[k][0][0] * inv_a;
-    o[kPixels] = v[k][0][1] * inv_a;
-    o[2 * kPixels] = v[k][0][2] * inv_a;
-    o[3 * kPixels] = v[k][0][3];
-    if (p == 0) ovf[slot0 + k] = ctl[k].ovf;
+  for (int j = 0; j < kPxH; ++j) inv[j] = 1.0f / fmaxf(v[j][3], 1e-6f);
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+#pragma unroll
+    for (int j = 0; j < kPxH; ++j) q[j] = ch < 3 ? v[j][ch] * inv[j] : v[j][3];
+    store_px<kPxH, kStride>(o + ch * kPixels, q);
   }
+  if (t == 0) ovf[slot] = c.ovf;
 }
 
 // G's stack levels in shared memory at blend depth BD, and its dynamic
@@ -485,6 +548,92 @@ cudaError_t tile_scratch_rows(int n, int levels, int* rows) {
   return cudaSuccess;
 }
 
+// H's stack levels in shared memory (the `levels` a launch asks for, at
+// most BD), and its dynamic shared memory at that many levels.
+int batch_levels(int levels, int BD) { return levels < BD ? levels : BD; }
+
+size_t batch_smem(int levels) {
+  return (size_t)kBatchTiles *
+         ((size_t)kChunk * 16 * sizeof(int) + (size_t)levels * 4 * kPixels * sizeof(float));
+}
+
+// The builds of kernel H: (W warps a slot, at least M CTAs a
+// multiprocessor). F is called with HV<W, M>{} of the pair asked for.
+template <int W, int M>
+struct HV {
+  static constexpr int kW = W, kM = M;
+};
+
+template <typename F>
+cudaError_t with_build(int warps, int min_ctas, F&& f) {
+  if (warps == 1 && min_ctas == 1) return f(HV<1, 1>{});
+  if (warps == 1 && min_ctas == 4) return f(HV<1, 4>{});
+  if (warps == 2 && min_ctas == 1) return f(HV<2, 1>{});
+  if (warps == 2 && min_ctas == 2) return f(HV<2, 2>{});
+  if (warps == 4 && min_ctas == 1) return f(HV<4, 1>{});
+  return cudaErrorInvalidValue;
+}
+
+// Set a build's dynamic shared memory limit on the current device to what
+// kHMaxLevels needs (above the 48 KB a launch gets without asking), once
+// per device.
+template <int W, int M>
+cudaError_t batch_opt_in() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidValue;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(interp_batch_kernel<W, M>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)batch_smem(kHMaxLevels));
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// Kernel H's build (warps, min_ctas) with `levels` shared stack levels.
+int batch_entry(const void* counts, const void* tile_ids, const void* base, const void* slab,
+                const void* scratch, void* out, void* ovf, const Tables& tb, int n, int MC,
+                int wit, int warps, int min_ctas, int levels, void* stream) {
+  if (n % kBatchTiles != 0 || levels < 0 || levels > kHMaxLevels) return (int)cudaErrorInvalidValue;
+  levels = batch_levels(levels, tb.BD);
+  if (tb.BD > levels && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float* sc = tb.BD > levels ? (float*)scratch : nullptr;
+  return (int)with_build(warps, min_ctas, [&](auto v) {
+    using V = decltype(v);
+    cudaError_t err = batch_opt_in<V::kW, V::kM>();
+    if (err != cudaSuccess) return err;
+    interp_batch_kernel<V::kW, V::kM>
+        <<<n / kBatchTiles, kBatchTiles * 32 * V::kW, batch_smem(levels), (cudaStream_t)stream>>>(
+            (const int*)counts, (const int*)tile_ids, (const float*)base, (const int*)slab, sc,
+            (float*)out, (int*)ovf, tb, MC, wit, levels);
+    return cudaGetLastError();
+  });
+}
+
+// Floats of H's per-slot scratch: the levels past `levels` for n slots.
+long long batch_scratch(int n, int BD, int levels) {
+  return (long long)n * (BD - batch_levels(levels, BD)) * 4 * kPixels;
+}
+
+// CTAs of H's build (warps, min_ctas) resident on one multiprocessor of
+// the current device at `levels` shared levels; -1 on a CUDA error.
+int batch_ctas(int warps, int min_ctas, int levels) {
+  int per_sm = 0;
+  const cudaError_t err = with_build(warps, min_ctas, [&](auto v) {
+    using V = decltype(v);
+    cudaError_t e = batch_opt_in<V::kW, V::kM>();
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, interp_batch_kernel<V::kW, V::kM>, kBatchTiles * 32 * V::kW,
+        batch_smem(levels));
+  });
+  return err == cudaSuccess ? per_sm : -1;
+}
+
 }  // namespace
 
 // counts [n] i32 (any words after the first n are not read), tile_ids [n]
@@ -492,7 +641,8 @@ cudaError_t tile_scratch_rows(int n, int levels, int* rows) {
 // [n_rows, 256] f32 (16-byte aligned), stops [NR, W] f32, atlas [4, AHp,
 // AWp] f32 or null, scratch (jello_fine_interp_scratch's floats) or null
 // where that is 0, out [n, 4, 256] f32, ovf [n] i32. batch != 0 launches
-// H and needs n % 8 == 0; resolved != 0: the rows are resolved coverage.
+// H (kHWarps warps a slot, kHLevels shared levels) and needs n % 8 == 0;
+// resolved != 0: the rows are resolved coverage.
 extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const void* base,
                                  const void* slab, const void* rows, const void* stops,
                                  const void* atlas, void* scratch, void* out, void* ovf,
@@ -503,13 +653,9 @@ extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const
   const Tables tb{(const float*)rows, (const float*)stops, (const float*)atlas,
                   n_rows, n_ramp_rows, row_w, BD, AHp, AWp, resolved};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (batch != 0) {
-    if (n % kBatchTiles != 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-    interp_batch_kernel<<<n / kBatchTiles, kPixels, 0, s>>>(
-        (const int*)counts, (const int*)tile_ids, (const float*)base, (const int*)slab,
-        (float*)scratch, (float*)out, (int*)ovf, tb, MC, wit);
-    return (int)cudaGetLastError();
-  }
+  if (batch != 0)
+    return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, wit, kHWarps,
+                       kHMinCtas, kHLevels, stream);
   const int levels = tile_levels(BD);
   int pool = 0;
   if (BD > levels) {
@@ -524,13 +670,13 @@ extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const
 }
 
 // Floats of stack scratch jello_fine_interp needs for n slots at blend
-// depth BD: G's deep levels for the CTAs it can hold at once (0 when BD
-// levels fit its shared memory), H's [n][BD][4][256]; -1 on a CUDA error
-// or past INT_MAX.
+// depth BD: G's deep levels for the CTAs it can hold at once, H's levels
+// past its shared ones for every slot, [n][BD - kHLevels][4][256] (0 when
+// BD levels fit shared memory); -1 on a CUDA error or past INT_MAX.
 extern "C" int jello_fine_interp_scratch(int n, int BD, int batch) {
   long long floats;
   if (batch != 0) {
-    floats = (long long)n * BD * 4 * kPixels;
+    floats = batch_scratch(n, BD, kHLevels);
   } else {
     const int levels = tile_levels(BD);
     int rows = 0;
@@ -541,14 +687,54 @@ extern "C" int jello_fine_interp_scratch(int n, int BD, int batch) {
 }
 
 // CTAs of kernel G (batch 0) or H (batch 1) resident on one multiprocessor
-// of the current device at blend depth BD (a query, no launch; -1 on a
-// CUDA error).
+// of the current device at blend depth BD, with the dynamic shared memory
+// each takes there (a query, no launch; -1 on a CUDA error).
 extern "C" int jello_fine_interp_ctas(int batch, int BD) {
   int per_sm = 0, sms = 0;
   if (batch == 0) {
     return tile_residency(tile_levels(BD), &per_sm, &sms) == cudaSuccess ? per_sm : -1;
   }
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, interp_batch_kernel, kPixels, 0);
-  return err == cudaSuccess ? per_sm : -1;
+  return batch_ctas(kHWarps, kHMinCtas, batch_levels(kHLevels, BD));
+}
+
+// Kernel H at any point of its design space: a build (warps, min_ctas) of
+// with_build and levels in [0, kHMaxLevels] (shipped: kHWarps, kHMinCtas,
+// kHLevels); the arguments of jello_fine_interp without `batch`, the
+// scratch sized by jello_fine_interp_h_query. For measuring the points
+// against each other; the renderer calls jello_fine_interp.
+extern "C" int jello_fine_interp_h(const void* counts, const void* tile_ids, const void* base,
+                                   const void* slab, const void* rows, const void* stops,
+                                   const void* atlas, void* scratch, void* out, void* ovf, int n,
+                                   int MC, int n_rows, int n_ramp_rows, int row_w, int wit,
+                                   int BD, int AHp, int AWp, int resolved, int warps,
+                                   int min_ctas, int levels, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const Tables tb{(const float*)rows, (const float*)stops, (const float*)atlas,
+                  n_rows, n_ramp_rows, row_w, BD, AHp, AWp, resolved};
+  return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, wit, warps,
+                     min_ctas, levels, stream);
+}
+
+// which 0: floats of scratch jello_fine_interp_h needs for n slots at
+// blend depth BD with `levels` shared levels (-1 past INT_MAX); 1: the
+// CTAs of build (warps, min_ctas) resident on one multiprocessor there (-1
+// on a CUDA error); 2, 3, 4: the shipped warps, min_ctas and levels.
+extern "C" int jello_fine_interp_h_query(int which, int n, int BD, int warps, int min_ctas,
+                                         int levels) {
+  switch (which) {
+    case 0: {
+      const long long floats = batch_scratch(n, BD, levels);
+      return floats > INT_MAX ? -1 : (int)floats;
+    }
+    case 1:
+      return batch_ctas(warps, min_ctas, batch_levels(levels, BD));
+    case 2:
+      return kHWarps;
+    case 3:
+      return kHMinCtas;
+    case 4:
+      return kHLevels;
+    default:
+      return -1;
+  }
 }

@@ -91,6 +91,14 @@ SIGNATURES = {
     "jello_fine_interp_scratch": [I, I, I],
     # batch, BD: G's or H's CTAs resident on a multiprocessor (a query)
     "jello_fine_interp_ctas": [I, I],
+    # kernel H at any point of its design space: jello_fine_interp's
+    # arguments without batch, then the build (warps a slot, CTAs a
+    # multiprocessor it is built for) and shared stack levels (0 to 4)
+    "jello_fine_interp_h": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                            P],
+    # which (0 scratch floats, 1 resident CTAs, 2, 3, 4 the shipped warps,
+    # CTAs and levels), n, BD, warps, min CTAs, levels (a query)
+    "jello_fine_interp_h_query": [I, I, I, I, I, I],
 }
 
 

@@ -3,10 +3,10 @@
 Counterpart of the kernel calls `make_fine_kernel` and
 `make_fine_kernel_b8` of `jello_tpu/tpu/fine_pallas.py` and of its
 full-grid entry `fine_pallas`. `interpret_tiles` launches kernel G (one
-tile a CTA), or kernel H with `batch` (eight tiles a CTA in lockstep),
-for CUDA tensors, and takes their plain version,
-`pipeline.fine_interp.interpret_plain`, only for CPU tensors; there is
-no fallback from one to the other.
+tile a CTA), or kernel H with `batch` (eight tiles a CTA, a warp group
+each that walks its own tape), for CUDA tensors, and takes their plain
+version, `pipeline.fine_interp.interpret_plain`, only for CPU tensors;
+there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -100,11 +100,11 @@ interpret_tiles.launches_batch = 0
 @functools.lru_cache(maxsize=64)
 def scratch_shape(n, blend_depth, batch, device_index=None):
     """The stack scratch the entry takes for n slots at this blend depth,
-    as a shape of floats, or None: H's [n, BD, 4, 256]; G's levels past
-    its shared memory for as many tiles as the card holds at once (none
-    when BD levels fit its shared memory). A query of the current device
-    (`device_index` names it for the cache), made once for each argument
-    tuple."""
+    as a shape of floats, or None: H's levels past its shared ones for
+    every slot; G's levels past its shared memory for as many tiles as the
+    card holds at once (none when BD levels fit shared memory). A query of
+    the current device (`device_index` names it for the cache), made once
+    for each argument tuple."""
     floats = kernels().jello_fine_interp_scratch(int(n), int(blend_depth), 1 if batch else 0)
     if floats < 0:
         raise RuntimeError("jello_fine_interp_scratch: CUDA error or a scratch past 2**31 floats")
@@ -119,6 +119,49 @@ def resident_ctas(batch, blend_depth):
     if n < 0:
         raise RuntimeError("jello_fine_interp_ctas: CUDA error")
     return n
+
+
+# Kernel H's builds: (warps a slot, CTAs a multiprocessor it is built for).
+H_BUILDS = ((1, 1), (1, 4), (2, 1), (2, 2), (4, 1))
+
+
+def h_variant(warps, min_ctas, levels):
+    """Kernel H at any point of its design space (a build of H_BUILDS,
+    stack levels a slot in shared memory), for measuring the points
+    against each other; the renderer's H is `interpret_tiles(...,
+    batch=True)` at the shipped point (`h_query(2)`, `(3)`, `(4)`).
+    Returns call(counts, tile_ids, base, slab, rows, stops, atlas, wit, BD,
+    resolved, out, ovf, scratch) on CUDA tensors: n (slab's slots) a
+    multiple of 8, out [n, 4, 256] f32, ovf [n] i32, scratch `h_query(0,
+    n, BD, levels=levels)` floats or None where that is 0."""
+    lib = kernels()
+
+    def call(counts, tile_ids, base, slab, rows, stops, atlas, wit, BD, resolved, out, ovf,
+             scratch):
+        n, MC, _ = slab.shape
+        NR, W = stops.shape
+        AHp, AWp = (0, 0) if atlas is None else atlas.shape[1:]
+        err = lib.jello_fine_interp_h(
+            counts.data_ptr(), tile_ids.data_ptr(), base.data_ptr(), slab.data_ptr(),
+            rows.data_ptr(), stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), ovf.data_ptr(), n,
+            MC, rows.shape[0], NR, W, int(wit), int(BD), AHp, AWp, 1 if resolved else 0,
+            int(warps), int(min_ctas), int(levels), stream_of(slab))
+        check("jello_fine_interp_h", err)
+
+    return call
+
+
+def h_query(which, n=0, blend_depth=1, warps=1, min_ctas=1, levels=0):
+    """Kernel H's design space (`jello_fine_interp_h_query`): which 0, the
+    scratch floats of n slots at (blend_depth, levels); 1, the CTAs of the
+    build (warps, min_ctas) resident a multiprocessor at (levels,
+    blend_depth); 2, 3 and 4, the shipped warps, min_ctas and levels."""
+    v = kernels().jello_fine_interp_h_query(which, int(n), int(blend_depth), int(warps),
+                                            int(min_ctas), int(levels))
+    if v < 0:
+        raise RuntimeError("jello_fine_interp_h_query: CUDA error or past 2**31 floats")
+    return v
 
 
 def fine_interp(cmds, counted, ramps, atlas, layout, caps):

@@ -111,16 +111,39 @@ def rank_frames(group, jobs):
     """This rank's part of each frame of `jobs`, a list of (make, inputs,
     caps, options): `make(group, caps, **options)` is this module's or
     `sharded2`'s `make_sharded_render`, `inputs` a `frame_inputs` tuple.
-    Returns [(fine_out, flags {name: bool}, debug or None)] on the host."""
-    out = []
+    With `max_retries` in the options (`sharded2` only) the frame goes
+    through `sharded2.RetryingRender`, which renders it again on a raised
+    flag with the ranks that raised it grown (its one other option:
+    `debug`); one RetryingRender serves every such job of the call,
+    so a later frame of the same shape starts from the grown class.
+    Returns [(fine_out, flags {name: bool}, debug or None)] on the host;
+    a retried frame's debug dict also holds `retries` (its
+    `RetryingRender.last_retries`), `grown` and `seg_ex_cap` (its class)."""
+    from . import sharded2
+
+    out, retry = [], {}
     for make, inputs, caps, opts in jobs:
         scene_u32, ld, ramps, atlas, _ = inputs
         scene, layout, ramps_t, _ = upload(scene_u32, ld, ramps, {}, group.device)
-        res = make(group, caps, **opts)(scene, layout, ramps_t,
-                                        upload_atlas(atlas, group.device))
+        atlas_t = upload_atlas(atlas, group.device)
+        extra = {}
+        if "max_retries" in opts:
+            if make is not sharded2.make_sharded_render:
+                raise ValueError("max_retries: only the geometry-sharded frame retries")
+            if set(opts) - {"max_retries", "debug"}:
+                raise ValueError(f"options {sorted(opts)}: a retried frame takes max_retries "
+                                 "and debug")
+            key = (opts["max_retries"], bool(opts.get("debug")))
+            r = retry.setdefault(key, sharded2.RetryingRender(group, *key))
+            res = r(caps, scene, layout, ramps_t, atlas_t)
+            st = r.state(caps, scene, layout)
+            extra = {"retries": r.last_retries, "grown": st[1], "seg_ex_cap": st[2]}
+        else:
+            res = make(group, caps, **opts)(scene, layout, ramps_t, atlas_t)
         dbg = res[2] if len(res) > 2 else None
-        out.append((res[0].cpu(), {k: bool(v) for k, v in res[1].items()},
-                    None if dbg is None else {k: v.cpu() for k, v in dbg.items()}))
+        if dbg is not None or extra:
+            dbg = {k: v.cpu() for k, v in (dbg or {}).items()} | extra
+        out.append((res[0].cpu(), {k: bool(v) for k, v in res[1].items()}, dbg))
     return out
 
 

@@ -21,7 +21,16 @@ Counterpart of `jello_tpu/tpu/sharded2.py`, step by step:
     tap), the stripe's tile rows, one `all_gather`.
 
 `shard_caps` derives the per-rank capacities from the single-device
-class, with the same numbers as jello_tpu's.
+class, with the same numbers as jello_tpu's. Content is not spread evenly
+over tag ranges (config 4 puts every tag in rank 0's range), so a rank can
+run out of what beta / n gives it: `make_sharded_render` takes a per-rank
+table of grown capacities on top of `shard_caps` (`rank_caps`), each frame
+reports every rank's raised flags and its load (what it needed of each
+capacity), and `RetryingRender` renders a frame again on a raised flag,
+growing only the ranks that raised and only what their load shows ran
+out (`grow_ranks`): the single-card renderer's retry protocol
+(`cuda/render.py`, `renderer/estimate.py::grow_caps`), which jello_tpu's
+sharded frame lacks.
 """
 
 from __future__ import annotations
@@ -69,20 +78,65 @@ def shard_caps(caps: dict, n: int, beta: float = 2.0) -> dict:
     return c
 
 
-def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None):
+# The capacities a rank may grow on its own (`rank_caps`). n_tag_slots and
+# seg_ex_cap are not among them: tag_lo = rank * n_tag_slots, and every rank
+# sends and receives [n, seg_ex_cap, 8] rows in the exchange.
+RANK_KEYS = ("work_a_cap", "work_b_cap", "euler_line_cap", "simple_line_cap", "arc_line_cap",
+             "line_cap", "seg_cap", "row_cap", "area_rows_cap", "cross_lines_cap",
+             "row_lines_cap", "cmd_cap", "legacy_tiles_cap", "img_recs_cap")
+LINE_KEYS = ("euler_line_cap", "simple_line_cap", "arc_line_cap")
+# The columns of a frame's `load`: what each rank needed of a rank-local
+# capacity in that frame (the last, of the exchange's slice to one rank).
+# A count taken after a stage that overflowed is a lower bound.
+LOAD_KEYS = ("work_a_cap", "work_b_cap", "euler_line_cap", "simple_line_cap", "arc_line_cap",
+             "seg_cap", "row_cap", "cross_lines_cap", "row_lines_cap", "cmd_cap", "seg_ex_cap")
+# The flags each load column can explain.
+LOAD_FLAGS = {"flatten_overflow": LOAD_KEYS[:5], "segs_overflow": LOAD_KEYS[5:9] + LOAD_KEYS[10:],
+              "pairs_overflow": ("cmd_cap",)}
+# The retries RetryingRender allows a frame by default: a stage a retry,
+# since a count past an overflowed stage is a lower bound.
+MAX_RETRIES = 8
+# Flags of the fine stage whose capacity is one rank-local key.
+GROW_ONE = {"area_rows_overflow": "area_rows_cap", "legacy_overflow": "legacy_tiles_cap",
+            "img_recs_overflow": "img_recs_cap"}
+
+
+def rank_caps(caps: dict, n: int, rank: int, grown=None, seg_ex_cap=None) -> dict:
+    """Rank `rank`'s class: `shard_caps(caps, n)` with `grown[rank]` on top
+    (grown: {rank: {key: value}}, the same table on every rank; each value
+    raises that rank's capacity to at least itself, for a key of
+    RANK_KEYS), line_cap at least the sum of the three line families, and
+    `seg_ex_cap` (the same on every rank) in place of shard_caps's."""
+    c = shard_caps(caps, n)
+    for k, v in (grown or {}).get(rank, {}).items():
+        if k not in RANK_KEYS:
+            raise ValueError(f"{k}: not a rank-local capacity (one of {RANK_KEYS})")
+        c[k] = max(c[k], int(v))
+    c["line_cap"] = max(c["line_cap"], sum(c[k] for k in LINE_KEYS))
+    if seg_ex_cap:
+        c["seg_ex_cap"] = int(seg_ex_cap)
+    return c
+
+
+def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None, grown=None,
+                        report=False):
     """The geometry-sharded frame of this rank (`sharded2.py:92-458`).
 
     caps_global: the single-device class with the frame's routing
     (`sharded.sharded_caps`); the rank's own capacities come from
-    `shard_caps`. seg_ex_cap: the exchange slice's rows in place of
-    `shard_caps`'s (a test forces a small one to show its flag). Returns
-    run(scene, layout, ramps, atlas=None) -> (fine_out [4, GRID, 256]
-    un-premultiplied, flags {name: 0-dim bool}), plus with `debug` a dict
-    of the exchanged state: seg_count, backdrop (the prefix), recv
-    [n, n, seg_ex_cap, 8] (every rank's received rows, by source), lo and
-    cnt [n] (each stripe's slice of the command stream), raised [n, K]
-    (each rank's own flags before they combine, in the flags' order),
-    load [n, 3] (each rank's Euler work items, line slots and crossings)."""
+    `rank_caps`: `shard_caps` with the rank's entries of `grown` on top.
+    seg_ex_cap: the exchange slice's rows in place of `shard_caps`'s, the
+    same on every rank (a test forces a small one to show its flag).
+    Returns run(scene, layout, ramps, atlas=None) -> (fine_out [4, GRID,
+    256] un-premultiplied, flags {name: 0-dim bool}); with `report` or
+    `debug` also a dict with raised [n, K] (each rank's own flags before
+    they combine, in the flags' sorted order) and load [n, len(LOAD_KEYS)]
+    (what each rank needed of each capacity), both from the one all_gather
+    the flags combine through, and with `debug` the exchanged state too:
+    seg_count, backdrop (the prefix), recv [n, n, seg_ex_cap, 8] (every
+    rank's received rows, by source), lo and cnt [n] (each stripe's slice
+    of the command stream), classes [n, 2] (each rank's n_tag_slots and
+    seg_ex_cap). Nothing is read to the host inside the frame."""
     n, d = group.world, group.rank
     caps = dict(caps_global)
     GRID = caps["tile_grid_cap"]
@@ -93,9 +147,15 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None):
         raise ValueError(f"tiles_cap {T}: the exchange carries slots as float32, exact "
                          "below 2**24")
     local_tiles = GRID // n
-    caps_l = dict(shard_caps(caps, n), _expand_pallas=True)
+    # Only rank-local capacities differ between ranks: every collective of
+    # the frame has a shape that none of them sets (the monoid totals [5],
+    # the per-path psum and pmax [P], the backdrop and segment psums [T],
+    # the exchange [n, seg_ex_cap, 8], the stripes [GRID / n, 4, 256], the
+    # flags and loads [K + len(LOAD_KEYS)]), and tag_lo and the exchange
+    # read n_tag_slots and seg_ex_cap, which are the same on every rank.
+    caps_l = dict(rank_caps(caps, n, d, grown, seg_ex_cap), _expand_pallas=True)
     N_l = caps_l["n_tag_slots"]
-    PEX = seg_ex_cap or caps_l["seg_ex_cap"]
+    PEX = caps_l["seg_ex_cap"]
     CC_l = caps_l["cmd_cap"]
     SC_l = caps_l["seg_cap"]
     tag_lo = d * N_l
@@ -139,6 +199,7 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None):
             torch.ones(SC_l, dtype=I32, device=dev)))
         within = ops.iota(SC_l, dev) - ops.gather_guarded(start_dest, dsc)
         exchange_overflow = ((ds < n) & (within >= PEX)).any()
+        ex_need = (start_dest[1:n + 1] - start_dest[:n]).max()
         # Unwritten rows carry the dead slot T.
         send = torch.cat([torch.full((n * PEX, 1), float(T), dtype=F32, device=dev),
                           torch.zeros((n * PEX, 7), dtype=F32, device=dev)], 1)
@@ -223,20 +284,155 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None):
                                                               device=dev))
         keys = sorted(flags)
         own = torch.stack([flags[k].to(I32).reshape(()) for k in keys])
-        raised = pmax(group, own)
+        need = torch.stack([v.to(I32).reshape(()) for v in (
+            fl["n_work_a"], fl["n_work_b"], fl["e_total"], fl["s_total"], fl["a_total"], c_total,
+            r_total, (n_cross > 0).sum(), (n_rows > 0).sum(), cnt, ex_need)])
+        # One all_gather in place of a pmax of the flags: every rank gets
+        # every rank's flags and load, and combines the flags itself.
+        table = all_gather(group, torch.cat([own, need]))
+        raised = table[:, :len(keys)].amax(0)
         flags = {k: raised[i] > 0 for i, k in enumerate(keys)}
-        if not debug:
+        rep = {"raised": table[:, :len(keys)], "load": table[:, len(keys):]}
+        if debug:
+            rep.update(seg_count=seg_count, backdrop=bd_prefix,
+                       recv=all_gather(group, recv.reshape(n, PEX, 8)),
+                       lo=all_gather(group, lo), cnt=all_gather(group, cnt),
+                       classes=all_gather(group, torch.stack([
+                           torch.full((), N_l, dtype=I32, device=dev),
+                           torch.full((), PEX, dtype=I32, device=dev)])))
+        elif not report:
             return fine_out, flags
-        return fine_out, flags, {
-            "seg_count": seg_count, "backdrop": bd_prefix,
-            "recv": all_gather(group, recv.reshape(n, PEX, 8)),
-            "lo": all_gather(group, lo), "cnt": all_gather(group, cnt),
-            "raised": all_gather(group, own),
-            "load": all_gather(group, torch.stack([
-                (fl["n_work_a"] + fl["n_work_b"]).to(I32), fl["n_lines"].to(I32),
-                c_total.to(I32)]))}
+        return fine_out, flags, rep
 
     return run
+
+
+def grow_ranks(caps, n, grown, seg_ex_cap, keys, raised, load):
+    """The class after a frame that raised flags, from every rank's
+    `raised` [n, K] (flags in `keys`' order) and `load` [n,
+    len(LOAD_KEYS)] (host values; the same on every rank, so each rank
+    derives the same class with no exchange of its own).
+
+    Only a rank that raised a flag grows, and only what its load shows ran
+    out: a capacity of a raised flag's stage (LOAD_FLAGS) whose need
+    exceeds it grows to the larger of twice itself and the need (a need
+    counted after an overflowed stage is a lower bound, so a frame may
+    take a retry a stage); the Euler lines double with the work items
+    when those ran out (the walk stopped at the work capacity); a fine
+    stage's flag doubles its one capacity (GROW_ONE). The exchange's slice
+    is one size on every rank: it grows to the largest rank's need. A
+    raised flag that no load explains (the replicated stages' tiles,
+    pairs, blend depth or tape length, the lockstep walk's iterations)
+    grows the single-device class `caps` as `grow_caps` does.
+
+    Returns (caps, grown {rank: {key: value}}, seg_ex_cap, what grew:
+    {rank: sorted keys}, and under "class" the flags `caps` grew for))."""
+    from ..renderer.estimate import grow_caps
+
+    grown = {r: dict(v) for r, v in grown.items()}
+    pex = rank_caps(caps, n, 0, grown, seg_ex_cap)["seg_ex_cap"]
+    ex_need = max(int(row[-1]) for row in load)
+    what, unexplained = {}, set()
+    for r in range(n):
+        own = {k for k, v in zip(keys, raised[r]) if int(v)}
+        if not own:
+            continue
+        cl = rank_caps(caps, n, r, grown, seg_ex_cap)
+        need = {k: int(v) for k, v in zip(LOAD_KEYS, load[r])}
+        short = {k for k in LOAD_KEYS[:-1] if need[k] > cl[k]}
+        # Work items and the simple and arc lines overflow as pairs (one
+        # capacity each pair shares): grow a member only if its pair ran out.
+        for pair in (("work_a_cap", "work_b_cap"), ("simple_line_cap", "arc_line_cap")):
+            if sum(need[k] for k in pair) <= sum(cl[k] for k in pair):
+                short -= set(pair)
+        short = {k for k in short if any(k in LOAD_FLAGS[f] for f in own if f in LOAD_FLAGS)}
+        g = grown.setdefault(r, {})
+        for k in short:
+            g[k] = max(2 * cl[k], _align(need[k], 512))
+        if short & {"work_a_cap", "work_b_cap"} and "euler_line_cap" not in short:
+            g["euler_line_cap"] = 2 * cl["euler_line_cap"]
+            short.add("euler_line_cap")
+        for f, k in GROW_ONE.items():
+            if f in own:
+                g[k] = 2 * cl[k]
+                short.add(k)
+        if short & set(LINE_KEYS):
+            g["line_cap"] = sum(g.get(k, cl[k]) for k in LINE_KEYS)
+        explained = {f for f in own if f in LOAD_FLAGS and short & set(LOAD_FLAGS[f])}
+        explained |= {f for f in own if f in GROW_ONE}
+        if "segs_overflow" in own and ex_need > pex:
+            explained.add("segs_overflow")
+        unexplained |= own - explained
+        if not g:
+            del grown[r]
+        if short:
+            what[r] = sorted(short)
+    if ex_need > pex:
+        seg_ex_cap = max(2 * pex, _align(ex_need, 512))
+    if unexplained:
+        caps = grow_caps(caps, {f: True for f in unexplained})
+        what["class"] = sorted(unexplained)
+    return caps, grown, seg_ex_cap, what
+
+
+class RetryingRender:
+    """The geometry-sharded frame of this rank, rendered again on a raised
+    flag: the single-card `Renderer`'s loop (`cuda/render.py`,
+    `max_retries`, a RuntimeError naming the flags once the retries are
+    spent) over `make_sharded_render`.
+
+    A frame reads its combined flags to the host once; a frame that raised
+    one reads every rank's raised flags and load (which the frame's one
+    all_gather of its flags already carries) and grows the class with
+    `grow_ranks`. Every rank derives the same class from the same gathered
+    values, so the ranks stay in step with no exchange of their own. The
+    grown class is kept for the frame's shape (scene words, path tags,
+    paths, target, and the single-device class it started from), so that a
+    settled frame of that shape renders once and grows nothing."""
+
+    def __init__(self, group, max_retries=MAX_RETRIES, debug=False):
+        self.group = group
+        self.max_retries = max_retries
+        self.debug = debug
+        # shape key -> [caps, grown, seg_ex_cap]
+        self.classes = {}
+        # The last frame's retries: [(raised flags, {rank: grown keys},
+        # seg_ex_cap)], one a frame that ran again.
+        self.last_retries = []
+
+    def state(self, caps, scene, layout):
+        """The class kept for this frame's shape: [single-device class,
+        grown {rank: {key: value}}, seg_ex_cap or None]."""
+        key = (scene.numel(), layout["n_path_tags"], layout["n_paths"], layout["target_width"],
+               layout["target_height"], tuple(sorted(caps.items())))
+        return self.classes.setdefault(key, [dict(caps), {}, None])
+
+    def __call__(self, caps, scene, layout, ramps, atlas=None):
+        """Render one frame at `caps` (the single-device class with the
+        frame's routing) or the class grown from it for this shape; every
+        rank calls it with the same inputs. Returns (fine_out, flags
+        {name: bool}, report: the frame's `make_sharded_render` report
+        dict)."""
+        st = self.state(caps, scene, layout)
+        n = self.group.world
+        self.last_retries = []
+        for attempt in range(self.max_retries + 1):
+            run = make_sharded_render(self.group, st[0], debug=self.debug, seg_ex_cap=st[2],
+                                      grown=st[1], report=True)
+            fine_out, flags, rep = run(scene, layout, ramps, atlas)
+            keys = sorted(flags)
+            values = torch.stack([flags[k] for k in keys]).cpu().tolist()
+            raised = [k for k, v in zip(keys, values) if v]
+            if not raised:
+                return fine_out, dict(zip(keys, values)), rep
+            if attempt == self.max_retries:
+                break
+            st[0], st[1], st[2], what = grow_ranks(
+                st[0], n, st[1], st[2], keys, rep["raised"].cpu().tolist(),
+                rep["load"].cpu().tolist())
+            self.last_retries.append((raised, what, st[2]))
+        raise RuntimeError(f"geometry-sharded render overflowed after {self.max_retries} "
+                           f"retries; flags still raised: {raised}")
 
 
 def dryrun_scene(jt, full_profile=False):
@@ -280,9 +476,10 @@ def dryrun_scene(jt, full_profile=False):
 def dryrun(n, device="cuda", backend="nccl", full_profile=False, image_tap=False, aa="area"):
     """Render `dryrun_scene` on n ranks (`sharded2.py::dryrun`; `image_tap`
     routes its image through kernel F, `aa` "area", "msaa8" or "msaa16")
-    and hold the frame to the single-device renderer's on `device`
-    (within 1e-3). Returns the max abs difference; raises on a larger one
-    or on a raised flag."""
+    through `RetryingRender` (a raised flag grows the ranks that raised it
+    and renders again, up to MAX_RETRIES times) and hold the frame to the
+    single-device renderer's on `device` (within 1e-3). Returns the max
+    abs difference; raises on a larger one or on a flag still raised."""
     import dataclasses
 
     import jello_tpu_torch as jt
@@ -297,7 +494,8 @@ def dryrun(n, device="cuda", backend="nccl", full_profile=False, image_tap=False
     r.use_image_tap = image_tap
     ref = r.render(scene, params)
     inputs = frame_inputs(scene, params)
-    job = (make_sharded_render, inputs, sharded_caps(r._caps, inputs, aa, image_tap), {})
+    job = (make_sharded_render, inputs, sharded_caps(r._caps, inputs, aa, image_tap),
+           {"max_retries": MAX_RETRIES})
     fine_out, flags, _ = run_ranks(rank_frames, n, backend, device, ([job],))[0][0]
     raised = [k for k, v in flags.items() if v]
     err = float(np.abs(assemble(fine_out, inputs[1]).numpy() - ref).max())

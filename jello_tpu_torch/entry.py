@@ -37,9 +37,10 @@ def entry(device="cuda"):
 def dryrun_multichip(n, device="cuda", backend="nccl"):
     """Render the geometry-sharded dry run (`cuda/sharded2.py::dryrun`
     with its full-profile scene through the image tap) on n ranks, each
-    in its own process; raises if a rank fails or the frame leaves the
-    single-device one (`__graft_entry__.py::dryrun_multichip`). Several
-    ranks on one card need backend "gloo"."""
+    in its own process, a raised flag retried with the ranks that raised
+    it grown; raises if a rank fails, a flag stays raised or the frame
+    leaves the single-device one (`__graft_entry__.py::dryrun_multichip`).
+    Several ranks on one card need backend "gloo"."""
     from .cuda.sharded2 import dryrun
 
     err = dryrun(n, device, backend, full_profile=True, image_tap=True)

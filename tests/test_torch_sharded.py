@@ -11,7 +11,10 @@ frames within 1e-3 of the numpy oracle, 19b frames within 8e-3 of it (under
 MSAA of the oracle on float32 segments, as the port's MSAA tests hold it), and
 each within 1e-3 of the port's single-device frame, with no flag raised;
 the exchanged crossings reach other ranks; a small exchange raises
-segs_overflow. And at world size 1, in this process.
+segs_overflow. A scene whose path tags all lie in rank 0's range, as
+config 4's do, raises flatten_overflow or segs_overflow on rank 0 at the
+calibrated class, and through `sharded2.RetryingRender` renders clean with
+only rank 0 grown. And at world size 1, in this process.
 
 The geometry path needs tags in every shard: a scene of fewer than
 (n - 1) * 1024 path tags lies wholly in shard 0 (shard_caps aligns a
@@ -76,6 +79,22 @@ def fills900(jt):
                                                   + rng.normal(0, 12, 6))).close()
         s.fill(jt.Fill.NON_ZERO if i % 3 else jt.Fill.EVEN_ODD, jt.Affine.identity(),
                jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.7)), None, p)
+    return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def rank0_lines(jt):
+    """60 fills of eight random cubics over 256x256: ~600 path tags, all in
+    rank 0's 2,048 tag slots at world size 4, and more Euler lines and
+    crossings than half of the calibrated single-device class (what
+    shard_caps gives a rank at n = 4) holds."""
+    rng = np.random.default_rng(3)
+    s = jt.Scene()
+    for i in range(60):
+        p = jt.BezPath().move_to(*(rng.random(2) * 200 + 28))
+        for _ in range(8):
+            p = p.cubic_to(*(rng.random(6) * 256))
+        s.fill(jt.Fill.NON_ZERO if i % 2 else jt.Fill.EVEN_ODD, jt.Affine.identity(),
+               jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.5)), None, p.close())
     return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
@@ -250,6 +269,8 @@ FRAMES = {
     "full_tap": (_full, "area", sharded2, {}),
     "full_tap_msaa8": (_full, "msaa8", sharded2, {}),
     "fills900_small_exchange": (fills900, "area", sharded2, {"seg_ex_cap": 512}),
+    "rank0_lines": (rank0_lines, "area", sharded2, {"report": True}),
+    "rank0_lines_retry": (rank0_lines, "area", sharded2, {"max_retries": 8, "debug": True}),
 }
 
 
@@ -296,7 +317,8 @@ def _oracle(scene_j, params_j):
 
 
 @pytest.mark.parametrize("name", ["stripes_kernel", "stripes_fine_ref", "fills900",
-                                  "fills900_msaa8", "full_tap", "full_tap_msaa8"])
+                                  "fills900_msaa8", "full_tap", "full_tap_msaa8",
+                                  "rank0_lines_retry"])
 def test_torch_sharded_frame_matches_oracle_and_single_device(world4, name):
     """The gathered frame, the same on every rank: no flag, within 1e-3 of
     the port's single-device frame, and within 1e-3 (stripes) or 8e-3
@@ -340,6 +362,107 @@ def test_torch_small_exchange_raises_segs_overflow(world4):
     assert sharded2.shard_caps(caps, WORLD)["seg_ex_cap"] > 512
     flags = ranks[0][1]
     assert [k for k, v in flags.items() if v] == ["segs_overflow"]
+
+
+def test_torch_rank0_lines_raise_without_the_retry(world4):
+    """Every path tag in rank 0's range, at the calibrated class: rank 0
+    raises flatten_overflow or segs_overflow (its line and crossing
+    capacities are half the single device's) and no other rank raises a
+    flag; its load shows what ran out."""
+    (_, _, inputs, caps), ranks = world4["rank0_lines"]
+    N_l = sharded2.shard_caps(caps, WORLD)["n_tag_slots"]
+    assert int(inputs[1]["n_path_tags"]) <= N_l
+    flags, rep = ranks[0][1], ranks[0][2]
+    raised = {k for k, v in flags.items() if v}
+    assert raised and raised <= {"flatten_overflow", "segs_overflow"}, raised
+    keys = sorted(flags)
+    by_rank = [{k for k, v in zip(keys, row.tolist()) if v} for row in rep["raised"]]
+    assert by_rank[0] == raised and not any(by_rank[1:]), by_rank
+    cl = sharded2.rank_caps(caps, WORLD, 0)
+    need = dict(zip(sharded2.LOAD_KEYS, rep["load"][0].tolist()))
+    assert any(need[k] > cl[k] for k in sharded2.LOAD_KEYS), need
+
+
+def test_torch_retry_grows_only_the_raising_rank(world4):
+    """The same frame through RetryingRender: clean (held to the oracle and
+    the single device in the frame test above) after at least one retry;
+    only rank 0's capacities grew, each at least to what its first frame
+    needed (work items, and simple and arc lines, by the capacity each pair
+    shares), and every rank ran with the same n_tag_slots and seg_ex_cap."""
+    (_, _, _, caps), ranks = world4["rank0_lines_retry"]
+    dbg = ranks[0][2]
+    print(f"retries {dbg['retries']}; grown {dbg['grown']}; seg_ex_cap {dbg['seg_ex_cap']}")
+    assert dbg["retries"] and set(dbg["retries"][0][0]) <= {"flatten_overflow", "segs_overflow"}
+    assert list(dbg["grown"]) == [0], dbg["grown"]
+    assert all("class" not in what for _, what, _ in dbg["retries"])
+    for _, _, other in ranks[1:]:
+        assert other["grown"] == dbg["grown"] and other["seg_ex_cap"] == dbg["seg_ex_cap"]
+        assert torch.equal(other["classes"], dbg["classes"])
+    assert (dbg["classes"] == dbg["classes"][0]).all(), dbg["classes"]
+    first = dict(zip(sharded2.LOAD_KEYS, world4["rank0_lines"][1][0][2]["load"][0].tolist()))
+    cl = sharded2.rank_caps(caps, WORLD, 0, dbg["grown"], dbg["seg_ex_cap"])
+    pairs = (("work_a_cap", "work_b_cap"), ("simple_line_cap", "arc_line_cap"))
+    for pair in pairs:
+        first[pair] = sum(first.pop(k) for k in pair)
+        cl[pair] = sum(cl[k] for k in pair)
+    assert not [(k, cl[k], v) for k, v in first.items() if cl[k] < v]
+    base = sharded2.shard_caps(caps, WORLD)
+    for r in range(1, WORLD):
+        grown_r = sharded2.rank_caps(caps, WORLD, r, dbg["grown"], dbg["seg_ex_cap"])
+        assert all(grown_r[k] == base[k] for k in sharded2.RANK_KEYS)
+
+
+FLAG_KEYS = ["flatten_overflow", "legacy_overflow", "pairs_overflow", "segs_overflow",
+             "tiles_overflow"]
+
+
+def _load(**need):
+    return [need.get(k, 0) for k in sharded2.LOAD_KEYS]
+
+
+@pytest.mark.parametrize("case", ["one_family", "exchange", "fine_flag", "replicated"])
+def test_torch_grow_ranks_grows_what_ran_out(case):
+    """grow_ranks on made-up loads at config 1's class split over four
+    ranks: rank 2 overflows one line family while its line total fits (as
+    config 5's rank 2 does on the card): only that family grows, on rank 2
+    only; a full exchange slice grows seg_ex_cap for every rank; a fine
+    stage's flag doubles its one capacity on the rank that raised it; a
+    replicated stage's flag grows the single-device class."""
+    caps = estimate_caps_from_scene(*_class_inputs())
+    cl = sharded2.shard_caps(caps, WORLD)
+    raised = [[0] * len(FLAG_KEYS) for _ in range(WORLD)]
+    load = [_load() for _ in range(WORLD)]
+    flag = {"one_family": "flatten_overflow", "exchange": "segs_overflow",
+            "fine_flag": "legacy_overflow", "replicated": "tiles_overflow"}[case]
+    raised[2][FLAG_KEYS.index(flag)] = 1
+    if case == "one_family":
+        load[2] = _load(euler_line_cap=cl["euler_line_cap"] + 1,
+                        simple_line_cap=cl["simple_line_cap"] // 2)
+    if case == "exchange":
+        load[2] = _load(seg_ex_cap=cl["seg_ex_cap"] * 3)
+    new_caps, grown, pex, what = sharded2.grow_ranks(caps, WORLD, {}, None, FLAG_KEYS, raised,
+                                                     load)
+    if case == "one_family":
+        assert grown == {2: {"euler_line_cap": 2 * cl["euler_line_cap"],
+                             "line_cap": cl["line_cap"] + cl["euler_line_cap"]}}
+        assert what == {2: ["euler_line_cap"]} and pex is None and new_caps == caps
+    if case == "exchange":
+        assert grown == {} and pex == cl["seg_ex_cap"] * 3 and new_caps == caps
+        for r in range(WORLD):
+            assert sharded2.rank_caps(caps, WORLD, r, grown, pex)["seg_ex_cap"] == pex
+    if case == "fine_flag":
+        assert grown == {2: {"legacy_tiles_cap": 2 * cl["legacy_tiles_cap"]}} and pex is None
+    if case == "replicated":
+        assert grown == {} and what == {"class": ["tiles_overflow"]}
+        assert new_caps["tiles_cap"] == 2 * caps["tiles_cap"]
+    with pytest.raises(ValueError):
+        sharded2.rank_caps(caps, WORLD, 0, {0: {"n_tag_slots": 1 << 20}})
+
+
+def _class_inputs():
+    scene, params = GATE_SCENES[1]()
+    layout, _, _, scene_u32 = Resolver().resolve(scene.encoding)
+    return scene_u32, layout, params.width, params.height
 
 
 def test_torch_world_size_1_equals_single_device(tmp_path):

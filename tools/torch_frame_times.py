@@ -44,6 +44,16 @@ words). The bare entries follow the tree's entry layout: F's flag a
 zeroed int32 (older trees) or a byte the entry clears; G's stack scratch
 as the tree's `cuda.fine_interp.scratch_shape` says, where it has one.
 `--configs ""` times no frames.
+
+With --h-sweep it runs kernel H at every point of its design space (a
+build of `cuda.fine_interp.H_BUILDS`, W warps a slot and the CTAs a
+multiprocessor its register cap is set for; shared stack levels a slot
+in 0, 1, 2, 4; `cuda.fine_interp.h_variant`) on config 4's legacy slots, area and
+msaa8: each point's outputs must equal kernel G's bit for bit, and it
+prints each point's bare ms (median of 5 means of 100 calls), device us,
+registers and spills (ptxas, from a forced verbose build), resident CTAs
+and scratch, beside G's, and the lockstep efficiency of the parent's
+mapping (records walked over 8 x the longest tape of each CTA).
 """
 
 import argparse
@@ -71,6 +81,8 @@ def main():
                     help="also time kernels D, E, E' and E'' on config 5's and config 3's inputs")
     ap.add_argument("--kernels-fg", action="store_true",
                     help="also time kernel F on config 5's inputs, G and H on config 4's")
+    ap.add_argument("--h-sweep", action="store_true",
+                    help="also run kernel H at every (W, levels) on config 4's legacy slots")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
@@ -90,6 +102,14 @@ def main():
             kernels_de_times(opts.tag, smi, k)
     if opts.kernels_fg:
         kernels_fg_times(opts.tag, smi)
+    if opts.h_sweep:
+        from jello_tpu_torch.cuda import build
+
+        build.build(force=True, verbose=True)
+        for mode, (args, resolved) in record_interp_calls().items():
+            for line in h_sweep_lines(f"{opts.tag}: config4 {mode}", args, resolved,
+                                      h_sweep(args, resolved, build.LOG["fine_interp.cu"]), smi):
+                print(line)
     r = Renderer(device="cuda")
     for k in (int(v) for v in opts.configs.split(",") if v):
         scene, params = GATE_SCENES[k]()
@@ -486,6 +506,117 @@ def bare_interp(args, batch, resolved):
                      [n_run, MC, rows.shape[0], NR, W, int(wit), int(BD), AHp, AWp,
                       1 if batch else 0, 1 if resolved else 0])
     return call, (out[:n], ovf[:n])
+
+
+H_LEVELS = (0, 1, 2, 4)
+
+
+def ptxas_kernels(log):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    of one source's `-Xptxas -v` output."""
+    import re
+
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + spills
+            name, spills = None, (0, 0)
+    return out
+
+
+def lockstep_efficiency(counts, MC, tiles=8):
+    """(records walked, records the parent's eight-tile lockstep stepped
+    through: 8 x the longest tape of each CTA) of kernel H's slots (counts
+    [n] i32, capped at MC; padded to a multiple of 8 with empty slots)."""
+    import torch
+
+    c = torch.clamp(counts.long(), 0, MC)
+    c = torch.cat([c, c.new_zeros(-c.shape[0] % tiles)])
+    return int(c.sum()), int(c.view(-1, tiles).max(1).values.sum()) * tiles
+
+
+def h_sweep(args, resolved, ptxas_log=None):
+    """Kernel H at every point of H_BUILDS x H_LEVELS on `args`
+    (interpret_tiles' first nine, CUDA tensors), each point's outputs held
+    to kernel G's on the same slots bit for bit (raises on a difference).
+    Returns [(W, M, levels, bare ms, device us, registers, spill stores,
+    spill loads, resident CTAs, scratch MiB)], then G's row as (0, 0, 0,
+    ...): with `ptxas_log` (fine_interp.cu's verbose build) the
+    registers, else None."""
+    import torch
+    from jello_tpu_torch.cuda import fine_interp as kint
+
+    counts, ids, base, slab, rows, stops, atlas, wit, BD = args
+    n, MC, _ = slab.shape
+    want = kint.interpret_tiles(*args, False, resolved)
+    pad = -n % 8
+    slab8 = torch.cat([slab, slab.new_zeros((pad, MC, 16))])
+    ids8 = torch.cat([ids, ids.new_zeros(pad)])
+    counts8 = torch.cat([counts[:n], counts.new_zeros(pad)])
+    n8 = n + pad
+    regs = ptxas_kernels(ptxas_log) if ptxas_log else {}
+
+    def regs_of(fragment):
+        hit = [v for k, v in regs.items() if fragment in k]
+        return hit[0] if hit else (None, None, None)
+
+    table = []
+    for W, M in kint.H_BUILDS:
+        for L in H_LEVELS:
+            call = kint.h_variant(W, M, L)
+            floats = kint.h_query(0, n8, BD, levels=L)
+            scratch = torch.empty(floats, dtype=torch.float32, device="cuda") if floats else None
+            out = torch.empty((n8, 4, 256), dtype=torch.float32, device="cuda")
+            ovf = torch.empty(n8, dtype=torch.int32, device="cuda")
+
+            def run():
+                call(counts8, ids8, base, slab8, rows, stops, atlas, wit, BD, resolved, out, ovf,
+                     scratch)
+
+            run()
+            torch.cuda.synchronize()
+            if not (torch.equal(out[:n], want[0]) and torch.equal(ovf[:n], want[1])):
+                raise RuntimeError(f"kernel H at W {W}, M {M}, levels {L} differs from kernel G")
+            us = sum(device_us(run).values())
+            table.append((W, M, L, steady_ms(run), us)
+                         + regs_of(f"interp_batch_kernelILi{W}ELi{M}E")
+                         + (kint.h_query(1, n8, BD, W, M, L), 4 * floats / 2**20))
+    g_call, _ = bare_interp(args, False, resolved)
+    table.append((0, 0, 0, steady_ms(g_call), sum(device_us(g_call).values()))
+                 + regs_of("interp_tile_kernel") + (kint.resident_ctas(False, BD), 0.0))
+    return table
+
+
+def h_sweep_lines(tag, args, resolved, table, smi):
+    """The printed lines of an `h_sweep` table: one a point, G's last,
+    then the lockstep efficiency of the parent's mapping."""
+    from jello_tpu_torch.cuda import fine_interp as kint
+
+    counts, slab = args[0], args[3]
+    n, MC, _ = slab.shape
+    walked, stepped = lockstep_efficiency(counts[:n], MC)
+    ship = (kint.h_query(2), kint.h_query(3), kint.h_query(4))
+    lines = []
+    for W, M, L, ms, us, reg, st, ld, ctas, mib in table:
+        what = "kernel G" if W == 0 else (f"kernel H W {W} M {M} levels {L}"
+                                          + (" (shipped)" if (W, M, L) == ship else ""))
+        lines.append(f"{tag}: {what}: bare {ms:.4f} ms, device {us:.1f} us, registers {reg}, "
+                     f"spill stores {st} B, loads {ld} B, {ctas} CTAs a multiprocessor, scratch "
+                     f"{mib:.1f} MiB; {n} slots{'' if W == 0 else ', equal to G bit for bit'}; "
+                     f"on {smi}")
+    lines.append(f"{tag}: lockstep efficiency, records walked over records stepped through: the "
+                 f"parent's eight tiles in lockstep {walked} / {stepped} = "
+                 f"{walked / max(stepped, 1):.3f}; a warp group a slot {walked} / {walked} = 1.000 "
+                 f"(each group steps its own tape; a CTA still holds its slots until the longest "
+                 f"ends)")
+    return lines
 
 
 def kernels_fg_times(tag, smi):
