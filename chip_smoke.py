@@ -97,38 +97,46 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      kernel of the config's path must have launched (kernel A's MSAA
      entry and never its area entry under MSAA, and the other way round;
      the JSON line gives the sum), and the images must be finite and
-     within 2e-3 of the reference. Then an image minified past the image
-     tap's region windows (512x512): its first frame raises
-     image_region_overflow, the frame runs again through the reference
-     fine stage (plain torch on the card, run once a render) and must
-     equal Renderer(device="cpu") within 2e-3. The
-     reference for configs 1, 2 and 3 is Renderer(device="cpu"), the
-     plain PyTorch version of every stage and kernel, which the CPU tests
-     (tests/test_torch_*.py) hold to the JAX package's numpy oracle. At
-     the size of configs 4 and 5 that costs minutes on a CPU, so their
+     within 2e-3 of the reference. A count is a call of the kernel's
+     wrapper: an eager frame's launch, or the launch a program's capture
+     records (the first render_surface at a settled class builds the
+     class's program, `cuda/program.py`); a replay calls no wrapper, and
+     phase 13 reads the replays' launches from their device trace. Then an
+     image minified past the image tap's region windows (512x512): its
+     first frame raises image_region_overflow, the frame runs again through
+     the reference fine stage (plain torch on the card, run once a render)
+     and must equal Renderer(device="cpu") within 2e-3. The reference for
+     configs 1, 2 and 3 is Renderer(device="cpu"), the plain PyTorch
+     version of every stage and kernel, which the CPU tests
+     (tests/test_torch_*.py) hold to the JAX package's numpy oracle. At the
+     size of configs 4 and 5 that costs minutes on a CPU, so their
      reference is the same plain versions run on CUDA tensors: this
-     script's own reference call swaps the plain versions in for the
-     kernel wrappers (the main path has no such switch) and checks that
-     no kernel launched meanwhile; --config5-cpu-reference also renders
-     and times config 5's CPU reference;
+     script's own reference call runs `render_frame` at the class the
+     renderer settled, with the plain versions swapped in for the kernel
+     wrappers (the main path has no such switch; a program would replay
+     what it captured), and checks that no kernel launched meanwhile;
+     --config5-cpu-reference also renders and times config 5's CPU
+     reference;
  10. frames in flight: for configs 1 to 5 in area mode and config 4
      under msaa8, the shape settled by render_surface, a first round of
      FRAMES + 1 frames in flight (it pins the host buffers), then one
      render_surface_async under torch.cuda.set_sync_debug_mode("warn")
-     (any host-device synchronization in a settled call fails, launch
-     counts read), then ROUNDS rounds of FRAMES synchronous frames
-     alternated with ROUNDS rounds of FRAMES frames enqueued back to back
-     and fetched: every frame within 1 u8 step of render_surface's
-     (differing pixels printed), no flag raised; ms/frame of each round,
-     the host ms to enqueue a frame, and each call's host ms split into
-     the renderer's spans (prepare, enqueue, flags, present, read, copy;
-     `Renderer.profiler`); how many launches the host can
-     enqueue behind a busy card before one blocks. Then a scene grown after its
-     class settled (400 discs at 1920x1080 scaled 1 -> 8, the same stream
-     shape): its frame in flight must raise flags on the card, render
-     again inside Frame.result() from the inputs it was enqueued with (the
-     Scene is changed after the enqueue) and equal a fresh renderer's
-     frame (flags_history printed);
+     (any host-device synchronization in a settled call fails; the call is
+     a replay, so a kernel wrapper called fails), then ROUNDS rounds of
+     FRAMES synchronous frames alternated with ROUNDS rounds of FRAMES
+     frames enqueued back to back and fetched: every frame within 1 u8 step
+     of render_surface's (differing pixels printed), no flag raised;
+     ms/frame of each round, the host ms to enqueue a frame, and each
+     call's host ms split into the renderer's spans (prepare, enqueue,
+     flags, present, read, copy; `Renderer.profiler`); how many launches
+     the host can enqueue behind a busy card before one blocks. Then a
+     scene grown after its class settled (400 discs at 1920x1080 scaled 1
+     -> 8, the same stream shape): its frame in flight must raise flags on
+     the card, render again inside Frame.result() from the inputs it was
+     enqueued with (the Scene is changed after the enqueue) and equal a
+     fresh renderer's frame (flags_history printed); that frame was the
+     settled class's program, and the grown class gets a program of its own
+     at its next frame (two entries in compile_log);
  11. JELLO_IMAGE_TAP=0 at config 5: the frame through fine_hybrid, its
      image tiles through kernel G (kernel F must not launch, no flag may
      stay raised), within 1e-4 of the tap route's frame, area and msaa8;
@@ -136,20 +144,36 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      slab vs its plain version (walk_tapes; <= 1e-5, 0 expected) and timed
      (wrapper, bare C entry, device us, beside its bound), area and msaa8,
      and the frame's ms;
- 12. steady-state ms/frame (median after 2 warm-ups) and the peak device
-     memory those frames allocate, each config's MSAA frames beside its
-     area frame with their kernels a frame, and one profiled frame of
-     each config through Profiler.device_trace and xtrace.attribute:
-     kernels, copies and memsets a frame, busy time, kernel C's kernel a
-     frame, device ms and launches by stage (every stage but path_tiling,
-     which launches nothing, must launch, and the device ms outside them must stay under
-     OUTSIDE_MAX of the busy time), the top call sites and kernel kinds, and the
-     call sites of torch's outer-dimension scans (each must lie in
-     pipeline/); then the rerouted over-minified frame's ms/frame and
-     kernels a render. Kernel times are CUDA-event means over
-     repeated calls on the same inputs, the kernel's wrapper beside its
-     plain version;
- 13. multi-GPU (`cuda/sharded.py`, stripes; `cuda/sharded2.py`, geometry):
+ 12. steady-state ms/frame (median after 2 warm-ups; every frame a
+     replay of its class's program) and the peak device memory those
+     frames allocate, each config's MSAA frames beside its area frame;
+     then the rerouted over-minified frame's ms/frame and kernels a render
+     (its first frame a replay, the rerouted one eager). Kernel times are
+     CUDA-event means over repeated calls on the same inputs, the kernel's
+     wrapper beside its plain version;
+ 13. the compiled frame (`_compiled_frames`): for configs 1 to 5 in area
+     and msaa8, config 4 in msaa16 and under JELLO_INTERP_BATCH=1, config
+     5 under JELLO_IMAGE_TAP=0, each through a fresh renderer: one entry
+     in compile_log when the settled class first renders, none on repeat
+     frames, with its capture seconds; the replayed frame equal to
+     `render_frame` run eagerly at the same class, bit for bit (assembled
+     image, tile2rank, u8 surface; SHA-256 printed); 0 host-device
+     synchronizations in a replayed render_surface_async; ms/frame and
+     the host's ms a call of ROUNDS rounds of FRAMES replayed frames
+     alternated with ROUNDS rounds of FRAMES eager ones; one replayed and
+     one eager frame traced (Profiler.device_trace, xtrace.attribute):
+     device operations equal by name and count, busy ms, kernels, copies
+     and memsets a frame, and every kernel of the case's path in the
+     replay's trace; for the default area cases the eager frame's
+     attribution (a replay has no stage spans): device ms and launches by
+     stage (every stage but path_tiling, which launches nothing, must
+     launch, and the device ms outside them must stay under OUTSIDE_MAX
+     of the busy time), the top call sites and kernel kinds, and the call
+     sites of torch's outer-dimension scans (each must lie in pipeline/);
+     the device memory with every program alive; then three frames of one
+     class (the discs of phase 10 moved by 0, 16 and 32 pixels) in flight
+     at once, each equal to its own eager frame;
+ 14. multi-GPU (`cuda/sharded.py`, stripes; `cuda/sharded2.py`, geometry):
      configs 5 and 4 at full size, at the class a single-card Renderer
      settled for each; at world size 1 over NCCL in this process, the
      stripes with kernel G and with the reference fine stage, the
@@ -176,14 +200,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (the stripes' launch and the legacy slots), A, B and F held to their
      plain versions; each rank's ms/frame, which is four processes
      sharing one card, not a multi-GPU speed;
- 14. one JSON line of kernel results, the nvidia-smi line, and the
-     device line. bound_ms is the least time an H100 could take for the
-     call: the larger of its bytes (each input read once, each output
-     written once; for B, G and H only the rows this run's records touch)
-     over 3.35 TB/s and its float operations, counted for
-     this run's data, over 67 TFLOP/s (float32 outside the tensor cores).
-     D, E, E', E'', F, G and H also carry bare_ms, their bare C entry's
-     time (G's and H's in area mode).
+ 15. one JSON line of kernel results, the nvidia-smi line, and the
+     device line. A kernel's launches are its wrappers' counts (phases 9 to
+     11 and 14) and its launches in the replayed frames of phase 13 (from
+     their device traces, times the replays). bound_ms is the least time an
+     H100 could take for the call: the larger of its bytes (each input read
+     once, each output written once; for B, G and H only the rows this
+     run's records touch) over 3.35 TB/s and its float operations, counted
+     for this run's data, over 67 TFLOP/s (float32 outside the tensor
+     cores). D, E, E', E'', F, G and H also carry bare_ms, their bare C
+     entry's time (G's and H's in area mode).
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -749,22 +775,283 @@ def _over_minified_scene(jt):
     return s, jt.RenderParams(width=512, height=512, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def _discs(jt, scale):
-    """A 1920x1080 frame of 400 translucent discs under one scale: the
-    stream shape (tags, paths, words) is the same at every scale, the
-    tiles, segments and coverage rows are not (at 8, some 40 times those
-    at 1)."""
+def _discs(jt, scale, dx=0.0):
+    """A 1920x1080 frame of 400 translucent discs under one scale (then
+    moved right by dx): the stream shape (tags, paths, words) is the same
+    at every scale, the tiles, segments and coverage rows are not (at 8,
+    some 40 times those at 1)."""
     import numpy as np
 
     from jello_tpu_torch.scenes import circle
 
     rng = np.random.default_rng(7)
     s = jt.Scene()
+    xf = jt.Affine.scale(scale)
+    if dx:
+        xf = jt.Affine.translate(dx, 0.0) @ xf
     for _ in range(400):
         x, y, rad = rng.random(3) * [220, 120, 6] + [5, 5, 3]
-        s.fill(jt.Fill.NON_ZERO, jt.Affine.scale(scale),
+        s.fill(jt.Fill.NON_ZERO, xf,
                jt.SolidBrush(jt.Color.rgba(*rng.random(3), 0.6)), None, circle(x, y, rad))
     return s, jt.RenderParams(width=1920, height=1080, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _attribution(tag, tab, med):
+    """Print one profiled frame's attribution (`xtrace.attribute`):
+    device ms and launches by stage (launches outside every stage
+    under their own name), the top 8 call sites, the top 5 kernel
+    kinds, and the call sites of torch's outer-dimension scans. Every
+    stage but path_tiling (which hands path_count's segments on,
+    `pipeline/tiling.py::path_tiling`) must launch, the launches outside the stages must take under
+    OUTSIDE_MAX of the busy time, and every scan launch must come from
+    a call site in pipeline/."""
+    from jello_tpu_torch.pipeline.render import STAGES
+    from jello_tpu_torch.xtrace import OUTSIDE
+
+    busy = tab["lines"]["all streams"][1]
+    stages = sorted(tab["stages"].items(), key=lambda kv: -kv[1][0])
+    calls = tab["lines"]["host launch calls"]
+    print(f"{tag}: device busy {busy:.3f} ms of the {med:.3f} ms frame "
+          f"({100 * busy / med:.0f}%); the host spent {calls[1]:.3f} ms in {calls[2]:g} "
+          f"CUDA launch, copy and memset calls; by stage: "
+          + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in stages))
+    print(f"{tag}: top call sites: " + "; ".join(
+        f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in
+        sorted(tab["sources"].items(), key=lambda kv: -kv[1][0])[:8]))
+    print(f"{tag}: top kernel kinds: " + "; ".join(
+        f"{k[:70]} {ms:.3f} ms x{n:g}" for k, (ms, n) in
+        sorted(tab["kinds"].items(), key=lambda kv: -kv[1][0])[:5]))
+    scans = sorted(((ms, n, st, src, kind) for (st, src, kind), (ms, n)
+                    in tab["sites"].items() if "scan_outer_dim" in kind), reverse=True)
+    print(f"{tag}: outer-dimension scans, {sum(t[1] for t in scans):g} launches, "
+          f"{sum(t[0] for t in scans):.3f} ms: " + "; ".join(
+              f"{src} ({st}, {kind.split('::')[-1]}) {ms:.3f} ms x{n:g}"
+              for ms, n, st, src, kind in scans))
+    quiet = [k for k in STAGES if k != "path_tiling"
+             and tab["stages"].get(k, (0.0, 0))[1] == 0]
+    outside = tab["stages"].get(OUTSIDE, (0.0, 0))[0]
+    if quiet or not outside <= OUTSIDE_MAX * busy:
+        _fail(f"{tag}: stages without a launch {quiet}; {outside:.3f} of {busy:.3f} busy "
+              f"ms outside the stages")
+    if any(not src.startswith("pipeline/") for _, _, _, src, _ in scans):
+        _fail(f"{tag}: an outer-dimension scan launch has no call site in pipeline/")
+
+
+# Each kernel's device function in a trace, by fragments of its name.
+_KERNEL_NAMES = {
+    "coverage_area": ("coverage_kernel", "AreaBody"),
+    "coverage_msaa": ("coverage_kernel", "MsaaBody"),
+    "fine_v2": ("fine_v2_kernel",),
+    "monotone_land": ("land_kernel",),
+    "lockstep_walk": ("lockstep_kernel",),
+    "expand_euler": ("expand_kernel", "EulerBody"),
+    "expand_crossings": ("expand_kernel", "CrossingBody"),
+    "expand_rows": ("expand_kernel", "RowBody"),
+    "image_tap": ("image_tap_kernel",),
+    "fine_interp": ("interp_tile_kernel",),
+    "fine_interp_b8": ("interp_batch_kernel",),
+}
+
+
+def _op_counts(tab):
+    """{device operation name: launches a call} of an `xtrace.attribute`
+    table, over every stream."""
+    out = {}
+    for _, name, _, n in tab["ops"]:
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def _sha(*tensors):
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _eager_frame(r, prepared, params):
+    """`render_frame` and `pack_flags` at the class of `r`, eagerly: what
+    the class's program captured. Returns (fine output, packed, keys)."""
+    from jello_tpu_torch.cuda.render import frame
+
+    caps, fine_impl = r._route(prepared, params, r._caps)
+    return frame(*prepared[2], caps, fine_impl)
+
+
+def _alternated(replay, eager):
+    """ROUNDS rounds of FRAMES replayed frames alternated with ROUNDS
+    rounds of FRAMES eager frames, each frame followed by a synchronize:
+    ({kind: [ms/frame of each round]}, {kind: [host ms of each call]})."""
+    import time
+
+    import torch
+
+    ms, enq = {"replayed": [], "eager": []}, {"replayed": [], "eager": []}
+    for _ in range(ROUNDS):
+        for kind, fn in (("replayed", replay), ("eager", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FRAMES):
+                t = time.perf_counter()
+                fn()
+                enq[kind].append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / FRAMES)
+    return ms, enq
+
+
+def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
+    """Phase 13: every settled frame is its class's program replayed (a
+    CUDA graph, `cuda/program.py`). For configs 1 to 5 in area and msaa8,
+    config 4 in msaa16 and under JELLO_INTERP_BATCH=1, config 5 under
+    JELLO_IMAGE_TAP=0, each through a fresh renderer: one program built
+    when the settled class first renders and none on repeat frames
+    (`compile_log`, capture seconds); the replayed frame (assembled image,
+    tile2rank, u8 surface) equal to `render_frame` run eagerly at the same
+    class, bit for bit (SHA-256); no host-device synchronization in a
+    replayed render_surface_async; ms/frame and the host's ms a call in
+    alternated rounds, replayed and eager; the replay's device operations,
+    by name and count, equal to the eager frame's (both traced; a replay
+    has no stage spans, so the stage attribution is the eager frame's), its
+    busy ms, and the kernels of its path in the trace (added to
+    `launches`, as the replays' launches, under "<case>_replayed"); the
+    device memory with every program alive. Then three frames of one class
+    moved by whole tiles, in flight at once, each equal to its own eager
+    frame."""
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import jello_tpu_torch
+    from jello_tpu_torch.cuda.render import Renderer, assemble, assemble_present, unpack_flags
+
+    cases = [(name, aa, "") for name in scenes for aa in ("area", "msaa8")]
+    cases += [("config4", "msaa16", ""), ("config4", "area", "b8"), ("config5", "area", "tap0")]
+    switches = {"b8": ("JELLO_INTERP_BATCH", "1"), "tap0": ("JELLO_IMAGE_TAP", "0")}
+    kept = []
+    torch.cuda.reset_peak_memory_stats()
+    for name, aa, switch in cases:
+        tag = "_".join(t for t in (name, "" if aa == "area" else aa, switch) if t)
+        scene, params = scenes[name]
+        if aa != "area":
+            params = msaa_params[f"{name}_{aa}"]
+        env = switches.get(switch)
+        if env:
+            os.environ[env[0]] = env[1]
+        try:
+            rc = Renderer(device="cuda")
+            rc.render_surface(scene, params)  # the estimate and the calibration: eager
+            settling = len(rc.compile_log)
+            u8 = rc.render_surface(scene, params)  # builds the class's program
+            for _ in range(2):
+                rc.render_surface(scene, params)
+            fine_rep, _ = rc.render_device(scene, params)
+            prog, flags_rep = rc._program, dict(rc.last_flags)
+            prepared = rc._prepare(scene, params)
+            fine_e, packed_e, keys_e = _eager_frame(rc, prepared, params)
+            layout_t = prepared[2][1]
+            img_rep, img_e = assemble(fine_rep, layout_t), assemble(fine_e, layout_t)
+            u8_e = assemble_present(fine_e, layout_t, True, True).cpu().numpy()
+            flags_e = unpack_flags(packed_e.cpu().tolist(), *keys_e)[0]
+            hashes = [(_sha(img_rep), _sha(img_e)), (_sha(fine_rep[1]), _sha(fine_e[1])),
+                      (_sha(torch.from_numpy(u8)), _sha(torch.from_numpy(u8_e)))]
+            del fine_rep, fine_e, img_rep, img_e
+            f_async, sites = _syncs(lambda: rc.render_surface_async(scene, params))
+            async_equal = np.array_equal(f_async.result(), u8) and not any(f_async.flags.values())
+            del f_async
+
+            def replay():
+                return rc._enqueue(prepared, params, rc._caps)
+
+            def eager():
+                return _eager_frame(rc, prepared, params)
+
+            ms, enq = _alternated(replay, eager)
+            for _ in range(3):  # a session may drop device events: take it again
+                n_k, n_c, busy, _, _, tab_r = _profile(replay)
+                n_ke, n_ce, busy_e, _, _, tab_e = _profile(eager)
+                ops_r, ops_e = _op_counts(tab_r), _op_counts(tab_e)
+                if ops_r == ops_e:
+                    break
+            traced = {k: sum(n for op, n in ops_r.items() if all(f in op for f in frags))
+                      for k, frags in _KERNEL_NAMES.items()}
+            launches[f"{tag}_replayed"] = {k: int(round(n * prog.replays))
+                                           for k, n in traced.items()}
+            missing = [k for k in traced if on_path(k, tag) and traced[k] < 1]
+            med_r, med_e = statistics.median(ms["replayed"]), statistics.median(ms["eager"])
+            _, cap_s, summary = rc.compile_log[0]
+            print(f"{tag}: compiled frame: the settling render built {settling} programs, the "
+                  f"next {len(rc.compile_log)} ({cap_s:.3f} s to capture {summary}), four more "
+                  f"frames none; replayed vs eager frame at the class, SHA-256 image "
+                  f"{hashes[0][0][:16]} / {hashes[0][1][:16]}, tile2rank {hashes[1][0][:16]} / "
+                  f"{hashes[1][1][:16]}, u8 {hashes[2][0][:16]} / {hashes[2][1][:16]}; "
+                  f"{len(sites)} host-device synchronizations in a replayed "
+                  f"render_surface_async; ms/frame replayed "
+                  f"{[round(v, 3) for v in ms['replayed']]} (median {med_r:.3f}), eager "
+                  f"{[round(v, 3) for v in ms['eager']]} (median {med_e:.3f}); host ms a call, "
+                  f"median: replayed {statistics.median(enq['replayed']):.3f}, eager "
+                  f"{statistics.median(enq['eager']):.3f}; on {smi}")
+            print(f"{tag}: traced frame, replayed / eager: busy {busy:.3f} / {busy_e:.3f} ms, "
+                  f"{n_k:g} / {n_ke:g} kernels and {n_c:g} / {n_ce:g} copies or memsets; device "
+                  f"operations equal by name and count: {ops_r == ops_e}; the replay's kernels "
+                  f"of the port a frame: {traced}; on {smi}")
+            if not ops_r == ops_e:
+                diff = {k: (ops_r.get(k, 0), ops_e.get(k, 0)) for k in set(ops_r) | set(ops_e)
+                        if ops_r.get(k, 0) != ops_e.get(k, 0)}
+                _fail(f"{tag}: the replayed frame's device operations differ from the eager "
+                      f"frame's: {diff}")
+            if (settling or len(rc.compile_log) != 1 or any(a != b for a, b in hashes)
+                    or any(flags_rep.values()) or any(flags_e.values()) or sites
+                    or not async_equal or missing):
+                _fail(f"{tag}: the compiled frame failed: programs {rc.compile_log} after "
+                      f"{settling} settling, hashes equal {[a == b for a, b in hashes]}, flags "
+                      f"{flags_e}, synchronizations at {sites}, the async frame equal "
+                      f"{async_equal}, kernels of the path not in the replay's trace {missing}")
+            if aa == "area" and not switch:
+                _attribution(f"{tag} (the eager frame at the program's class: a replay has "
+                             f"no stage spans)", tab_e, med_e)
+            kept.append(rc)
+            del tab_r, tab_e
+        finally:
+            if env:
+                del os.environ[env[0]]
+    print(f"compiled frame: {sum(len(k._programs) for k in kept)} programs alive in "
+          f"{len(kept)} renderers (beside the other phases' renderers): device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB, peak in this phase "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; on {smi}")
+
+    # Three frames of one class, the discs moved by whole tiles, in flight
+    # at once: each equal to its own eager frame at the class.
+    rf = Renderer(device="cuda")
+    for _ in range(2):
+        rf.render_surface(*_discs(jello_tpu_torch, 1.0))
+    moved = [_discs(jello_tpu_torch, 1.0, dx) for dx in (0.0, 16.0, 32.0)]
+    before = rf._program.replays
+    in_flight = [rf.render_surface_async(*m) for m in moved]
+    got = [f.result() for f in in_flight]
+    same = []
+    for (sc, pr), px in zip(moved, got):
+        prepared = rf._prepare(sc, pr)
+        fine_e = _eager_frame(rf, prepared, pr)[0]
+        same.append(np.array_equal(px, assemble_present(fine_e, prepared[2][1], True,
+                                                         True).cpu().numpy()))
+    raised = [sorted(k for k, v in f.flags.items() if v) for f in in_flight]
+    print(f"compiled frame, frames in flight: 3 frames of one class (400 discs moved 0, 16 and "
+          f"32 pixels) enqueued back to back, {rf._program.replays - before} replays; each "
+          f"equal to its own eager frame: {same}; flags raised {raised}; programs "
+          f"{len(rf.compile_log)}")
+    if (not all(same) or any(raised) or rf._program.replays - before != 3
+            or len(rf.compile_log) != 1 or np.array_equal(got[0], got[1])):
+        _fail("frames in flight of one program differ from their eager frames")
+    kept.clear()
+    torch.cuda.empty_cache()
 
 
 def _multi_gpu(scenes, launches, smi, card_peak):
@@ -927,6 +1214,7 @@ def _multi_gpu(scenes, launches, smi, card_peak):
 
 def main():
     import argparse
+    import faulthandler
     import dataclasses
     import json
     import os
@@ -940,6 +1228,7 @@ def main():
     ap.add_argument("--config5-cpu-reference", action="store_true",
                     help="also render config 5 through Renderer(device='cpu') and time it")
     opts = ap.parse_args()
+    faulthandler.enable(all_threads=True)  # a crash in native code prints the Python stacks
 
     # ---- 1. environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -967,7 +1256,15 @@ def main():
         composite_records_plain,
         tile_last_record,
     )
-    from jello_tpu_torch.cuda.render import Renderer, frame_routing, present
+    from jello_tpu_torch.cuda.render import (
+        Renderer,
+        assemble,
+        assemble_present,
+        frame,
+        frame_routing,
+        present,
+        unpack_flags,
+    )
     from jello_tpu_torch.pipeline.render import STAGES
     from jello_tpu_torch.profiler import Profiler
     from jello_tpu_torch.xtrace import OUTSIDE
@@ -1913,7 +2210,7 @@ def main():
     for name, (scene, params) in scenes.items():
         zero_counts()
         img = r.render(scene, params)
-        frames[name] = (img, dict(r.last_flags), dict(r.last_stats))
+        frames[name] = (img, dict(r.last_flags), dict(r.last_stats), dict(r._caps))
         if name in ("config3", "config5", "config4"):
             surfaces[name] = r.render_surface(scene, params)
         launches[name] = read_counts(name)
@@ -1947,7 +2244,7 @@ def main():
     def render_msaa(tag, scene, params, surface):
         zero_counts()
         img = r.render(scene, params)
-        msaa_frames[tag] = (scene, params, img, dict(r.last_flags))
+        msaa_frames[tag] = (scene, params, img, dict(r.last_flags), dict(r._caps))
         if surface:
             msaa_surfaces[tag] = r.render_surface(scene, params)
         launches[tag] = read_counts(tag)
@@ -1973,21 +2270,27 @@ def main():
 
     refs = {}
     cpu = Renderer(device="cpu")
-    plain_r = Renderer(device="cuda")  # renders only inside _PlainKernels
+    plain_r = Renderer(device="cuda")  # prepares inputs only, never renders
 
-    def hold_frame(name, scene, params, img, flags):
-        """One frame of the main path against its reference (within
-        IMG_TOL, finite, no flag). Returns the reference image."""
+    def hold_frame(name, scene, params, img, flags, caps):
+        """One frame of the main path, rendered at the class `caps`, against
+        its reference (within IMG_TOL, finite, no flag). Returns the
+        reference image."""
         t = time.perf_counter()
         if name.startswith(("config5", "config4")):
-            # This script's own reference call: the plain version of every
-            # kernel, on CUDA tensors.
+            # This script's own reference call: render_frame at the frame's
+            # class with the plain version of every kernel, on CUDA tensors
+            # (called directly: a renderer's program would replay the
+            # kernels it captured whatever is swapped in).
             zero_counts()
+            prepared = plain_r._prepare(scene, params)
+            caps_f, fine_impl = plain_r._route(prepared, params, caps)
             with _PlainKernels():
-                ref = plain_r.render(scene, params)
-            torch.cuda.synchronize()
-            if any_launch() or any(plain_r.last_flags.values()):
+                fine_p, packed_p, keys_p = frame(*prepared[2], caps_f, fine_impl)
+                ref = assemble(fine_p, prepared[2][1]).cpu().numpy()
+            if any_launch() or any(unpack_flags(packed_p.cpu().tolist(), *keys_p)[0].values()):
                 _fail(f"{name}: the plain reference launched a kernel or raised a flag")
+            del fine_p, packed_p
             how = "the plain versions on CUDA tensors"
         else:
             ref = cpu.render(scene, params)
@@ -2008,11 +2311,11 @@ def main():
     # A config's MSAA frames right after its area frame: the reference
     # renderers then keep the scene's calibrated class.
     for name, (scene, params) in scenes.items():
-        refs[name] = hold_frame(name, scene, params, *frames[name][:2])
+        refs[name] = hold_frame(name, scene, params, *frames[name][:2], frames[name][3])
         for tag in (f"{name}_msaa8", f"{name}_msaa16"):
             if tag in msaa_frames:
                 refs[tag] = hold_frame(tag, *msaa_frames[tag])
-    for tag, (_, _, img, _) in msaa_frames.items():
+    for tag, (_, _, img, _, _) in msaa_frames.items():
         if tag.endswith("b8"):
             continue  # held to the G frame above
         moved = float(np.abs(img - frames[tag.split("_")[0]][0]).max())
@@ -2149,7 +2452,12 @@ def main():
                   f"{sites}")
         check(first.result())
         del first
-        launches[tag] = read_counts(tag)
+        # A settled frame is its class's program replayed: no wrapper runs
+        # (phase 13 reads the replays' kernels from their device trace).
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        if any(got.values()):
+            _fail(f"{tag}: a settled render_surface_async called kernel wrappers {got}: not "
+                  f"a replay")
         r.profiler = Profiler()
         sync_ms, flight_ms, enq, host = [], [], [], {}
         for _ in range(ROUNDS):
@@ -2221,14 +2529,32 @@ def main():
     want_g = fresh.render_surface(*_discs(jello_tpu_torch, 8.0))
     raised_g = sorted(k for k, v in frame_g.flags.items() if v)
     du8_g = int(np.abs(got_g.astype(np.int32) - want_g.astype(np.int32)).max())
-    print(f"grown scene in flight (400 discs scaled 1 -> 8, 1920x1080): the frame raised "
-          f"{raised_g}; flags_history {r_g.flags_history}; frames run again for "
-          f"{r_g.last_retries}; max u8 diff vs a fresh renderer's frame {du8_g} (the fresh "
-          f"renderer's first render ran again for {fresh.last_retries})")
+    # The frame in flight was the settled class's program (its first
+    # replay); the grown class it rendered again at eagerly gets its own
+    # program at its next frame.
+    log_g = len(r_g.compile_log)
+    again_g = r_g.render_surface(*_discs(jello_tpu_torch, 8.0))
+    du8_again = int(np.abs(again_g.astype(np.int32) - want_g.astype(np.int32)).max())
+    print(f"grown scene in flight (400 discs scaled 1 -> 8, 1920x1080): the frame (a replay of "
+          f"the settled class's program) raised {raised_g}; flags_history {r_g.flags_history}; "
+          f"frames run again for {r_g.last_retries}; max u8 diff vs a fresh renderer's frame "
+          f"{du8_g} (the fresh renderer's first render ran again for {fresh.last_retries}); "
+          f"programs built: {log_g} by then, {len(r_g.compile_log)} after the next frame of the "
+          f"grown class ({[(i, round(sec, 4), k) for i, sec, k in r_g.compile_log]}), which "
+          f"differs from the fresh frame by {du8_again}")
     if (not raised_g or r_g.flags_history[:1] != [raised_g] or du8_g > 1
-            or any(r_g.last_flags.values())):
-        _fail("the grown scene was not caught and rendered again in Frame.result()")
-    del scene_g, grown, frame_g, got_g, want_g, r_g, fresh
+            or any(r_g.last_flags.values()) or log_g != 1 or len(r_g.compile_log) != 2
+            or du8_again > 1 or r_g.last_retries):
+        _fail("the grown scene was not caught and rendered again in Frame.result(), or its "
+              "class got no program of its own")
+    # Renderers whose programs must outlive the run: a CUDA graph replayed
+    # in a profiler session after another renderer's graphs were destroyed
+    # crashed the process in four runs of five on an H100 (a segmentation
+    # fault in cudaGraphLaunch at phase 12's over-minified frame, its graph
+    # captured before those were destroyed); with them kept alive it ran
+    # clean.
+    programs_kept = [r_g]
+    del scene_g, grown, frame_g, got_g, want_g, r_g, fresh, again_g
 
     # ---- 11. JELLO_IMAGE_TAP=0: config 5's image paints through kernel G --
     os.environ["JELLO_IMAGE_TAP"] = "0"
@@ -2341,56 +2667,20 @@ def main():
         print(f"{tag}: render_device {med:.3f} ms/frame median of {FRAMES} (min {lo:.3f}, max "
               f"{hi:.3f}), peak device memory {peak:.1f} MiB; max|frame diff| vs the tap route's "
               f"{err_t0 if tag == 'config5_tap0' else err_t0m:.3e}; on {smi}")
+    programs_kept.append(r0)
     del g5, gi_args, gi_slab, gi_rows, steps, kinds5, img_t0, img_t0m, r0
     torch.cuda.empty_cache()
 
-    # ---- 12. ms/frame, and where a frame's device time goes ---------------
-    def attribution(tag, tab, med):
-        """Print one profiled frame's attribution (`xtrace.attribute`):
-        device ms and launches by stage (launches outside every stage
-        under their own name), the top 8 call sites, the top 5 kernel
-        kinds, and the call sites of torch's outer-dimension scans. Every
-        stage but path_tiling (which hands path_count's segments on,
-        `pipeline/tiling.py::path_tiling`) must launch, the launches outside the stages must take under
-        OUTSIDE_MAX of the busy time, and every scan launch must come from
-        a call site in pipeline/."""
-        busy = tab["lines"]["all streams"][1]
-        stages = sorted(tab["stages"].items(), key=lambda kv: -kv[1][0])
-        calls = tab["lines"]["host launch calls"]
-        print(f"{tag}: device busy {busy:.3f} ms of the {med:.3f} ms frame "
-              f"({100 * busy / med:.0f}%); the host spent {calls[1]:.3f} ms in {calls[2]:g} "
-              f"CUDA launch, copy and memset calls; by stage: "
-              + "; ".join(f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in stages))
-        print(f"{tag}: top call sites: " + "; ".join(
-            f"{k} {ms:.3f} ms x{n:g}" for k, (ms, n) in
-            sorted(tab["sources"].items(), key=lambda kv: -kv[1][0])[:8]))
-        print(f"{tag}: top kernel kinds: " + "; ".join(
-            f"{k[:70]} {ms:.3f} ms x{n:g}" for k, (ms, n) in
-            sorted(tab["kinds"].items(), key=lambda kv: -kv[1][0])[:5]))
-        scans = sorted(((ms, n, st, src, kind) for (st, src, kind), (ms, n)
-                        in tab["sites"].items() if "scan_outer_dim" in kind), reverse=True)
-        print(f"{tag}: outer-dimension scans, {sum(t[1] for t in scans):g} launches, "
-              f"{sum(t[0] for t in scans):.3f} ms: " + "; ".join(
-                  f"{src} ({st}, {kind.split('::')[-1]}) {ms:.3f} ms x{n:g}"
-                  for ms, n, st, src, kind in scans))
-        quiet = [k for k in STAGES if k != "path_tiling"
-                 and tab["stages"].get(k, (0.0, 0))[1] == 0]
-        outside = tab["stages"].get(OUTSIDE, (0.0, 0))[0]
-        if quiet or not outside <= OUTSIDE_MAX * busy:
-            _fail(f"{tag}: stages without a launch {quiet}; {outside:.3f} of {busy:.3f} busy "
-                  f"ms outside the stages")
-        if any(not src.startswith("pipeline/") for _, _, _, src, _ in scans):
-            _fail(f"{tag}: an outer-dimension scan launch has no call site in pipeline/")
-
+    # ---- 12. ms/frame of the renderer's calls ------------------------------
+    # Every frame here is a replay of its class's program (phase 13 holds
+    # them to the eager frames and attributes the device time by stage).
     card_peak = {}  # config: peak device MiB of its render_device frame
     for name, (scene, params) in scenes.items():
         for aa in ("msaa8", "msaa16") if name == "config4" else ("msaa8",):
             params_m = msaa_frames[f"{name}_{aa}"][1]
             med, lo, hi, peak = _frame_ms(lambda: r.render_device(scene, params_m))
-            n_k, n_c = _profile(lambda: r.render_device(scene, params_m))[:2]
             print(f"{name}_{aa}: render_device {med:.3f} ms/frame median of {FRAMES} "
-                  f"(min {lo:.3f}, max {hi:.3f}), peak device memory {peak:.1f} MiB; "
-                  f"profiled: {n_k:g} kernels and {n_c:g} copies or memsets a frame; on {smi}")
+                  f"(min {lo:.3f}, max {hi:.3f}), peak device memory {peak:.1f} MiB; on {smi}")
         for what, fn in (("render_device", r.render_device),
                          ("render_surface", r.render_surface)):
             if name == "config2" and what == "render_surface":
@@ -2401,22 +2691,20 @@ def main():
             print(f"{name}: {what} {med:.3f} ms/frame median of {FRAMES} "
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
-            if what == "render_device":
-                n_k, n_c, busy, top, counted, tab = _profile(lambda: fn(scene, params),
-                                                             count=("land_kernel",))
-                print(f"{name}: profiled {what}: {n_k:g} kernels and {n_c:g} copies or "
-                      f"memsets a frame, kernel C's kernel {counted['land_kernel']:g} a frame "
-                      f"for {launches[name]['monotone_land']} calls")
-                attribution(name, tab, med)
     # The over-minified frame, rerouted to the reference fine stage on
-    # every render (its first frame raises image_region_overflow).
+    # every render (its first frame, a replay, raises image_region_overflow;
+    # the rerouted frame runs eagerly).
     med, lo, hi, peak = _frame_ms(lambda: r_o.render_device(scene_o, params_o))
     n_k, n_c, busy, _, _, tab = _profile(lambda: r_o.render_device(scene_o, params_o))
     print(f"over-minified image (rerouted): render_device {med:.3f} ms/frame median of {FRAMES} "
           f"(min {lo:.3f}, max {hi:.3f}), two frames a render; profiled: {n_k:g} kernels and "
           f"{n_c:g} copies or memsets a render, busy {busy:.3f} ms; on {smi}")
 
-    # ---- 13. multi-GPU: the stripe- and geometry-sharded paths ------------
+    # ---- 13. the compiled frame --------------------------------------------
+    _compiled_frames(scenes, {tag: v[1] for tag, v in msaa_frames.items()}, launches,
+                     on_path, smi)
+
+    # ---- 14. multi-GPU: the stripe- and geometry-sharded paths ------------
     stripe_err = _multi_gpu({k: scenes[k] for k in ("config5", "config4", "config3")},
                             launches, smi, card_peak)
 
@@ -2425,7 +2713,7 @@ def main():
     if loaded:
         _fail(f"modules of JAX or of the JAX package were imported: {loaded}")
 
-    # ---- 14. results -----------------------------------------------------
+    # ---- 15. results -----------------------------------------------------
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms, bare_ms=None,
               counter=None, configs=None):
         """One kernel's line; its launches are the main path's, summed over
@@ -2439,7 +2727,7 @@ def main():
                 "bound_by": bound[1], "library_ms": library_ms}
         return line if bare_ms is None else dict(line, bare_ms=bare_ms)
 
-    # The holds at stripe shapes (phase 13) join each kernel's error.
+    # The holds at stripe shapes (phase 14) join each kernel's error.
     for kernel, key in (("B", "B"), ("F", "F"), ("G", "G")):
         res[key] = (max(res[key][0], stripe_err.get(kernel, 0.0)),) + res[key][1:]
     kernels = [

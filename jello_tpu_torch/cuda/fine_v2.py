@@ -239,15 +239,21 @@ def fine_v2(cmds, counted, ramps, atlas, layout, caps):
 
 
 def assemble_compact(compact, tile2rank, ld):
-    """compact per-record rows -> [H, W, 4] un-premultiplied image."""
+    """compact per-record rows -> [H, W, 4] un-premultiplied image.
+
+    The premultiplied base color `ld["base_color"]` is un-premultiplied
+    on the device. A renderer's layout holds it there already, so the
+    function copies nothing from the host and can be captured; a host
+    array is uploaded first."""
     wit = int(ld["width_in_tiles"])
     hit = int(ld["height_in_tiles"])
     W = int(ld["target_width"])
     H = int(ld["target_height"])
-    base = np.asarray(ld["base_color"], dtype=np.float32)
-    ba = max(float(base[3]), 1e-6)
-    base_un = host_to_device(torch.tensor([base[0] / ba, base[1] / ba, base[2] / ba, base[3]],
-                                          dtype=F32), compact.device)
+    base = ld["base_color"]
+    if not isinstance(base, torch.Tensor):
+        base = host_to_device(torch.from_numpy(np.asarray(base, dtype=np.float32)),
+                              compact.device)
+    base_un = torch.cat([base[:3] / torch.clamp(base[3:], min=1e-6), base[3:]])
     rank = tile2rank[: wit * hit]
     rows = compact[torch.clamp(rank, 0, compact.shape[0] - 1).long()]
     rows = torch.where((rank >= 0)[:, None, None], rows, base_un[None, :, None])

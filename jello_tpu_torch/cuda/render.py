@@ -1,17 +1,32 @@
 """Renderer on a torch device (CUDA, or the CPU when asked).
 
 Counterpart of `jello_tpu/tpu/render.py::Renderer` (`render`,
-`render_surface`, the retry/grow/calibrate loop and the device-side
-present). The pipeline runs eagerly, so there is no compile per
-capacity class, and capacities are calibrated from the device's own
-run: the first frame of a scene shape runs at the estimated class with
-its exact counters, `calibrate_caps` shrinks the class, and the frame
-runs again (the protocol of `tpu/render.py:445-461`). Overflow flags
-grow the implicated capacities (`grow_caps`) and retry. A frame's flags
-and stats come back packed in one int32 vector (`pack_flags`, as
+`render_surface`, the retry/grow/calibrate loop, the device-side present,
+the compiled frame of each class and `compile_log`). Capacities are
+calibrated from the device's own run: the first frame of a scene shape
+runs at the estimated class with its exact counters, `calibrate_caps`
+shrinks the class, and the frame runs again (the protocol of
+`tpu/render.py:445-461`; jello_tpu calibrates on the host instead,
+`_host_calibrate`, which is not ported). Overflow flags grow the
+implicated capacities (`grow_caps`) and retry. A frame's flags and stats
+come back packed in one int32 vector (`pack_flags`, as
 `tpu/render.py:114-121` packs them) and are read to the host once a
 frame by `render`, `render_surface` and `render_device`, or kept on the
 device by `render_device(check_flags=False)` until `read_flags()`.
+
+The compiled frame (`cuda/program.py`): those first frames run eagerly.
+A class whose frame has come back with no capacity flag raised is
+settled, and its next frame builds the class's `FrameProgram`, one
+captured CUDA graph (`tpu/render.py::_get_compiled`), which every later
+frame of the class replays; `compile_log` records each build. The
+present of a program's frame is a program too (`_get_present`). The scene
+words and the stop table's rows are padded to power-of-two size classes
+(`tpu/render.py:276-293`), so that scenes of one bucket share a program,
+and the stop table and atlas are uploaded again only when their content
+changes (`_cached_upload`, `tpu/render.py:510-523`). A frame rerouted to
+the reference fine stage runs eagerly (its loop bounds are read from the
+device). A program's outputs are overwritten by its next frame: what a
+caller gets (`render_device`, `unread_flags`, a `Frame`) is a copy.
 
 Frames in flight (`render_surface_async`, `Frame`; `tpu/render.py:162-190,
 526-547`): once a scene shape is settled, a frame is only enqueued, and
@@ -39,7 +54,10 @@ frame with images takes `fine_hybrid`, its image tiles the interpreter.
 from __future__ import annotations
 
 import contextlib
+import functools
+import hashlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -62,6 +80,14 @@ from ..renderer.resolve import Resolver
 from .build import host_to_device
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
+from .program import FrameProgram, key_summary, program_key
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
 
 
 def build_layout_dict(layout, params: RenderParams) -> dict:
@@ -90,21 +116,26 @@ def upload_atlas(atlas, device):
     return host_to_device(torch.from_numpy(atlas_planar(atlas)), device)
 
 
-def upload(scene_u32, ld, ramps, caps, device):
-    """The inputs `jello_tpu` feeds `render_frame`, as torch inputs on
-    `device` (copied without a host wait): scene words as int32 bit
-    patterns, the layout's integer fields as host ints plus `base_color`
-    as a f32 [4] tensor, the stop table as f32. The atlas goes through
-    `upload_atlas`.
-    Returns (scene, layout, ramps, caps)."""
-    device = torch.device(device)
-    scene = torch.from_numpy(np.asarray(scene_u32, dtype=np.uint32).view(np.int32).copy())
+def upload_layout(ld, device):
+    """A layout dict as `render_frame` takes it: the integer fields as
+    host ints, `base_color` as a f32 [4] tensor on `device`."""
     layout = {k: int(v) for k, v in ld.items() if k != "base_color"}
     layout["base_color"] = host_to_device(
         torch.from_numpy(np.asarray(ld["base_color"], dtype=np.float32)), device)
+    return layout
+
+
+def upload(scene_u32, ld, ramps, caps, device):
+    """The inputs `jello_tpu` feeds `render_frame`, as torch inputs on
+    `device` (copied without a host wait): scene words as int32 bit
+    patterns, the layout (`upload_layout`), the stop table as f32. The
+    atlas goes through `upload_atlas`.
+    Returns (scene, layout, ramps, caps)."""
+    device = torch.device(device)
+    scene = torch.from_numpy(np.asarray(scene_u32, dtype=np.uint32).view(np.int32).copy())
     ramps_t = torch.from_numpy(np.ascontiguousarray(ramps, dtype=np.float32))
-    return (host_to_device(scene, device), layout, host_to_device(ramps_t, device),
-            dict(caps))
+    return (host_to_device(scene, device), upload_layout(ld, device),
+            host_to_device(ramps_t, device), dict(caps))
 
 
 def clip_nesting_depth(scene_u32, layout) -> int:
@@ -164,10 +195,19 @@ def fetch_flags(packed, fkeys, skeys):
     return unpack_flags(packed.cpu().tolist(), fkeys, skeys)
 
 
+def frame(scene, layout, ramps, atlas, caps, fine_impl):
+    """One frame as a program captures it: `render_frame` and
+    `pack_flags`. Returns (fine output, packed, (flag keys, stat keys))."""
+    fine_out, flags, stats = render_frame(scene, layout, ramps, atlas, caps, fine_impl)
+    packed, fkeys, skeys = pack_flags(flags, stats)
+    return fine_out, packed, (fkeys, skeys)
+
+
 def assemble(fine_out, ld):
     """A frame's fine output -> [H, W, 4] un-premultiplied image on its
     device: (compact, tile2rank) of the record-stream stages, or the
-    dense [4, GRID, 256] of the reference fine stage."""
+    dense [4, GRID, 256] of the reference fine stage. `ld`: a layout dict,
+    its base color on the device or the host."""
     if isinstance(fine_out, tuple):
         return assemble_compact(*fine_out, ld)
     return assemble_image(fine_out, ld)
@@ -188,13 +228,20 @@ def present(img, premul: bool = True, srgb: bool = True):
     return (torch.cat([rgb, a], dim=-1) * 255.0 + 0.5).to(torch.uint8)
 
 
+def assemble_present(fine_out, layout, premul, srgb):
+    """`present(assemble(...))`: what a present program captures."""
+    return present(assemble(fine_out, layout), premul, srgb)
+
+
 class Renderer:
     """Renders `jello_tpu_torch.Scene`s with the torch pipeline on
     `device`.
 
     Keeps the resolver (ramp cache), the uploaded frame inputs of the
-    last scene revision (stop table and image atlas included, uploaded
-    once per revision) and the capacity class across frames."""
+    last scene revision, the stop table and image atlas of each shape
+    (uploaded again when their content changes), the capacity class, and
+    a program for every settled class it has rendered since it was made
+    (`compile_log` records each)."""
 
     def __init__(self, device="cuda"):
         device = torch.device(device)
@@ -236,20 +283,34 @@ class Renderer:
         # {(flag keys, stat keys): packed}, the frames of one key set merged
         # by their maximum (a flag raised by any of them stays raised).
         self.unread_flags: dict = {}
+        # The programs, by `program.program_key`, and the classes (stream
+        # shape, class with routing) whose frame came back with no
+        # capacity flag raised: their next frame builds a program.
+        self._programs: dict = {}
+        self._settled_classes: set = set()
+        self._program = None  # the program of the last frame, None if it ran eagerly
+        # One entry a program built (`tpu/render.py:66-70, 411-416`): (index,
+        # seconds to capture it, `program.key_summary` of its class).
+        self.compile_log: list = []
+        # {(kind, shape, dtype): (content digest, tensor on the device)}:
+        # `_cached_upload`.
+        self._uploads: dict = {}
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
-        fine_out, ld = self.render_device(scene, params, max_retries)
-        return assemble(fine_out, ld).cpu().numpy()
+        prepared = self._prepare(scene, params)
+        fine_out = self._render_checked(prepared, params, max_retries)
+        return assemble(fine_out, prepared[2][1]).cpu().numpy()
 
     def render_surface(self, scene, params: RenderParams, premul: bool = True,
                        srgb: bool = True, max_retries: int = 4) -> np.ndarray:
         """Render to u8 [H, W, 4] surface pixels; assembly, premultiply,
         sRGB and quantization run on the device."""
         with self._call("render_surface"):
-            fine_out, ld = self.render_device(scene, params, max_retries)
+            prepared = self._prepare(scene, params)
+            fine_out = self._render_checked(prepared, params, max_retries)
             with self._span("present"):
-                u8 = present(assemble(fine_out, ld), premul, srgb)
+                u8 = self._present(prepared, fine_out, premul, srgb)
             with self._span("read"):
                 return u8.cpu().numpy()
 
@@ -273,10 +334,20 @@ class Renderer:
             else:
                 fine_out = self._render_checked(prepared, params, max_retries)
             with self._span("present"):
-                u8 = present(assemble(fine_out, prepared[1]), premul, srgb)
+                u8 = self._present(prepared, fine_out, premul, srgb)
             with self._span("copy"):
                 return Frame(self, prepared, params, dict(self._caps),
                              (premul, srgb, max_retries), u8, unread, self.last_flags)
+
+    def _present(self, prepared, fine_out, premul, srgb):
+        """The u8 surface of a frame's fine output: through the present
+        program of the frame's program when it came from one (a static
+        output, overwritten by that program's next present), else eagerly."""
+        prog = self._program
+        if prog is not None and fine_out is prog.fine_out:
+            return prog.present((premul, srgb), functools.partial(
+                assemble_present, premul=premul, srgb=srgb))
+        return assemble_present(fine_out, prepared[2][1], premul, srgb)
 
     @contextlib.contextmanager
     def _call(self, label):
@@ -318,19 +389,43 @@ class Renderer:
                 self._caps = estimate_caps_from_scene(
                     scene_u32, layout, params.width, params.height)
                 self._est_key = est_key
-            inputs = upload(scene_u32, ld, stops_table_or_empty(ramps), {}, self.device)[:3]
-            inputs += (upload_atlas(build_image_atlas(images), self.device),)
+            # Size classes (`tpu/render.py:276-293`): the scene words padded
+            # with zeros to a power of two of at least 1024, the stop table
+            # to a power of two of rows.
+            words = np.zeros(_pow2(max(len(scene_u32), 1024)), dtype=np.uint32)
+            words[:len(scene_u32)] = scene_u32
+            stops = stops_table_or_empty(ramps)
+            stops = np.concatenate([stops, np.zeros((_pow2(stops.shape[0]) - stops.shape[0],
+                                                     stops.shape[1]), dtype=np.float32)])
+            atlas = build_image_atlas(images)
+            inputs = (host_to_device(torch.from_numpy(words.view(np.int32)), self.device),
+                      upload_layout(ld, self.device), self._cached_upload("ramps", stops),
+                      None if atlas is None else self._cached_upload("atlas",
+                                                                     atlas_planar(atlas)))
             frame = (est_key, ld, inputs, clip_nesting_depth(scene_u32, layout))
             if key is not None:
                 # Hold the scene so its id() stays unique while cached.
                 self._frame = (key, scene, frame)
             return frame
 
-    def _enqueue(self, prepared, params, caps, reroute=False):
-        """Enqueue one frame of `prepared` at the class `caps`: (fine
-        output, (packed flags and stats, flag keys, stat keys)), nothing
-        read. `reroute` takes the reference fine stage."""
-        est_key, ld, (scene_t, layout_t, ramps_t, atlas_t), clip_depth = prepared
+    def _cached_upload(self, kind, arr):
+        """`arr` on the device, uploaded again only when its content
+        differs from the last array of its kind, shape and dtype
+        (`tpu/render.py:510-523`; the digest is BLAKE2b's)."""
+        key = (kind, arr.shape, str(arr.dtype))
+        digest = hashlib.blake2b(np.ascontiguousarray(arr).data, digest_size=16).digest()
+        kept = self._uploads.get(key)
+        if kept is not None and kept[0] == digest:
+            return kept[1]
+        t = host_to_device(torch.from_numpy(np.ascontiguousarray(arr)), self.device)
+        self._uploads[key] = (digest, t)
+        return t
+
+    def _route(self, prepared, params, caps, reroute=False):
+        """A frame's class with its routing (`frame_routing`) and its fine
+        stage: (caps, fine_impl); fine_impl None for `reroute`, the
+        reference fine stage."""
+        _, _, (_, layout_t, _, atlas_t), clip_depth = prepared
         has_atlas = atlas_t is not None
         routing = frame_routing(layout_t["n_clips"], has_atlas, clip_depth,
                                 params.antialiasing_method.value, self.use_image_tap)
@@ -338,11 +433,36 @@ class Renderer:
         # if any, ride the tap; any other frame the hybrid (kernel B and the
         # interpreter; `tpu/render.py:342-351`).
         alone = routing.get("_coarse_dense") and routing.get("_image_tap", not has_atlas)
-        fine_impl = None if reroute else fine_v2 if alone else fine_hybrid
+        return dict(caps, **routing), None if reroute else fine_v2 if alone else fine_hybrid
+
+    def _class_of(self, prepared, params, caps):
+        """The settled-class key of a frame at `caps`: its stream shape and
+        its class with routing."""
+        return prepared[0], tuple(sorted(self._route(prepared, params, caps)[0].items()))
+
+    def _enqueue(self, prepared, params, caps, reroute=False):
+        """Enqueue one frame of `prepared` at the class `caps`: (fine
+        output, (packed flags and stats, flag keys, stat keys)), nothing
+        read. At a settled class the frame is its program's (built on first
+        use; the outputs are the program's static ones), else it runs
+        eagerly. `reroute` takes the reference fine stage, always eagerly."""
+        inputs = prepared[2]
+        caps_f, fine_impl = self._route(prepared, params, caps, reroute)
+        run = functools.partial(frame, caps=caps_f, fine_impl=fine_impl)
         with self._span("enqueue"):
-            fine_out, flags_t, stats_t = render_frame(
-                scene_t, layout_t, ramps_t, atlas_t, dict(caps, **routing), fine_impl)
-            return fine_out, pack_flags(flags_t, stats_t)
+            if reroute or self._class_of(prepared, params, caps) not in self._settled_classes:
+                self._program = None
+                fine_out, packed, keys = run(*inputs)
+                return fine_out, (packed,) + keys
+            key = program_key(inputs, caps_f, fine_impl.__name__)
+            prog = self._programs.get(key)
+            if prog is None:
+                t = time.perf_counter()
+                prog = self._programs[key] = FrameProgram(inputs, run)
+                self.compile_log.append((len(self.compile_log), time.perf_counter() - t,
+                                         key_summary(key)))
+            self._program = prog
+            return prog.run(inputs)
 
     def _render_checked(self, prepared, params, max_retries, caps=None):
         """Render `prepared`, reading each frame's flags: grow and retry
@@ -370,6 +490,11 @@ class Renderer:
             raised = sorted(k for k, v in flags.items() if v)
             if raised:
                 self.flags_history.append(raised)
+            if calibrated and not reroute and set(raised) <= {"image_region_overflow"}:
+                # No capacity ran short at a class calibration will not
+                # replace: the class is settled (a reroute is no matter of
+                # capacity).
+                self._settled_classes.add(self._class_of(prepared, params, caps))
             if flags.get("image_region_overflow"):
                 # No capacity to grow: the frame runs again through the
                 # reference fine stage, as jello_tpu reroutes it
@@ -393,6 +518,7 @@ class Renderer:
                     self.last_retries.append(["calibrated"])
                     caps = self._caps = new_caps
                     continue
+                self._settled_classes.add(self._class_of(prepared, params, caps))
             break
         if any(flags.values()):
             raise RuntimeError(
@@ -412,16 +538,23 @@ class Renderer:
         nothing to the host (`tpu/render.py:247,406-408`): the frame's
         packed flags stay on the device in `unread_flags` (merged with
         those of the other unread frames), `last_flags` is None, and
-        `read_flags()` reads them."""
+        `read_flags()` reads them.
+
+        The fine output is the caller's: a frame of a program is copied
+        out of the program's static outputs."""
         prepared = self._prepare(scene, params)
         if check_flags:
-            return self._render_checked(prepared, params, max_retries), prepared[1]
-        fine_out, (packed, fkeys, skeys) = self._enqueue(prepared, params, self._caps)
-        keys = (tuple(fkeys), tuple(skeys))
-        kept = self.unread_flags.get(keys)
-        self.unread_flags[keys] = packed if kept is None else torch.maximum(kept, packed)
-        self.last_flags = self.last_stats = None
-        self.last_retries = []
+            fine_out = self._render_checked(prepared, params, max_retries)
+        else:
+            fine_out, (packed, fkeys, skeys) = self._enqueue(prepared, params, self._caps)
+            keys = (tuple(fkeys), tuple(skeys))
+            kept = self.unread_flags.get(keys)
+            self.unread_flags[keys] = (packed.clone() if kept is None
+                                       else torch.maximum(kept, packed))
+            self.last_flags = self.last_stats = None
+            self.last_retries = []
+        if self._program is not None and fine_out is self._program.fine_out:
+            fine_out = tuple(t.clone() for t in fine_out)
         return fine_out, prepared[1]
 
     def read_flags(self) -> dict:
@@ -523,7 +656,6 @@ class Frame:
                 premul, srgb, max_retries = self._present_args
                 fine_out = r._render_again(self._prepared, self._params, self._caps, flags,
                                            max_retries)
-                pixels = present(assemble(fine_out, self._prepared[1]), premul,
-                                 srgb).cpu().numpy()
+                pixels = r._present(self._prepared, fine_out, premul, srgb).cpu().numpy()
         self._pixels = pixels
         return pixels

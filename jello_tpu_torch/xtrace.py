@@ -110,7 +110,7 @@ def attribute(logdir: str, frames: int = 1):
     Returns a dict per device ("cuda:<index>"):
       {"lines": {"stream <id>", "all streams" (the device's busy time) or
                  "host launch calls" (the host's time in the calls that
-                 launched them): (sum_ms, union_ms, n/frame)},
+                 launched them, each call once): (sum_ms, union_ms, n/frame)},
        "stages": {stage (or OUTSIDE): (ms, n/frame)},
        "sources": {file:line: (ms, n/frame)},
        "kinds": {kernel kind: (ms, n/frame)},
@@ -159,6 +159,7 @@ def attribute(logdir: str, frames: int = 1):
     acc = collections.defaultdict(lambda: collections.defaultdict(
         lambda: collections.defaultdict(lambda: [0, 0])))
     spans = collections.defaultdict(list)
+    counted_calls = set()
     for i, e in enumerate(device):
         dev = f"cuda:{e['pid']}"
         start, end = _span(e)
@@ -177,12 +178,16 @@ def attribute(logdir: str, frames: int = 1):
         spans[(dev, line)].append((start, end))
         spans[(dev, "all streams")].append((start, end))
         # The host's time in the call that launched it (a launch waits
-        # there while the device's launch queue is full).
-        start, end = _span(launch_of[i]) if i in launch_of else (0, 0)
-        a = acc[dev]["lines"]["host launch calls"]
-        a[0] += end - start
-        a[1] += int(i in launch_of)
-        if i in launch_of:
+        # there while the device's launch queue is full), once a call: a
+        # CUDA graph's launch puts all of the graph's operations on the
+        # device.
+        rt = launch_of.get(i)
+        if rt is not None and (dev, rt["args"]["correlation"]) not in counted_calls:
+            counted_calls.add((dev, rt["args"]["correlation"]))
+            start, end = _span(rt)
+            a = acc[dev]["lines"]["host launch calls"]
+            a[0] += end - start
+            a[1] += 1
             spans[(dev, "host launch calls")].append((start, end))
 
     def per_frame(tab):

@@ -1,6 +1,7 @@
 """jello_tpu_torch imports neither JAX nor anything of jello_tpu: with
 `jax` and `jello_tpu` both blocked in sys.modules, the port imports and
-renders config 1, a small image-plus-stroke scene and a scene with
+renders config 1 (its second frame through the program of its class,
+`cuda/program.py`), a small image-plus-stroke scene and a scene with
 nested blend layers on the CPU (and imports the profiler, the trace
 parser, the multi-GPU paths and the entry points). The
 comparison with the oracle runs in this process, which may import
@@ -57,6 +58,7 @@ sys.modules["jello_tpu"] = None
 import numpy as np
 import jello_tpu_torch as jt
 import jello_tpu_torch.cuda
+import jello_tpu_torch.cuda.program
 import jello_tpu_torch.profiler
 import jello_tpu_torch.xtrace
 import jello_tpu_torch.cuda.sharded
@@ -66,8 +68,10 @@ from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.scenes import GATE_SCENES
 """ + BUILD + """
 r = Renderer(device="cpu")
-img1 = r.render(*GATE_SCENES[1]())
+r.render(*GATE_SCENES[1]())
+img1 = r.render(*GATE_SCENES[1]())  # the settled class's program
 assert not any(r.last_flags.values()), r.last_flags
+assert len(r.compile_log) == 1
 img2 = r.render(*image_and_stroke(jt))
 assert not any(r.last_flags.values()), r.last_flags
 assert r.last_stats["img_recs"] > 0 and r.last_stats["work_b"] > 0
@@ -110,6 +114,7 @@ def test_torch_port_sources_do_not_import_jax_or_jello_tpu():
     # chip_smoke.py imports its bare-entry helpers from the frame-times tool.
     for path in files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_frame_times.py",
                          REPO / "tools" / "sharded_frames.py", REPO / "tools" / "nccl_one_card.py",
+                         REPO / "tools" / "compiled_frames.py",
                          REPO / "examples" / "render_demo_torch.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path

@@ -89,6 +89,33 @@ def test_torch_attribute_and_stage_times(tmp_path):
     assert t["ops"][0][:2] == ("stream 7", SCAN)
 
 
+def test_torch_attribute_of_a_replayed_frame(tmp_path):
+    """A CUDA graph's replay: one host call (cudaGraphLaunch) puts every
+    kernel and memset of the graph on the device under one correlation
+    id, inside no stage span. Busy ms, kernels and kinds come out as for
+    an eager frame, the host call counts once, and every launch is
+    outside the stages with no call site."""
+    host, dev = (100, 100), (0, 7)
+    events = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "pid": host[0],
+               "tid": host[1], "ts": 5.0, "dur": 40.0, "args": {"correlation": 9}}]
+    for cat, name, ts, dur in (("kernel", SCAN, 100.0, 3000.0),
+                               ("gpu_memset", "Memset (Device)", 3200.0, 1.0),
+                               ("kernel", LAND, 3300.0, 2000.0)):
+        events.append({"ph": "X", "cat": cat, "name": name, "pid": dev[0], "tid": dev[1],
+                       "ts": ts, "dur": dur, "args": {"correlation": 9, "device": 0}})
+    d = tmp_path / "replay"
+    os.makedirs(d)
+    with open(d / "1.pt.trace.json", "w") as f:
+        json.dump({"schemaVersion": 1, "traceEvents": events}, f)
+    (_, t), = tx.attribute(str(d)).items()
+    assert t["lines"]["all streams"] == pytest.approx((5.001, 5.001, 3.0))
+    assert t["lines"]["host launch calls"] == pytest.approx((0.04, 0.04, 1.0))
+    assert t["kinds"]["land_kernel"] == pytest.approx((2.0, 1.0))
+    assert t["kinds"]["Memset"] == pytest.approx((0.001, 1.0))
+    assert t["stages"] == pytest.approx({tx.OUTSIDE: (5.001, 3.0)})
+    assert t["sources"] == pytest.approx({tx.NO_SOURCE: (5.001, 3.0)})
+
+
 def test_torch_profiler_collect_includes_device_stages(tmp_path):
     logdir = _write_capture(tmp_path)
     results = tp.device_stage_results(logdir, frames=2)
