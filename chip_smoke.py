@@ -104,8 +104,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      phase 13 reads the replays' launches from their device trace. Then an
      image minified past the image tap's region windows (512x512): its
      first frame raises image_region_overflow, the frame runs again through
-     the reference fine stage (plain torch on the card, run once a render)
-     and must equal Renderer(device="cpu") within 2e-3. The reference for
+     the reference fine stage (plain torch on the card) and must equal
+     Renderer(device="cpu") within 2e-3; once its class is settled a render
+     is the class's program and the rerouted frame's program (the
+     reference fine stage walked to the class's two bounds; two entries in
+     compile_log, fine_ref called once in two renders, by the capture). The
+     reference for
      configs 1, 2 and 3 is Renderer(device="cpu"), the plain PyTorch
      version of every stage and kernel, which the CPU tests
      (tests/test_torch_*.py) hold to the JAX package's numpy oracle. At the
@@ -147,8 +151,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  12. steady-state ms/frame (median after 2 warm-ups; every frame a
      replay of its class's program) and the peak device memory those
      frames allocate, each config's MSAA frames beside its area frame;
-     then the rerouted over-minified frame's ms/frame and kernels a render
-     (its first frame a replay, the rerouted one eager). Kernel times are
+     then the rerouted over-minified frame: its rerouted replay equal to
+     the eager reroute at the class bit for bit and within 2e-3 of the
+     CPU frame, its ms a render and kernels a render (two replays). Kernel times are
      CUDA-event means over repeated calls on the same inputs, the kernel's
      wrapper beside its plain version;
  13. the compiled frame (`_compiled_frames`): for configs 1 to 5 in area
@@ -176,13 +181,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  14. multi-GPU (`cuda/sharded.py`, stripes; `cuda/sharded2.py`, geometry):
      configs 5 and 4 at full size, at the class a single-card Renderer
      settled for each; at world size 1 over NCCL in this process, the
-     stripes with kernel G and with the reference fine stage, the
-     geometry-sharded frame in area and msaa8 mode: each frame within
-     FRAME_TOL of the single-card frame, no flag, every kernel of its path
-     launched (counts set to 0 before, read after), its ms/frame (median
-     of FRAMES), kernels a frame and busy ms (`xtrace.attribute`), and for
-     the geometry-sharded frames no host-device synchronization in a
-     settled frame; then world size 4 on the one card over gloo, chosen
+     stripes with kernel G and with the reference fine stage
+     (`sharded.StripeFrames`), the geometry-sharded frame in area and
+     msaa8 mode (`sharded2.RetryingRender`), each as a program: the
+     settling frame eager, the next one building the class's program (a
+     CUDA graph with the NCCL collectives inside; one compile_log entry,
+     capture seconds) whose frame is held to the single-card frame
+     (FRAME_TOL, no flag, every kernel of its path launched: counts set to
+     0 before, read after, the capture recording each launch), the replay
+     equal to the frame run eagerly at the class bit for bit (fine output
+     and packed flags), no host-device synchronization in a replay, two
+     more frames building nothing; ms/frame and the host's ms a call of
+     ROUNDS rounds of FRAMES replayed frames alternated with as many eager
+     ones (one round of 2 for the reference fine stage, whose frames take
+     seconds); the replay's device operations, read from its graph's
+     nodes, equal by name and count (NCCL's included) to those of a traced
+     eager frame (`_graph_ops`, `_trace_ops`), and the busy ms of a traced
+     replay and eager frame; the replays' kernels added to the JSON's
+     launches; every program alive to the block's end; then world size 4
+     on the one card over gloo, chosen
      explicitly (NCCL takes one card a rank), in spawned ranks: the three
      dry runs (stripes; geometry with the full-profile scene through the
      image tap, area and msaa8), config 4 through the stripes, configs 4,
@@ -195,15 +212,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      frame with no flag raised and every kernel of its path launched in a
      settled frame; each rank's grown capacities, the retries taken, and
      each rank's ms/frame and peak device memory in the settled frame
-     (beside the single card's frame's peak); a settled frame that grows
+     (beside the single card's frame's peak); over gloo a program runs its
+     frame function (no graph can hold gloo's host copies), and the run
+     says so; a settled frame that grows
      again fails; on rank 1 (a nonzero stripe base) the first call of G
      (the stripes' launch and the legacy slots), A, B and F held to their
      plain versions; each rank's ms/frame, which is four processes
      sharing one card, not a multi-GPU speed;
  15. one JSON line of kernel results, the nvidia-smi line, and the
      device line. A kernel's launches are its wrappers' counts (phases 9 to
-     11 and 14) and its launches in the replayed frames of phase 13 (from
-     their device traces, times the replays). bound_ms is the least time an
+     11 and 14) and its launches in the replayed frames of phases 13 and 14
+     (from their device traces, and phase 14's from their graphs, times the
+     replays). bound_ms is the least time an
      H100 could take for the call: the larger of its bytes (each input read
      once, each output written once; for B, G and H only the rows this
      run's records touch) over 3.35 TB/s and its float operations, counted
@@ -675,6 +695,8 @@ def _sharded_rank(group, jobs, frames):
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         res = run()
+        # A program's outputs are its next frame's too: keep copies.
+        frame, flags = res[0].cpu(), {k: bool(v) for k, v in res[1].items()}
         torch.cuda.synchronize()
         launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         if retry is not None:
@@ -691,8 +713,7 @@ def _sharded_rank(group, jobs, frames):
             run()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        out[tag] = dict(info, frame=res[0].cpu(), flags={k: bool(v) for k, v in res[1].items()},
-                        launches=launches,
+        out[tag] = dict(info, frame=frame, flags=flags, launches=launches,
                         ms=(statistics.median(times), min(times), max(times)),
                         peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20, holds=holds)
     return out
@@ -862,6 +883,145 @@ def _op_counts(tab):
     return out
 
 
+def _graph_ops(graph):
+    """{device operation: nodes} of a captured CUDA graph (the
+    `torch.cuda.CUDAGraph` that `cuda/program.py::capture` keeps), read
+    from the graph itself through the CUDA driver API: a kernel node under
+    its function's demangled name (as torch.profiler names it), memcpy and
+    memset nodes together under "copies and memsets"; nodes that run
+    nothing (event records and waits, empty joins) are left out."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.restype = ctypes.c_void_p
+    cxx.__cxa_demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    libc = ctypes.CDLL("libc.so.6")
+    libc.free.argtypes = [ctypes.c_void_p]
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t()
+    check(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            params = (ctypes.c_void_p * 16)()  # CUDA_KERNEL_NODE_PARAMS_v2, func first
+            check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+                  "cuGraphKernelNodeGetParams")
+            name = ctypes.c_char_p()
+            check(cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])),
+                  "cuFuncGetName")
+            status = ctypes.c_int()
+            p = cxx.__cxa_demangle(name.value, None, None, ctypes.byref(status))
+            key = name.value.decode()
+            if status.value == 0 and p:
+                key = ctypes.string_at(p).decode()
+                libc.free(p)
+        elif kind.value in (1, 2):  # CU_GRAPH_NODE_TYPE_MEMCPY, _MEMSET
+            key = "copies and memsets"
+        else:
+            continue
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _trace_ops(fn):
+    """({device operation: launches}, busy ms) of one call of fn, from a
+    torch.profiler trace of the CUDA activity alone (after one warm-up
+    call): kernels by name, memcpys and memsets together under "copies and
+    memsets" (as `_graph_ops` counts them), busy ms the union of their
+    intervals. The session starts with marker kernels (`torch.cuda._sleep`)
+    and a pause of 50 ms, and the markers are left out of the count: on an
+    H100 a session lost the first dozen kernels launched in it."""
+    import json
+    import tempfile
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ops, spans = {}, []
+    for e in events:
+        cat = e.get("cat")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if "spin_kernel" in e["name"]:
+            continue
+        key = e["name"] if cat == "kernel" else "copies and memsets"
+        ops[key] = ops.get(key, 0) + 1
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return ops, busy / 1e3
+
+
+# Operations a traced frame holds before torch.profiler starts to lose some
+# of them (H100: every frame of up to ~8,000 traced complete; eager 19a
+# frames of ~96,000 lost 0 to 70 in a session).
+OPS_TRACED_WHOLE = 20_000
+OPS_LOST_MAX = 0.005  # the share of a larger frame's operations a trace may lose
+
+
+def _replay_against_eager(graph, eager, tries=3):
+    """A replay's device operations, read from its graph (`_graph_ops`:
+    exactly what a replay runs), against the frame run eagerly, traced
+    (`_trace_ops`) in up to `tries` sessions: (graph ops, eager ops, the
+    eager frame's busy ms, verdict). A lost event only lowers a count, so
+    each operation's eager count is the largest of its sessions; the
+    sessions stop once every count equals the graph's ("equal"). A trace
+    never shows an operation a frame did not run, so an eager count above
+    the graph's is a replay that misses work ("differ"). Below
+    OPS_TRACED_WHOLE operations the traces are whole and any other
+    difference differs too; above it the eager counts may fall short of
+    the graph's by events the profiler lost, at most OPS_LOST_MAX of the
+    graph's operations ("equal up to lost events")."""
+    want = _graph_ops(graph)
+    best, busy = {}, None
+    for _ in range(tries):
+        ops, ms = _trace_ops(eager)
+        busy = ms if busy is None else busy
+        for k, v in ops.items():
+            best[k] = max(best.get(k, 0), v)
+        if best == want:
+            return want, best, busy, "equal"
+    total = sum(want.values())
+    lost = sum(v - min(best.get(k, 0), v) for k, v in want.items())
+    if (any(v > want.get(k, 0) for k, v in best.items()) or total <= OPS_TRACED_WHOLE
+            or lost > OPS_LOST_MAX * total):
+        return want, best, busy, "differ"
+    return want, best, busy, f"equal up to {lost} lost events of {total}"
+
+
 def _sha(*tensors):
     import hashlib
 
@@ -882,25 +1042,27 @@ def _eager_frame(r, prepared, params):
     return frame(*prepared[2], caps, fine_impl)
 
 
-def _alternated(replay, eager):
+def _alternated(replay, eager, rounds=None, frames=None):
     """ROUNDS rounds of FRAMES replayed frames alternated with ROUNDS
-    rounds of FRAMES eager frames, each frame followed by a synchronize:
-    ({kind: [ms/frame of each round]}, {kind: [host ms of each call]})."""
+    rounds of FRAMES eager frames (or `rounds` of `frames`), each frame
+    followed by a synchronize: ({kind: [ms/frame of each round]}, {kind:
+    [host ms of each call]})."""
     import time
 
     import torch
 
+    rounds, frames = rounds or ROUNDS, frames or FRAMES
     ms, enq = {"replayed": [], "eager": []}, {"replayed": [], "eager": []}
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for kind, fn in (("replayed", replay), ("eager", eager)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(FRAMES):
+            for _ in range(frames):
                 t = time.perf_counter()
                 fn()
                 enq[kind].append((time.perf_counter() - t) * 1e3)
                 torch.cuda.synchronize()
-            ms[kind].append((time.perf_counter() - t0) * 1e3 / FRAMES)
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / frames)
     return ms, enq
 
 
@@ -1055,18 +1217,21 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
 
 
 def _multi_gpu(scenes, launches, smi, card_peak):
-    """Phase 13: both sharded paths at full size on `scenes` (configs 5, 4
+    """Phase 14: both sharded paths at full size on `scenes` (configs 5, 4
     and 3; config 3 at world size 4 only), at world size 1 over NCCL in
     this process and at world size 4 over gloo in spawned ranks on the
     one card, each frame held to the single-card frame of the same scene
     at the class a single-card Renderer settled for it (FRAME_TOL, no
     flag) and required to launch every kernel of its path; the launch
-    counts go into `launches`. At world size 4 the geometry-sharded frames
+    counts go into `launches`. At world size 1 every path is a program (a
+    CUDA graph over NCCL), held to its eager frame as phase 13 holds the
+    single card's (module docstring). At world size 4 the geometry-sharded frames
     go through `sharded2.RetryingRender` (a raised flag grows the ranks
     that raised it), and each rank's peak memory is printed beside
     `card_peak` ({config: the single card's frame's peak MiB}). Returns
     {kernel: max abs diff vs plain at stripe shapes, on rank 1}."""
     import dataclasses
+    import statistics
     import tempfile
     import time
     from pathlib import Path
@@ -1116,43 +1281,104 @@ def _multi_gpu(scenes, launches, smi, card_peak):
              ("19a_fine_ref", sharded, {"pallas_fine": False}, "area"),
              ("19b", sharded2, {}, "area"),
              ("19b", sharded2, {}, "msaa8"))
+    holders = []  # every program of this block alive until its end (ROADMAP queue 3)
     with tempfile.TemporaryDirectory() as d, collectives.init_group(
             0, 1, "nccl", Path(d) / "store", torch.device("cuda", 0)) as group:
-        print(f"world size 1 over NCCL, in this process, on {smi}")
+        print(f"world size 1 over NCCL, in this process: each sharded frame is a program, a "
+              f"CUDA graph with its collectives inside (the backend is nccl); on {smi}")
         for name in ("config5", "config4"):
             for path, mod, opts, aa in modes:
                 inputs, caps_s, single = full[(name, aa)]
                 scene_u32, ld, ramps, atlas, _ = inputs
                 args = upload(scene_u32, ld, ramps, {}, "cuda")[:3] + (upload_atlas(atlas, "cuda"),)
-                run = mod.make_sharded_render(group, caps_s, **opts)
+                holder = (sharded2.RetryingRender(group) if mod is sharded2
+                          else sharded.StripeFrames(group, opts["pallas_fine"]))
+                holders.append(holder)
                 tag = f"{name}_ws1_{path}_{aa}"
-                run(*args)
+                if not holder.capture:
+                    _fail(f"{tag}: over NCCL the sharded frame is not captured")
+                holder(caps_s, *args)  # eager: settles the class (and makes NCCL's buffers)
+                settling = len(holder.compile_log)
                 zero_counts()
-                fine_out, flags = run(*args)
+                fine_out, flags = holder(caps_s, *args)[:2]  # builds the class's program
                 torch.cuda.synchronize()
                 launches[tag] = sharded_counts()
+                prog = holder.last_program
                 hold_sharded(tag, assemble(fine_out, ld), single, flags, launches[tag], path, aa,
                              atlas is not None)
-                med, lo, hi, peak = _frame_ms(lambda: run(*args))
-                n_k, n_c, busy = _profile(lambda: run(*args))[:3]
-                print(f"{tag}: {med:.3f} ms/frame median of {FRAMES} (min {lo:.3f}, max "
-                      f"{hi:.3f}), peak device memory {peak:.1f} MiB; profiled: {n_k:g} kernels "
-                      f"and {n_c:g} copies or memsets a frame, device busy {busy:.3f} ms; on "
-                      f"{smi}")
-                if path == "19b":
-                    _, where = _syncs(lambda: run(*args))
-                    print(f"{tag}: host-device synchronizations in a settled frame: {len(where)}"
-                          + (f" at {sorted(set(where))}" if where else ""))
-                    if where:
-                        _fail(f"{tag}: a settled geometry-sharded frame synchronized with the "
-                              "host")
-                del args, run, fine_out
+                # The replay against the frame the program captured, run eagerly.
+                eager_fn = holder.frame_fn(caps_s, *args)
+
+                def replay():
+                    return prog.run(args)
+
+                rep_out = [t.clone() for t in replay()[:2]]
+                eager_out = eager_fn(*args)[:2]
+                same = [torch.equal(a, b) for a, b in zip(rep_out, eager_out)]
+                del rep_out, eager_out
+                _, where = _syncs(replay)
+                for _ in range(2):
+                    holder(caps_s, *args)
+                # The reference fine stage's frames take seconds: one round of two.
+                cuts = (1, 2) if path == "19a_fine_ref" else (ROUNDS, FRAMES)
+                ms, enq = _alternated(replay, lambda: eager_fn(*args), *cuts)
+                _, busy = _trace_ops(replay)
+                ops_r, ops_e, busy_e, same_ops = _replay_against_eager(
+                    prog.graph, lambda: eager_fn(*args))
+                if same_ops != "equal":
+                    diff = {k[:80]: (ops_r.get(k, 0), ops_e.get(k, 0))
+                            for k in set(ops_r) | set(ops_e) if ops_r.get(k, 0) != ops_e.get(k, 0)}
+                    print(f"{tag}: operations the eager traces hold other than the graph "
+                          f"(graph, eager): {diff}")
+                n_k, n_ke = (sum(v for k, v in o.items() if k != "copies and memsets")
+                             for o in (ops_r, ops_e))
+                n_c, n_ce = (o.get("copies and memsets", 0) for o in (ops_r, ops_e))
+                traced = {k: sum(n for op, n in ops_r.items() if all(f in op for f in frags))
+                          for k, frags in _KERNEL_NAMES.items()}
+                launches[f"{tag}_replayed"] = {k: int(round(n * prog.replays))
+                                               for k, n in traced.items()}
+                nccl = {op[:60]: n for op, n in ops_r.items() if "nccl" in op.lower()}
+                med_r, med_e = statistics.median(ms["replayed"]), statistics.median(ms["eager"])
+                _, cap_s, summary = holder.compile_log[0]
+                print(f"{tag}: program (a CUDA graph, NCCL inside): the settling frame built "
+                      f"{settling}, the next {len(holder.compile_log)} ({cap_s:.3f} s to capture "
+                      f"{summary}), three more frames none; the replay vs the eager frame at the "
+                      f"class: fine output and packed flags equal {same}; {len(where)} host-device "
+                      f"synchronizations in a replay; ms/frame replayed "
+                      f"{[round(v, 3) for v in ms['replayed']]} (median {med_r:.3f}), eager "
+                      f"{[round(v, 3) for v in ms['eager']]} (median {med_e:.3f}), {cuts[0]} "
+                      f"rounds of {cuts[1]}; host ms a call, median: replayed "
+                      f"{statistics.median(enq['replayed']):.3f}, eager "
+                      f"{statistics.median(enq['eager']):.3f}; on {smi}")
+                print(f"{tag}: the replay (its graph's nodes; traced for its busy ms) / the "
+                      f"eager frame (traced): busy {busy:.3f} / {busy_e:.3f} ms, {n_k:g} / "
+                      f"{n_ke:g} kernels and {n_c:g} / {n_ce:g} copies or memsets; device "
+                      f"operations by name and count: {same_ops}; NCCL "
+                      f"operations of a replay {nccl}; the replay's kernels of the port a frame: "
+                      f"{traced}; peak device memory so far "
+                      f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+                if same_ops == "differ":
+                    _fail(f"{tag}: the replay's device operations differ from the eager frame's")
+                missing = [k for k in _sharded_kernels(path, aa, atlas is not None)
+                           if traced[k] < 1]
+                if (settling or len(holder.compile_log) != 1 or not all(same) or where
+                        or missing or holder.last_program is not prog):
+                    _fail(f"{tag}: the sharded program failed: programs {holder.compile_log} "
+                          f"after {settling} settling, equal {same}, synchronizations at {where}, "
+                          f"kernels of the path not in the replay's trace {missing}")
+                del args, fine_out
+        torch.cuda.synchronize()
+        print(f"world size 1: {sum(len(h.compile_log) for h in holders)} programs alive; device "
+              f"memory allocated {torch.cuda.memory_allocated() / 2**20:.1f} MiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB; on {smi}")
+        holders.clear()
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     print(f"world size 4 on one card over gloo, chosen explicitly (NCCL takes one card a "
           f"rank): four processes share the card, so the times below are no multi-GPU "
-          f"speed; on {smi}")
+          f"speed; the frames run eagerly, a program's function run into its outputs, since "
+          f"gloo copies through the host and no CUDA graph can hold it; on {smi}")
     for label, dry in (
             ("sharded.dryrun(4)", lambda: sharded.dryrun(4, "cuda", "gloo")),
             ("sharded2.dryrun(4, full_profile=True, image_tap=True)",
@@ -2364,17 +2590,22 @@ def main():
     err_o = float(np.abs(img_o - ref_o).max())
     du8_o = int(np.abs(surf_o.astype(np.int32)
                        - present(torch.from_numpy(ref_o)).numpy().astype(np.int32)).max())
+    rerouted_programs = [k for _, _, k in r_o.compile_log if "fine_ref" in k]
     print(f"over-minified image, {params_o.width}x{params_o.height}: the first render ran "
           f"again for {first[0]} (fine_ref {first[1]} times); settled, a render runs again "
-          f"for {r_o.last_retries}, fine_ref ran {len(ref_runs)} times in two renders, "
-          f"image tap launches {got_o['image_tap']}, fine_v2 {got_o['fine_v2']}; flags raised "
+          f"for {r_o.last_retries}, fine_ref ran {len(ref_runs)} times in two renders (the "
+          f"capture of the rerouted frame's program; its replays run no Python), programs "
+          f"{[(i, round(sec, 4), k) for i, sec, k in r_o.compile_log]}, image tap launches "
+          f"{got_o['image_tap']}, fine_v2 {got_o['fine_v2']}; flags raised "
           f"{[k for k, v in r_o.last_flags.items() if v]}; max|err| vs the CPU reference "
           f"{err_o:.3e}, u8 diff {du8_o}; CPU reference retries {cpu.last_retries}")
     if (r_o.last_retries != [["image_region_overflow: rerouted to fine_ref"]]
-            or len(ref_runs) != 2 or any(r_o.last_flags.values()) or not err_o <= IMG_TOL
+            or len(ref_runs) != 1 or len(r_o.compile_log) != 2 or len(rerouted_programs) != 1
+            or any(r_o.last_flags.values()) or not err_o <= IMG_TOL
             or du8_o > 1 or not np.isfinite(img_o).all() or got_o["image_tap"] != 2
             or ["image_region_overflow: rerouted to fine_ref"] not in cpu.last_retries):
-        _fail("the over-minified image frame did not render through the reference fine stage")
+        _fail("the over-minified image frame did not render through the reference fine stage, "
+              "or its rerouted frame is not its program's")
 
     # ---- 10. frames in flight --------------------------------------------
     # Each scene's shape settled by render_surface (its u8 frame the one
@@ -2692,13 +2923,29 @@ def main():
                   f"(min {lo:.3f}, max {hi:.3f}), peak device memory "
                   f"{peak:.1f} MiB, on {smi}")
     # The over-minified frame, rerouted to the reference fine stage on
-    # every render (its first frame, a replay, raises image_region_overflow;
-    # the rerouted frame runs eagerly).
+    # every render: two replays (the class's program raises
+    # image_region_overflow, the rerouted frame's program walks to the
+    # class's bounds) and two flag reads. The rerouted replay against the
+    # eager reroute at the class (its walk's bounds read from the device)
+    # and against the CPU reference.
+    fine_rep, _ = r_o.render_device(scene_o, params_o)
+    prepared_o = r_o._prepare(scene_o, params_o)
+    caps_o, _ = r_o._route(prepared_o, params_o, r_o._caps, reroute=True)
+    fine_e = frame(*prepared_o[2], caps_o, None)[0]
+    same_o = torch.equal(fine_rep, fine_e)
+    err_rep = float(np.abs(assemble(fine_rep, prepared_o[2][1]).cpu().numpy() - ref_o).max())
+    del fine_rep, fine_e
     med, lo, hi, peak = _frame_ms(lambda: r_o.render_device(scene_o, params_o))
     n_k, n_c, busy, _, _, tab = _profile(lambda: r_o.render_device(scene_o, params_o))
-    print(f"over-minified image (rerouted): render_device {med:.3f} ms/frame median of {FRAMES} "
-          f"(min {lo:.3f}, max {hi:.3f}), two frames a render; profiled: {n_k:g} kernels and "
-          f"{n_c:g} copies or memsets a render, busy {busy:.3f} ms; on {smi}")
+    print(f"over-minified image (rerouted): the rerouted replay equals the eager reroute at the "
+          f"class: {same_o}, max|err| vs the CPU reference {err_rep:.3e}; walk bounds "
+          f"{list(r_o._walks.values())}; render_device {med:.3f} ms/render median of {FRAMES} "
+          f"(min {lo:.3f}, max {hi:.3f}), two replays a render; profiled: {n_k:g} kernels and "
+          f"{n_c:g} copies or memsets a render, busy {busy:.3f} ms; programs "
+          f"{len(r_o.compile_log)}; on {smi}")
+    if not same_o or not err_rep <= IMG_TOL or len(r_o.compile_log) != 2:
+        _fail("the over-minified frame's rerouted replay differs from its eager frame or from "
+              "the CPU reference")
 
     # ---- 13. the compiled frame --------------------------------------------
     _compiled_frames(scenes, {tag: v[1] for tag, v in msaa_frames.items()}, launches,

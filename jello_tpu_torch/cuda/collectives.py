@@ -8,9 +8,12 @@ and the fixed-capacity `all_to_all`. A rank is a process with one
 
 The caller picks the transport, and nothing falls back. "nccl" runs the
 collectives on the device tensors and needs a card per rank (NCCL
-refuses two ranks on one card). "gloo" copies each operand to the host,
-runs the collective there and copies the result back: the CPU tests and
-several ranks on one card take it.
+refuses two ranks on one card); each collective's output has a shape its
+operand alone fixes, so a CUDA graph can hold them (`cuda/program.py`),
+once the communicator exists (`init_group` makes it). "gloo" copies each
+operand to the host, runs the collective there and copies the result
+back: the CPU tests and several ranks on one card take it, and no graph
+can hold it.
 """
 
 from __future__ import annotations
@@ -51,13 +54,17 @@ class Group:
 
 def init_group(rank, world, backend, init_file, device) -> Group:
     """Join the `world`-rank group as `rank` through a FileStore at
-    `init_file` (a path no earlier group used), on `device`."""
+    `init_file` (a path no earlier group used), on `device`. Under NCCL the
+    communicator is made here (`device_id`), not at the first collective,
+    which may be inside a capture."""
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"backend 'nccl' runs on CUDA tensors, not on {device}")
     if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=Path(init_file).absolute().as_uri(),
                             rank=rank, world_size=world,
@@ -71,11 +78,13 @@ def _operand(g, t):
 
 
 def all_gather(g, t):
-    """[world, *t.shape]: every rank's t, in rank order."""
-    x = _operand(g, t)
-    parts = [torch.empty_like(x) for _ in range(g.world)]
-    dist.all_gather(parts, x)
-    return torch.stack(parts).to(t.device)
+    """[world, *t.shape]: every rank's t, in rank order (one
+    `all_gather_into_tensor` into a tensor of the ranks' operands end to
+    end)."""
+    x = _operand(g, t).reshape((-1,) + tuple(t.shape[1:]) if t.dim() else (1,))
+    out = x.new_empty((g.world * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x)
+    return out.view((g.world,) + tuple(t.shape)).to(t.device)
 
 
 def _all_reduce(g, t, op):

@@ -21,13 +21,20 @@ outputs, so that outputs alias from frame to frame as they do on the
 card.
 
 A capture cannot read the device, so a program holds only a frame whose
-shapes and loop bounds depend on the class alone. The reference fine
-stage (`pipeline/fine_ref.py`) reads its loop bounds from the device,
-and a frame rerouted there runs eagerly (`cuda/render.py`). A capture
-that fails raises; nothing falls back to the eager frame.
+shapes and loop bounds depend on the class alone: the reference fine
+stage (`pipeline/fine_ref.py`) walks to two bounds of the class when a
+frame rerouted there replays (`cuda/render.py`). The sharded frames
+(`cuda/sharded.py`, `cuda/sharded2.py`) are programs too, with their
+collectives inside the graph; the caller says whether to capture (NCCL
+collectives on the card) or to run the function into the static outputs
+(gloo, which copies through the host, and the CPU). A capture that fails
+raises; nothing falls back to the eager frame. `Programs` keeps a
+caller's programs by key and logs each build.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -52,16 +59,20 @@ def key_summary(key) -> str:
     return (f"{layout['target_width']}x{layout['target_height']} {caps.get('aa_mode', 'area')} "
             f"{fine_name}{' (kernel H)' if caps.get('_interp_batch') else ''}, scene {n} words, "
             f"stop table {ramps[0]}x{ramps[1]}, atlas {'none' if atlas is None else atlas}, "
-            f"pair_cap {caps.get('pair_cap')}")
+            f"pair_cap {caps.get('pair_cap')}"
+            + (f", walk {caps['ref_slots_cap']} slots x {caps['ref_chunks_cap']} chunks"
+               if "ref_slots_cap" in caps else ""))
 
 
-def _map(out, fn):
-    """fn applied to every tensor of a nest of tuples, lists and tensors
-    (other leaves kept)."""
+def map_tensors(out, fn):
+    """fn applied to every tensor of a nest of tuples, lists, dicts and
+    tensors (other leaves kept)."""
     if isinstance(out, torch.Tensor):
         return fn(out)
     if isinstance(out, (tuple, list)):
-        return type(out)(_map(o, fn) for o in out)
+        return type(out)(map_tensors(o, fn) for o in out)
+    if isinstance(out, dict):
+        return {k: map_tensors(v, fn) for k, v in out.items()}
     return out
 
 
@@ -74,14 +85,19 @@ def _copy_into(dst, src):
     elif isinstance(dst, (tuple, list)):
         for d, s in zip(dst, src):
             _copy_into(d, s)
+    elif isinstance(dst, dict):
+        for k, d in dst.items():
+            _copy_into(d, src[k])
 
 
 def capture(fn, args):
     """fn(*args) captured into a CUDA graph with a memory pool of its own,
     on a side stream: (graph, fn's outputs, which each replay
     overwrites). Raises if fn raises or the capture fails (a
-    host-device synchronization inside fn, a host tensor copied in)."""
-    graph = torch.cuda.CUDAGraph()
+    host-device synchronization inside fn, a host tensor copied in). The
+    captured graph is kept beside its executable (`raw_cuda_graph()`), so
+    that what a replay runs can be read from its nodes."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -91,6 +107,7 @@ def capture(fn, args):
         finally:
             graph.capture_end()
     torch.cuda.current_stream().wait_stream(stream)
+    graph.instantiate()
     return graph, out
 
 
@@ -125,18 +142,25 @@ class FrameProgram:
 
     inputs: (scene words, layout with `base_color` on the device, stop
     table, atlas or None) of the frame that builds the program, copied;
-    frame_fn(scene, layout, ramps, atlas) -> (fine output, packed flags,
-    (flag keys, stat keys))."""
+    frame_fn(scene, layout, ramps, atlas) -> a tuple of outputs, the fine
+    output first (the renderer's: fine output, packed flags, (flag keys,
+    stat keys)). capture: whether to capture a CUDA graph (default: the
+    inputs lie on the card) or to run frame_fn into the static outputs."""
 
-    def __init__(self, inputs, frame_fn):
+    def __init__(self, inputs, frame_fn, capture=None):
         scene, layout, ramps, atlas = inputs
         self._last = (scene, layout["base_color"], ramps, atlas)
-        self._static = _map(self._last, torch.clone)
+        self._static = map_tensors(self._last, torch.clone)
         self.layout = dict(layout, base_color=self._static[1])
         args = (self._static[0], self.layout, self._static[2], self._static[3])
-        self._frame = Captured(frame_fn, args, scene.is_cuda)
+        self._frame = Captured(frame_fn, args, scene.is_cuda if capture is None else capture)
         self._presents = {}
         self.replays = 0
+
+    @property
+    def graph(self):
+        """The frame's `torch.cuda.CUDAGraph`, None when its function runs."""
+        return self._frame._graph
 
     @property
     def fine_out(self):
@@ -144,8 +168,8 @@ class FrameProgram:
         return None if self._frame.out is None else self._frame.out[0]
 
     def run(self, inputs):
-        """One frame of `inputs` (of the program's key): (fine output,
-        (packed flags, flag keys, stat keys)), the static outputs."""
+        """One frame of `inputs` (of the program's key): frame_fn's
+        outputs, the static ones."""
         scene, layout, ramps, atlas = inputs
         for i, t in enumerate((scene, layout["base_color"], ramps, atlas)):
             if t is not self._last[i]:
@@ -154,9 +178,9 @@ class FrameProgram:
                                      f"holds {tuple(self._static[i].shape)}")
                 self._static[i].copy_(t)
         self._last = (scene, layout["base_color"], ramps, atlas)
-        fine_out, packed, keys = self._frame.run()
+        out = self._frame.run()
         self.replays += 1
-        return fine_out, (packed,) + tuple(keys)
+        return out
 
     def present(self, key, present_fn):
         """present_fn(fine output, layout) of the last run: the static u8
@@ -167,3 +191,22 @@ class FrameProgram:
             prog = self._presents[key] = Captured(present_fn, (self.fine_out, self.layout),
                                                   self._static[0].is_cuda, warm=True)
         return prog.run()
+
+
+class Programs:
+    """A caller's programs by key, each built the first time its key runs;
+    `compile_log` holds (index, seconds to build it, summary) for each
+    build (`tpu/render.py:66-70, 411-416`)."""
+
+    def __init__(self):
+        self.by_key: dict = {}
+        self.compile_log: list = []
+
+    def get(self, key, build, summary):
+        """The program of `key`, built by build() on first use."""
+        prog = self.by_key.get(key)
+        if prog is None:
+            t = time.perf_counter()
+            prog = self.by_key[key] = build()
+            self.compile_log.append((len(self.compile_log), time.perf_counter() - t, summary))
+        return prog

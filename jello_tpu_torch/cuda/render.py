@@ -24,9 +24,15 @@ words and the stop table's rows are padded to power-of-two size classes
 (`tpu/render.py:276-293`), so that scenes of one bucket share a program,
 and the stop table and atlas are uploaded again only when their content
 changes (`_cached_upload`, `tpu/render.py:510-523`). A frame rerouted to
-the reference fine stage runs eagerly (its loop bounds are read from the
-device). A program's outputs are overwritten by its next frame: what a
-caller gets (`render_device`, `unread_flags`, a `Frame`) is a copy.
+the reference fine stage at a settled class is a program of its own too
+(jello_tpu runs that class's compiled program with `_no_pallas_fine`,
+`tpu/render.py:428-434`): its walk's two bounds (`pipeline/fine_ref.py`)
+are measured by the first, eager, rerouted frame of the class, rounded
+up to powers of two and kept beside the class, and grown on
+`ref_walk_overflow`. The decision to reroute is made per render and never
+kept in the class (`tpu/render.py:436-442`). A program's outputs are
+overwritten by its next frame: what a caller gets (`render_device`,
+`unread_flags`, a `Frame`) is a copy.
 
 Frames in flight (`render_surface_async`, `Frame`; `tpu/render.py:162-190,
 526-547`): once a scene shape is settled, a frame is only enqueued, and
@@ -57,7 +63,6 @@ import contextlib
 import functools
 import hashlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -80,7 +85,18 @@ from ..renderer.resolve import Resolver
 from .build import host_to_device
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
-from .program import FrameProgram, key_summary, program_key
+from .program import FrameProgram, Programs, key_summary, map_tensors, program_key
+
+# The reference fine stage's walk bounds (`pipeline/fine_ref.py`), kept
+# beside a settled class.
+WALK_KEYS = ("ref_slots_cap", "ref_chunks_cap")
+
+
+def walk_bounds(stats) -> dict:
+    """The walk bounds of a class from its rerouted frame's stats (host
+    ints): each trip count rounded up to a power of two."""
+    return {"ref_slots_cap": _pow2(stats["ref_slots"]),
+            "ref_chunks_cap": _pow2(stats["ref_chunks"])}
 
 
 def _pow2(n: int) -> int:
@@ -283,18 +299,30 @@ class Renderer:
         # {(flag keys, stat keys): packed}, the frames of one key set merged
         # by their maximum (a flag raised by any of them stays raised).
         self.unread_flags: dict = {}
-        # The programs, by `program.program_key`, and the classes (stream
-        # shape, class with routing) whose frame came back with no
-        # capacity flag raised: their next frame builds a program.
-        self._programs: dict = {}
+        # The programs, by `program.program_key` (`_programs`), with one
+        # entry in `compile_log` a program built (`tpu/render.py:66-70,
+        # 411-416`: index, seconds to capture it, `program.key_summary` of
+        # its class), and the classes (stream shape, class with routing)
+        # whose frame came back with no capacity flag raised: their next
+        # frame builds a program.
+        self._cache = Programs()
         self._settled_classes: set = set()
         self._program = None  # the program of the last frame, None if it ran eagerly
-        # One entry a program built (`tpu/render.py:66-70, 411-416`): (index,
-        # seconds to capture it, `program.key_summary` of its class).
-        self.compile_log: list = []
+        # The reference fine stage's walk bounds for a class (as in
+        # `_settled_classes`), from its first rerouted frame: {class:
+        # {key of WALK_KEYS: bound}}.
+        self._walks: dict = {}
         # {(kind, shape, dtype): (content digest, tensor on the device)}:
         # `_cached_upload`.
         self._uploads: dict = {}
+
+    @property
+    def compile_log(self) -> list:
+        return self._cache.compile_log
+
+    @property
+    def _programs(self) -> dict:
+        return self._cache.by_key
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
@@ -445,24 +473,23 @@ class Renderer:
         output, (packed flags and stats, flag keys, stat keys)), nothing
         read. At a settled class the frame is its program's (built on first
         use; the outputs are the program's static ones), else it runs
-        eagerly. `reroute` takes the reference fine stage, always eagerly."""
+        eagerly. `reroute` takes the reference fine stage: a program of its
+        own once the class has walk bounds (`_walks`), else eagerly."""
         inputs = prepared[2]
         caps_f, fine_impl = self._route(prepared, params, caps, reroute)
-        run = functools.partial(frame, caps=caps_f, fine_impl=fine_impl)
+        cls = self._class_of(prepared, params, caps)
+        walk = self._walks.get(cls) if reroute else {}
         with self._span("enqueue"):
-            if reroute or self._class_of(prepared, params, caps) not in self._settled_classes:
+            if cls not in self._settled_classes or walk is None:
                 self._program = None
-                fine_out, packed, keys = run(*inputs)
+                fine_out, packed, keys = frame(*inputs, caps_f, fine_impl)
                 return fine_out, (packed,) + keys
-            key = program_key(inputs, caps_f, fine_impl.__name__)
-            prog = self._programs.get(key)
-            if prog is None:
-                t = time.perf_counter()
-                prog = self._programs[key] = FrameProgram(inputs, run)
-                self.compile_log.append((len(self.compile_log), time.perf_counter() - t,
-                                         key_summary(key)))
-            self._program = prog
-            return prog.run(inputs)
+            caps_f = dict(caps_f, **walk)
+            key = program_key(inputs, caps_f, "fine_ref" if reroute else fine_impl.__name__)
+            self._program = self._cache.get(key, lambda: FrameProgram(inputs, functools.partial(
+                frame, caps=caps_f, fine_impl=fine_impl)), key_summary(key))
+            fine_out, packed, keys = self._program.run(inputs)
+            return fine_out, (packed,) + tuple(keys)
 
     def _render_checked(self, prepared, params, max_retries, caps=None):
         """Render `prepared`, reading each frame's flags: grow and retry
@@ -495,6 +522,17 @@ class Renderer:
                 # replace: the class is settled (a reroute is no matter of
                 # capacity).
                 self._settled_classes.add(self._class_of(prepared, params, caps))
+            if reroute and not raised:
+                # The walk bounds of the class's rerouted program, from the
+                # first clean rerouted frame (`pipeline/fine_ref.py`).
+                self._walks.setdefault(self._class_of(prepared, params, caps),
+                                       walk_bounds(stats))
+            if flags.get("ref_walk_overflow"):
+                # The rerouted program's walk ran short: grow its bounds
+                # (`grow_caps`) and render again.
+                cls = self._class_of(prepared, params, caps)
+                grown = grow_caps(dict(caps, **self._walks[cls]), flags)
+                self._walks[cls] = {k: grown[k] for k in WALK_KEYS}
             if flags.get("image_region_overflow"):
                 # No capacity to grow: the frame runs again through the
                 # reference fine stage, as jello_tpu reroutes it
@@ -554,7 +592,7 @@ class Renderer:
             self.last_flags = self.last_stats = None
             self.last_retries = []
         if self._program is not None and fine_out is self._program.fine_out:
-            fine_out = tuple(t.clone() for t in fine_out)
+            fine_out = map_tensors(fine_out, torch.clone)
         return fine_out, prepared[1]
 
     def read_flags(self) -> dict:

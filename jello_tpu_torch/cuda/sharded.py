@@ -9,10 +9,24 @@ through kernel G over the stripe's slab (tile ids = stripe base +
 arange), and one `all_gather` assembles the frame. Only the stripes cross
 ranks; the overflow words combine by maximum.
 
+`StripeFrames` keeps this rank's frames as programs, the port of the
+`jax.jit` around the frame (`sharded.py:192`): a class's first frame runs
+eagerly, and once a frame of it comes back with no flag raised, its next
+frame builds the class's `FrameProgram` (`cuda/program.py`) over
+`make_sharded_render`'s frame, collectives inside, which every later
+frame of the class replays. The class is the single-device class with the
+frame's routing, the fine stage (kernel G or the reference fine stage)
+and, for the reference fine stage, its walk's bounds (measured by the
+eager frame, combined by maximum over the ranks; `pipeline/fine_ref.py`).
+Over NCCL the program is a captured CUDA graph; over gloo, whose
+collectives copy through the host, and on the CPU it runs the frame
+function into the program's static outputs: the group's backend decides.
+
 Also the helpers the multi-GPU paths share: the host inputs of a frame
-as the ranks take them (`frame_inputs`, `sharded_caps`) and a rank's
-part of a list of frames (`rank_frames`, a `collectives.run_ranks`
-target).
+as the ranks take them (`frame_inputs`, `sharded_caps`), the flags of a
+frame packed as a program returns them and read (`packed_frame`,
+`read_flags`), and a rank's part of a list of frames (`rank_frames`, a
+`collectives.run_ranks` target).
 """
 
 from __future__ import annotations
@@ -31,25 +45,39 @@ from ..pipeline.gradient import stops_table_or_empty
 from ..pipeline.ops import I32
 from ..pipeline.render import geometry
 from ..renderer.atlas import build_image_atlas
+from ..renderer.estimate import grow_caps
 from ..renderer.resolve import Resolver
 from . import fine_interp as kinterp
 from .collectives import all_gather, pmax
 from .coverage import compute_area_rows
-from .render import build_layout_dict, clip_nesting_depth, frame_routing, upload, upload_atlas
+from .program import FrameProgram, Programs, key_summary, program_key
+from .render import (
+    WALK_KEYS,
+    build_layout_dict,
+    clip_nesting_depth,
+    frame_routing,
+    pack_flags,
+    upload,
+    upload_atlas,
+    walk_bounds,
+)
 
 
-def make_sharded_render(group, caps, pallas_fine=False):
+def make_sharded_render(group, caps, pallas_fine=False, report=False):
     """The stripe-sharded frame of this rank (`sharded.py:71-199`).
 
-    caps: the single-device class with the frame's routing (`sharded_caps`);
-    `tile_grid_cap` must divide among the ranks. Returns run(scene,
-    layout, ramps, atlas=None) -> (fine_out [4, GRID, 256]
-    un-premultiplied, flags {name: 0-dim bool}): the whole frame on every
-    rank, which must all call it with the same inputs. Flags:
+    caps: the single-device class with the frame's routing (`sharded_caps`;
+    for the reference fine stage also its walk's bounds, WALK_KEYS, or
+    none to read them from the device); `tile_grid_cap` must divide among
+    the ranks. Returns run(scene, layout, ramps, atlas=None) -> (fine_out
+    [4, GRID, 256] un-premultiplied, flags {name: 0-dim bool}), with
+    `report` also the walk's trip counts {ref_slots, ref_chunks}, the
+    largest of any rank (empty with `pallas_fine`): the whole frame on
+    every rank, which must all call it with the same inputs. Flags:
     jello_tpu's (pairs_overflow, blend_depth_overflow; with `pallas_fine`
-    also cmd_slab_overflow, area_rows_overflow, image_region_overflow),
-    and the geometry's flatten, tiles and segs flags, which jello_tpu's
-    sharded frame drops."""
+    also cmd_slab_overflow, area_rows_overflow, image_region_overflow;
+    else ref_walk_overflow), and the geometry's flatten, tiles and segs
+    flags, which jello_tpu's sharded frame drops."""
     n = group.world
     GRID = caps["tile_grid_cap"]
     if GRID % n:
@@ -78,16 +106,107 @@ def make_sharded_render(group, caps, pallas_fine=False):
             flags["blend_depth_overflow"] = bits[0] > 0
             flags["image_region_overflow"] = bits[1] > 0
             fine_out = all_gather(group, out).reshape(GRID, 4, 256).permute(1, 0, 2)
+            stats = {}
         else:
             cmds_l = dict(cmds, tile_start=cmds["tile_start"][stripe],
                           tile_end=cmds["tile_end"][stripe])
-            out, depth = fine_ref.fine(cmds_l, stages["segs"], ramps, atlas, layout, caps,
-                                       tile_base=base)
-            flags["blend_depth_overflow"] = pmax(group, depth.to(I32).reshape(1))[0] > 0
+            out, ref_flags, walk = fine_ref.fine(cmds_l, stages["segs"], ramps, atlas, layout,
+                                                 caps, tile_base=base)
+            # The flags and the walk's trip counts, each the largest of any rank.
+            most = pmax(group, torch.stack([ref_flags["blend_depth_overflow"].to(I32),
+                                            ref_flags["ref_walk_overflow"].to(I32),
+                                            walk["ref_slots"], walk["ref_chunks"]]))
+            flags["blend_depth_overflow"] = most[0] > 0
+            flags["ref_walk_overflow"] = most[1] > 0
+            stats = {"ref_slots": most[2], "ref_chunks": most[3]}
             fine_out = all_gather(group, out).permute(1, 0, 2, 3).reshape(4, GRID, 256)
-        return fine_out, flags
+        return (fine_out, flags, stats) if report else (fine_out, flags)
 
     return run
+
+
+def packed_frame(run):
+    """A sharded frame `run` (returning fine_out, flags and a report) as a
+    program's function: (fine_out, packed flags, flag keys, report)."""
+    def frame_fn(scene, layout, ramps, atlas):
+        fine_out, flags, rep = run(scene, layout, ramps, atlas)
+        packed, fkeys, _ = pack_flags(flags, {})
+        return fine_out, packed, fkeys, rep
+    return frame_fn
+
+
+def read_flags(packed, fkeys):
+    """{name: bool} of a packed frame's flags (one read to the host)."""
+    return dict(zip(fkeys, (bool(v) for v in packed.cpu().tolist())))
+
+
+class StripeFrames:
+    """This rank's stripe-sharded frames, one program a settled class
+    (module docstring): kernel G over the stripe with `pallas_fine`, else
+    the reference fine stage. Every rank calls it with the same inputs, so
+    every rank builds its programs at the same frames, and their
+    collectives meet.
+
+    `compile_log`: one entry a program built (index, seconds to build it,
+    its class); `last_program`: the last frame's program, None when it ran
+    eagerly. A program's outputs are overwritten by its next frame: a
+    caller that keeps one copies it."""
+
+    # Renders of a frame whose walk ran short, as the single-card renderer's
+    # `max_retries`.
+    MAX_RETRIES = 4
+
+    def __init__(self, group, pallas_fine=False):
+        self.group = group
+        self.pallas_fine = pallas_fine
+        # Captured over NCCL; over gloo and on the CPU the function runs.
+        self.capture = group.backend == "nccl"
+        self._programs = Programs()
+        self.compile_log = self._programs.compile_log
+        # A settled class's walk bounds ({} with kernel G).
+        self._settled = {}
+        self.last_program = None
+        self._name = "stripes, kernel G" if pallas_fine else "stripes, fine_ref"
+
+    def __call__(self, caps, scene, layout, ramps, atlas=None):
+        """One frame at the class `caps` (`sharded_caps`): (fine_out,
+        flags {name: bool}). A frame of a program whose walk ran short
+        (`ref_walk_overflow`) grows the walk's bounds and renders again,
+        up to MAX_RETRIES times; any other raised flag comes back."""
+        inputs = (scene, layout, ramps, atlas)
+        cls = program_key(inputs, caps, self._name)
+        for _ in range(self.MAX_RETRIES + 1):
+            walk = self._settled.get(cls)
+            self.last_program = None
+            if walk is None:
+                fine_out, packed, fkeys, stats = self.frame_fn(caps, *inputs)(*inputs)
+            else:
+                key = program_key(inputs, dict(caps, **walk), self._name)
+                self.last_program = self._programs.get(key, lambda: FrameProgram(
+                    inputs, self.frame_fn(caps, *inputs), capture=self.capture),
+                    key_summary(key))
+                fine_out, packed, fkeys, stats = self.last_program.run(inputs)
+            flags = read_flags(packed, fkeys)
+            if walk and flags.get("ref_walk_overflow"):
+                grown = grow_caps(dict(caps, **walk), flags)
+                self._settled[cls] = {k: grown[k] for k in WALK_KEYS}
+                continue
+            if walk is None and not any(flags.values()):
+                self._settled[cls] = {} if self.pallas_fine else walk_bounds(
+                    {k: int(v) for k, v in stats.items()})
+            return fine_out, flags
+        raise RuntimeError(f"stripe-sharded render: the walk ran short after {self.MAX_RETRIES} "
+                           "retries")
+
+    def frame_fn(self, caps, scene, layout, ramps, atlas=None):
+        """The frame at the class `caps` of these inputs (with the walk
+        bounds of a settled class) as its program runs it: fn(scene,
+        layout, ramps, atlas) -> (fine_out, packed flags, flag keys,
+        stats)."""
+        inputs = (scene, layout, ramps, atlas)
+        walk = self._settled.get(program_key(inputs, caps, self._name)) or {}
+        return packed_frame(make_sharded_render(self.group, dict(caps, **walk),
+                                                self.pallas_fine, report=True))
 
 
 def frame_inputs(scene, params):
@@ -109,37 +228,54 @@ def sharded_caps(caps, inputs, aa="area", image_tap=True):
 
 def rank_frames(group, jobs):
     """This rank's part of each frame of `jobs`, a list of (make, inputs,
-    caps, options): `make(group, caps, **options)` is this module's or
-    `sharded2`'s `make_sharded_render`, `inputs` a `frame_inputs` tuple.
-    With `max_retries` in the options (`sharded2` only) the frame goes
-    through `sharded2.RetryingRender`, which renders it again on a raised
-    flag with the ranks that raised it grown (its one other option:
-    `debug`); one RetryingRender serves every such job of the call,
-    so a later frame of the same shape starts from the grown class.
-    Returns [(fine_out, flags {name: bool}, debug or None)] on the host;
-    a retried frame's debug dict also holds `retries` (its
+    caps, options): `make` is this module's or `sharded2`'s
+    `make_sharded_render`, `inputs` a `frame_inputs` tuple.
+
+    A stripe-sharded frame goes through a `StripeFrames` (its one option
+    `pallas_fine`), one for each fine stage, serving every such job of the
+    call: a class's first clean frame settles it and its later frames are
+    its program's. With `max_retries` in the options (`sharded2` only) the
+    frame goes through `sharded2.RetryingRender`, which renders it again on
+    a raised flag with the ranks that raised it grown (its one other
+    option: `debug`), and which keeps the grown class and the programs; one
+    RetryingRender serves every such job of the call. Any other
+    geometry-sharded frame (the diagnostic options `debug`, `report`,
+    `seg_ex_cap`) runs eagerly, `make(group, caps, **options)` once.
+
+    Returns [(fine_out, flags {name: bool}, debug or None)] on the host.
+    A frame through StripeFrames or RetryingRender has a debug dict with
+    `programs` (the programs built so far) and `replayed` (whether the
+    frame was a program's); a retried frame's also holds `retries` (its
     `RetryingRender.last_retries`), `grown` and `seg_ex_cap` (its class)."""
     from . import sharded2
 
-    out, retry = [], {}
+    out, holders = [], {}
     for make, inputs, caps, opts in jobs:
         scene_u32, ld, ramps, atlas, _ = inputs
         scene, layout, ramps_t, _ = upload(scene_u32, ld, ramps, {}, group.device)
-        atlas_t = upload_atlas(atlas, group.device)
-        extra = {}
-        if "max_retries" in opts:
-            if make is not sharded2.make_sharded_render:
-                raise ValueError("max_retries: only the geometry-sharded frame retries")
+        args = (caps, scene, layout, ramps_t, upload_atlas(atlas, group.device))
+        extra, holder = {}, None
+        if make is make_sharded_render:
+            if set(opts) - {"pallas_fine"}:
+                raise ValueError(f"options {sorted(opts)}: a stripe-sharded frame takes "
+                                 "pallas_fine")
+            fine = bool(opts.get("pallas_fine"))
+            holder = holders.setdefault(("stripes", fine), StripeFrames(group, fine))
+            res = holder(*args)
+        elif "max_retries" in opts:
             if set(opts) - {"max_retries", "debug"}:
                 raise ValueError(f"options {sorted(opts)}: a retried frame takes max_retries "
                                  "and debug")
             key = (opts["max_retries"], bool(opts.get("debug")))
-            r = retry.setdefault(key, sharded2.RetryingRender(group, *key))
-            res = r(caps, scene, layout, ramps_t, atlas_t)
-            st = r.state(caps, scene, layout)
-            extra = {"retries": r.last_retries, "grown": st[1], "seg_ex_cap": st[2]}
+            holder = holders.setdefault(key, sharded2.RetryingRender(group, *key))
+            res = holder(*args)
+            st = holder.state(*args[:3])
+            extra = {"retries": holder.last_retries, "grown": st[1], "seg_ex_cap": st[2]}
         else:
-            res = make(group, caps, **opts)(scene, layout, ramps_t, atlas_t)
+            res = make(group, caps, **opts)(*args[1:])
+        if holder is not None:
+            extra.update(programs=len(holder.compile_log),
+                         replayed=holder.last_program is not None)
         dbg = res[2] if len(res) > 2 else None
         if dbg is not None or extra:
             dbg = {k: v.cpu() for k, v in (dbg or {}).items()} | extra

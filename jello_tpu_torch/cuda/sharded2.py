@@ -46,6 +46,8 @@ from ..pipeline.render import draw_stages
 from ..pipeline.tiling import SEG_KEYS, path_count_expansions, path_count_params
 from .collectives import all_gather, all_to_all, pmax, psum
 from .fine_hybrid import fine_hybrid
+from .program import FrameProgram, Programs, key_summary, program_key
+from .sharded import packed_frame, read_flags
 
 
 def _align(v, q):
@@ -379,7 +381,7 @@ class RetryingRender:
     """The geometry-sharded frame of this rank, rendered again on a raised
     flag: the single-card `Renderer`'s loop (`cuda/render.py`,
     `max_retries`, a RuntimeError naming the flags once the retries are
-    spent) over `make_sharded_render`.
+    spent) over `make_sharded_render`, and its frames as programs.
 
     A frame reads its combined flags to the host once; a frame that raised
     one reads every rank's raised flags and load (which the frame's one
@@ -388,7 +390,21 @@ class RetryingRender:
     values, so the ranks stay in step with no exchange of their own. The
     grown class is kept for the frame's shape (scene words, path tags,
     paths, target, and the single-device class it started from), so that a
-    settled frame of that shape renders once and grows nothing."""
+    settled frame of that shape renders once and grows nothing.
+
+    The port of the `jax.jit` around the frame (`sharded2.py:469`): a
+    class (the single-device class, `grown`, `seg_ex_cap`: `state`) runs
+    eagerly until a frame of it comes back with no flag raised; its next
+    frame builds the class's `FrameProgram` (`cuda/program.py`) over the
+    frame, collectives inside, and later frames of the class replay it. A
+    grown class gets a program of its own. Over NCCL the program is a
+    captured CUDA graph; over gloo, whose collectives copy through the
+    host, and on the CPU it runs the frame function into the program's
+    static outputs: the group's backend decides. `compile_log`: one entry
+    a program built (index, seconds to build it, its class);
+    `last_program`: the last frame's program, None when it ran eagerly. A
+    program's outputs are overwritten by its next frame: a caller that
+    keeps one copies it."""
 
     def __init__(self, group, max_retries=MAX_RETRIES, debug=False):
         self.group = group
@@ -399,6 +415,11 @@ class RetryingRender:
         # The last frame's retries: [(raised flags, {rank: grown keys},
         # seg_ex_cap)], one a frame that ran again.
         self.last_retries = []
+        self.capture = group.backend == "nccl"
+        self._programs = Programs()
+        self.compile_log = self._programs.compile_log
+        self._settled = set()  # the program keys of classes that rendered clean
+        self.last_program = None
 
     def state(self, caps, scene, layout):
         """The class kept for this frame's shape: [single-device class,
@@ -415,16 +436,24 @@ class RetryingRender:
         dict)."""
         st = self.state(caps, scene, layout)
         n = self.group.world
+        inputs = (scene, layout, ramps, atlas)
         self.last_retries = []
         for attempt in range(self.max_retries + 1):
-            run = make_sharded_render(self.group, st[0], debug=self.debug, seg_ex_cap=st[2],
-                                      grown=st[1], report=True)
-            fine_out, flags, rep = run(scene, layout, ramps, atlas)
-            keys = sorted(flags)
-            values = torch.stack([flags[k] for k in keys]).cpu().tolist()
-            raised = [k for k, v in zip(keys, values) if v]
+            key = program_key(inputs, st[0], "geometry") + (
+                tuple(sorted((r, tuple(sorted(g.items()))) for r, g in st[1].items())), st[2])
+            self.last_program = None
+            if key in self._settled:
+                self.last_program = self._programs.get(key, lambda: FrameProgram(
+                    inputs, self.frame_fn(caps, *inputs), capture=self.capture),
+                    key_summary(key[:6]) + f", grown {st[1]}, seg_ex_cap {st[2]}")
+                fine_out, packed, keys, rep = self.last_program.run(inputs)
+            else:
+                fine_out, packed, keys, rep = self.frame_fn(caps, *inputs)(*inputs)
+            flags = read_flags(packed, keys)
+            raised = [k for k in keys if flags[k]]
             if not raised:
-                return fine_out, dict(zip(keys, values)), rep
+                self._settled.add(key)
+                return fine_out, flags, rep
             if attempt == self.max_retries:
                 break
             st[0], st[1], st[2], what = grow_ranks(
@@ -433,6 +462,14 @@ class RetryingRender:
             self.last_retries.append((raised, what, st[2]))
         raise RuntimeError(f"geometry-sharded render overflowed after {self.max_retries} "
                            f"retries; flags still raised: {raised}")
+
+    def frame_fn(self, caps, scene, layout, ramps=None, atlas=None):
+        """The frame at the class the shape of these inputs holds (`state`)
+        as its program runs it: fn(scene, layout, ramps, atlas) ->
+        (fine_out, packed flags, flag keys, report)."""
+        st = self.state(caps, scene, layout)
+        return packed_frame(make_sharded_render(self.group, dict(st[0]), debug=self.debug,
+                                                seg_ex_cap=st[2], grown=st[1], report=True))
 
 
 def dryrun_scene(jt, full_profile=False):

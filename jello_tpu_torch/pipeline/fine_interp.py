@@ -32,7 +32,8 @@ record kind. `interpret_plain` runs it on a slab with coverage from a row
 table. G and H are one function of their inputs, so this is the plain
 version of both. The reference fine stage (`pipeline/fine_ref.py`) runs
 the same program on the command stream itself, with coverage summed from
-the segments.
+the segments, and walks it densely: each step on every tape, masked, as
+jello_tpu's reference does (`jello_tpu/pipeline/fine_ref.py:232-513`).
 """
 
 from __future__ import annotations
@@ -155,20 +156,30 @@ def _image_fg(rec, tile, atlas, wit, one_window=True):
 
 
 def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blend_depth,
-               one_window=True):
+               one_window=True, dense=False, clips=True):
     """Step n tapes together, record index by record index: the command
     interpreter itself, shared by `interpret_plain` (tapes in a slab,
     coverage from a row table) and `pipeline.fine_ref.fine` (tapes in the
     command stream, coverage from the segments).
 
     fetch(ci) -> (rec [n, 16] i32, active [n] bool): each tape's record at
-    step ci, and whether the tape has one. coverage(ci, idx, rec [m, 16],
-    even_odd [m] bool) -> [m, 256] f32: the resolved coverage of the
-    records of tapes idx, which have segments (an EndClip comes with
-    even_odd False). tile_ids [n] i32; base [4] f32 premultiplied; stops
+    step ci, and whether the tape has one. coverage(ci, rows, rec, even_odd)
+    -> [m, 256] f32: the resolved coverage of the records `rec` [m, 16]
+    (even_odd [m] bool; an EndClip comes with False) of the tapes `rows`
+    that have segments. tile_ids [n] i32; base [4] f32 premultiplied; stops
     [NR, W] f32; atlas [4, AHp, AWp] f32 premultiplied planar or None; wit
     the width in tiles; blend_depth the stack depth BD; one_window: the
     interpreter kernels' image region contract (`_image_fg`).
+
+    Each step's operation runs on the tapes that hold its record kind,
+    gathered by index (`torch.nonzero`; `rows` an index vector, m of
+    them), or with `dense` on every tape, its result kept where the kind is
+    held (`rows` a bool mask [n], m = n): the same values either way, but a
+    dense walk has shapes that the step count alone fixes and reads nothing
+    back to the host, so a CUDA graph can hold it. `clips` False says that
+    no tape holds a BeginClip or an EndClip (a frame without clip layers):
+    the blend stack's pushes and pops, which would touch no tape, are left
+    out.
     Returns (out [n, 4, 256] f32 un-premultiplied, ovf [n] i32: bit 0 a
     push past BD, bit 1 an image record past the region window)."""
     n = tile_ids.shape[0]
@@ -182,11 +193,39 @@ def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blen
     zero_depth = torch.zeros(n, dtype=I32, device=dev)
     ovf = torch.zeros(n, dtype=I32, device=dev)
     tile_ids = tile_ids.to(I32)
+    every = ops.iota(n, dev).long()
+    zero = torch.zeros((), dtype=F32, device=dev)
 
-    def over(idx, fg, cov):
+    def rows(mask):
+        """The tapes an operation runs on: the mask itself when dense, else
+        the indices where it holds (None when it holds nowhere)."""
+        if dense:
+            return mask
+        idx = torch.nonzero(mask)[:, 0]
+        return idx if idx.numel() else None
+
+    def pick(t, r):
+        return t if dense else t[r]
+
+    def merge(r, new, old):
+        """new on the tapes `r`, old elsewhere (dense; compact: new)."""
+        return torch.where(r.view((-1,) + (1,) * (new.dim() - 1)), new, old) if dense else new
+
+    def put(t, r, v):
+        if dense:
+            t.copy_(merge(r, v, t))
+        else:
+            t[r] = v
+
+    def slot(r):
+        """(tape indices, blend-stack slot) of the tapes `r`, to index `stack`."""
+        at = every if dense else r
+        return at, torch.clamp(blend_d[at], 0, BD - 1).long()
+
+    def over(r, fg, cov):
         """src-over of fg [m, 4, 256] with coverage cov [m, 256]."""
-        cur = rgba[idx]
-        rgba[idx] = cur * (1.0 - fg[:, 3] * cov)[:, None] + fg * cov[:, None]
+        cur = pick(rgba, r)
+        put(rgba, r, cur * (1.0 - fg[:, 3] * cov)[:, None] + fg * cov[:, None])
 
     for ci in range(n_steps):
         rec, active = fetch(ci)
@@ -201,24 +240,25 @@ def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blen
 
         # Coverage: a record with segments resolves its own (an EndClip
         # always by the nonzero rule), a rowless one covers fully.
-        idx = torch.nonzero(fillish & (seg_raw > 0))[:, 0]
-        if idx.numel():
-            use_eo = ((rec[idx, 4] & 1) != 0) & (kind[idx] != CMD_END_CLIP)
-            area[idx] = coverage(ci, idx, rec[idx], use_eo)
-        area[fillish & (seg_raw <= 0)] = 1.0
+        r = rows(fillish & (seg_raw > 0))
+        if r is not None:
+            rr = pick(rec, r)
+            use_eo = ((rr[:, 4] & 1) != 0) & (pick(kind, r) != CMD_END_CLIP)
+            put(area, r, coverage(ci, r, rr, use_eo))
+        area.masked_fill_((fillish & (seg_raw <= 0))[:, None], 1.0)
 
-        idx = torch.nonzero(paints & (kind == CMD_COLOR))[:, 0]
-        if idx.numel():
-            over(idx, fr[idx, 5:9, None].expand(-1, -1, 256), area[idx])
-        idx = torch.nonzero(paints & (kind >= CMD_LIN_GRAD) & (kind <= CMD_SWEEP_GRAD))[:, 0]
-        if idx.numel():
-            fg = gradient_fg(rec[idx], stops, tile_ids[idx, None], wit)
-            over(idx, torch.stack(fg, dim=1), area[idx])
-        idx = torch.nonzero(paints & (kind == CMD_IMAGE))[:, 0]
-        if idx.numel() and atlas is not None:
-            fg, bad = _image_fg(rec[idx], tile_ids[idx], atlas, wit, one_window)
-            over(idx, fg, area[idx])
-            ovf[idx] |= bad.to(I32) * OVF_IMAGE_REGION
+        r = rows(paints & (kind == CMD_COLOR))
+        if r is not None:
+            over(r, pick(fr, r)[:, 5:9, None].expand(-1, -1, 256), pick(area, r))
+        r = rows(paints & (kind >= CMD_LIN_GRAD) & (kind <= CMD_SWEEP_GRAD))
+        if r is not None:
+            fg = gradient_fg(pick(rec, r), stops, pick(tile_ids, r)[:, None], wit)
+            over(r, torch.stack(fg, dim=1), pick(area, r))
+        r = rows(paints & (kind == CMD_IMAGE)) if atlas is not None else None
+        if r is not None:
+            fg, bad = _image_fg(pick(rec, r), pick(tile_ids, r), atlas, wit, one_window)
+            over(r, fg, pick(area, r))
+            put(ovf, r, pick(ovf, r) | bad.to(I32) * OVF_IMAGE_REGION)
 
         # Clips: suppression state first, from the depth before the record.
         begin_zero = is_begin & (seg_raw < 0)
@@ -229,23 +269,25 @@ def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blen
 
         do_push = ~sup & is_begin & ~begin_zero
         ovf |= (do_push & (blend_d >= BD)).to(I32) * OVF_BLEND_DEPTH
-        idx = torch.nonzero(do_push)[:, 0]
-        if idx.numel():
-            stack[idx, torch.clamp(blend_d[idx], 0, BD - 1).long()] = rgba[idx]
-            rgba[idx] = 0.0
+        r = rows(do_push) if clips else None
+        if r is not None:
+            at, s = slot(r)
+            stack[at, s] = merge(r, rgba, stack[at, s]) if dense else rgba[r]
+            put(rgba, r, zero.expand(pick(rgba, r).shape))
         blend_d = blend_d + do_push.to(I32)
 
         do_pop = ~sup & is_end
         blend_d = blend_d - do_pop.to(I32)
-        idx = torch.nonzero(do_pop)[:, 0]
-        if idx.numel():
-            bg = stack[idx, torch.clamp(blend_d[idx], 0, BD - 1).long()]
-            a_cov = area[idx] * fr[idx, 6:7]
-            src = rgba[idx] * a_cov[:, None]
+        r = rows(do_pop) if clips else None
+        if r is not None:
+            at, s = slot(r)
+            bg = stack[at, s]
+            a_cov = pick(area, r) * pick(fr, r)[:, 6:7]
+            src = pick(rgba, r) * a_cov[:, None]
             out = blend_math.blend_mix_compose(
                 tuple(bg[:, c] for c in range(4)), tuple(src[:, c] for c in range(4)),
-                rec[idx, 5:6])
-            rgba[idx] = torch.stack(out, dim=1)
+                pick(rec, r)[:, 5:6])
+            put(rgba, r, torch.stack(out, dim=1))
 
     a_inv = rdiv(1.0, torch.clamp(rgba[:, 3:4], min=1e-6))
     return torch.cat([rgba[:, :3] * a_inv, rgba[:, 3:4]], dim=1), ovf

@@ -122,15 +122,16 @@ def render_frame(scene, layout, ramps, atlas, caps, fine_impl):
     [NR, W] stop table; atlas: f32 [4, AHp, AWp] premultiplied planar
     image atlas, or None; caps: capacity dict; fine_impl(cmds, counted,
     ramps, atlas, layout, caps) -> (fine_out, flags), or None for the
-    reference fine stage (`fine_ref.fine`, dense [4, GRID, 256] output,
-    `blend_depth_overflow` its only flag).
+    reference fine stage (`fine_ref.fine`, dense [4, GRID, 256] output;
+    its flags are `blend_depth_overflow` and `ref_walk_overflow`, and its
+    stats, the walk's trip counts, join the frame's).
     Returns (fine_out, flags, stats)."""
     stages, flags, stats = geometry(scene, layout, caps)
     with named_scope("fine"):
         if fine_impl is None:
-            fine_out, depth_overflow = fine_ref.fine(stages["cmds"], stages["segs"], ramps,
-                                                     atlas, layout, caps)
-            fine_flags = {"blend_depth_overflow": depth_overflow}
+            fine_out, fine_flags, walk = fine_ref.fine(stages["cmds"], stages["segs"], ramps,
+                                                       atlas, layout, caps)
+            stats.update(walk)
         else:
             fine_out, fine_flags = fine_impl(stages["cmds"], stages["counted"], ramps, atlas,
                                              layout, caps)

@@ -401,6 +401,9 @@ GROW_ON_FLAG = {
     "area_rows_overflow": ("area_rows_cap",),
     "legacy_overflow": ("legacy_tiles_cap",),
     "img_recs_overflow": ("img_recs_cap",),
+    # The reference fine stage's walk bounds, kept beside a settled class
+    # (`cuda/render.py`, `pipeline/fine_ref.py`).
+    "ref_walk_overflow": ("ref_slots_cap", "ref_chunks_cap"),
 }
 
 

@@ -242,11 +242,12 @@ def test_torch_fine_ref_stripe_matches_numpy():
     cmds_t, segs_t = tree_to_torch(cmds), tree_to_torch(segs)
     stripe = dict(cmds_t, tile_start=cmds_t["tile_start"][base:base + local],
                   tile_end=cmds_t["tile_end"][base:base + local])
-    out_t, ovf_t = fine_ref.fine(stripe, segs_t, ramps_t, atlas_t, layout_t, caps,
-                                 tile_base=base)
-    assert out_t.shape == (4, local, 256) and bool(ovf_t) == bool(ovf_j)
+    out_t, flags_t, _ = fine_ref.fine(stripe, segs_t, ramps_t, atlas_t, layout_t, caps,
+                                      tile_base=base)
+    assert out_t.shape == (4, local, 256)
+    assert bool(flags_t["blend_depth_overflow"]) == bool(ovf_j)
     np.testing.assert_allclose(out_t.numpy(), out_j, rtol=1e-5, atol=1e-5)
-    whole, _ = fine_ref.fine(cmds_t, segs_t, ramps_t, atlas_t, layout_t, caps)
+    whole, _, _ = fine_ref.fine(cmds_t, segs_t, ramps_t, atlas_t, layout_t, caps)
     assert torch.equal(whole[:, base:base + local], out_t)
 
 
@@ -272,6 +273,12 @@ FRAMES = {
     "rank0_lines": (rank0_lines, "area", sharded2, {"report": True}),
     "rank0_lines_retry": (rank0_lines, "area", sharded2, {"max_retries": 8, "debug": True}),
 }
+# A class's next frame through the same call's StripeFrames and
+# RetryingRender: its program's (over gloo, the frame function run into
+# the program's static outputs). 128x128 frames, to keep the spawn short.
+FRAMES["geometry_retry"] = (_dryrun, "area", sharded2, {"max_retries": 8})
+PROGRAMS = ("stripes_kernel", "stripes_fine_ref", "geometry_retry")
+FRAMES.update({f"{name}_again": FRAMES[name] for name in PROGRAMS})
 
 
 def _frame_setup(build, aa):
@@ -294,7 +301,11 @@ def _frame_setup(build, aa):
 def world4():
     """Every frame of FRAMES rendered by one spawn of WORLD ranks:
     {name: (setup, [each rank's (fine_out, flags, debug)])}."""
-    setups = {name: _frame_setup(build, aa) for name, (build, aa, _, _) in FRAMES.items()}
+    made = {}
+    for build, aa, _, _ in FRAMES.values():
+        if (build, aa) not in made:
+            made[(build, aa)] = _frame_setup(build, aa)
+    setups = {name: made[(build, aa)] for name, (build, aa, _, _) in FRAMES.items()}
     jobs = [(mod.make_sharded_render, setups[name][2], setups[name][3], opts)
             for name, (_, _, mod, opts) in FRAMES.items()]
     per_rank = collectives.run_ranks(sharded.rank_frames, WORLD, "gloo", "cpu", (jobs,))
@@ -336,6 +347,21 @@ def test_torch_sharded_frame_matches_oracle_and_single_device(world4, name):
           f"{err_oracle:.3e}")
     assert err_single <= FRAME_TOL
     assert err_oracle <= (FRAME_TOL if name.startswith("stripes") else ORACLE_TOL)
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_torch_sharded_programs_equal_the_eager_frame(world4, name):
+    """A class's first clean frame runs eagerly and settles it; the next
+    frame of the class is its program's, built once: on every rank equal
+    to the eager frame bit for bit, with no flag (later frames building
+    none: `tests/test_torch_sharded_programs.py`, at world size 1)."""
+    ranks = [world4[n][1] for n in (name, f"{name}_again")]
+    for r in range(WORLD):
+        (first, flags0, d0), (again, flags1, d1) = (f[r] for f in ranks)
+        assert (d0["programs"], d0["replayed"]) == (0, False), d0
+        assert (d1["programs"], d1["replayed"]) == (1, True), d1
+        assert torch.equal(again, first)
+        assert not any(flags0.values()) and not any(flags1.values())
 
 
 def test_torch_exchange_reaches_every_rank(world4):
