@@ -175,9 +175,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      launch, and the device ms outside them must stay under OUTSIDE_MAX
      of the busy time), the top call sites and kernel kinds, and the call
      sites of torch's outer-dimension scans (each must lie in pipeline/);
-     the device memory with every program alive; then three frames of one
-     class (the discs of phase 10 moved by 0, 16 and 32 pixels) in flight
-     at once, each equal to its own eager frame;
+     the device memory with every program alive and the reserved MiB each
+     program's capture added; then three frames of one class (the discs of
+     phase 10 moved by 0, 16 and 32 pixels) in flight at once, each equal
+     to its own eager frame; then configs 3 and 5 edited nine times each in
+     one renderer (EDITS: discs appended, a path removed or added, cubics
+     turned into lines, the target resized inside the tile grid bucket;
+     `_edited_frames`): each edit's frame a replay of its class's program
+     (the layout is the frame's data, never part of the program's key),
+     equal to its own eager frame bit for bit, no flag, 0 synchronizations
+     in a settled async call, one program a class (the parent's tree built
+     one an edit), with the reserved MiB after each edit;
  14. multi-GPU (`cuda/sharded.py`, stripes; `cuda/sharded2.py`, geometry):
      configs 5 and 4 at full size, at the class a single-card Renderer
      settled for each; at world size 1 over NCCL in this process, the
@@ -530,10 +538,10 @@ class _PlainKernels:
             incl, total = px.expand_prefix(counts, assume_compact=True)
             return px.row_deltas(PRT, incl, counts, RC, T) + (total,)
 
-        def interpret(counts, tile_ids, base, slab, rows, stops, atlas, wit, depth,
-                      batch=False, resolved=False):
-            return plain_int.interpret_plain(counts[:-1], tile_ids, base, slab, rows, stops,
-                                             atlas, wit, depth, resolved)
+        def interpret(counts, tile_ids, base, slab, rows, stops, atlas, depth, batch=False,
+                      resolved=False):
+            return plain_int.interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas,
+                                             depth, resolved)
 
         swaps = [
             (kint, "interpret_tiles", interpret),
@@ -614,7 +622,7 @@ def _hold_stripe_kernels(calls, ld, grid):
         a = calls["interpret_tiles"][0]
         real = a[1] < grid
         got, ovf = kint.interpret_tiles(*a)
-        want, ovf_p = plain_int.interpret_plain(a[0][:-1], *a[1:9], resolved=a[10])
+        want, ovf_p = plain_int.interpret_plain(*a[:8], resolved=a[9])
         err = _max_diff(got[real], want[real])
         if int(real.sum()) and (not err <= G_TOL or not torch.equal(ovf, ovf_p)):
             _fail(f"kernel G at stripe shapes disagrees with its plain version ({err:.3e})")
@@ -668,15 +676,15 @@ def _sharded_rank(group, jobs, frames):
     from jello_tpu_torch.cuda import fine_interp as kint
     from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
-    from jello_tpu_torch.cuda.render import upload, upload_atlas
+    from jello_tpu_torch.cuda.sharded import rank_inputs
     from jello_tpu_torch.cuda.sharded2 import RetryingRender
+    from jello_tpu_torch.pipeline.render import unpack_layout
 
     counters = _counters()
     out = {}
     for tag, make, inputs, caps, opts, _ in jobs:
-        scene_u32, ld, ramps, atlas, _ = inputs
-        args = upload(scene_u32, ld, ramps, {}, group.device)[:3] + (
-            upload_atlas(atlas, group.device),)
+        ld = inputs[1]
+        args = rank_inputs(inputs, group.device)
         retry = None
         if "max_retries" in opts:
             retry = RetryingRender(group, opts["max_retries"])
@@ -684,12 +692,13 @@ def _sharded_rank(group, jobs, frames):
             def run(retry=retry, caps=caps):
                 return retry(caps, *args)
         else:
-            run = functools.partial(make(group, caps, **opts), *args)
+            run = functools.partial(make(group, caps, **opts), args[0], unpack_layout(args[1]),
+                                    *args[2:])
         calls = _record_calls([(kint, "interpret_tiles"), (kcov, "coverage_rows"),
                                (kfine, "composite_records"), (ktap, "tap_records")], run)
         info = {}
         if retry is not None:
-            st = retry.state(caps, args[0], args[1])
+            st = retry.state(caps, *args)
             info = {"retries": list(retry.last_retries), "grown": st[1], "seg_ex_cap": st[2]}
         holds = _hold_stripe_kernels(calls, ld, caps["tile_grid_cap"]) if group.rank == 1 else {}
         for fn, attr in counters.values():
@@ -1022,6 +1031,15 @@ def _replay_against_eager(graph, eager, tries=3):
     return want, best, busy, f"equal up to {lost} lost events of {total}"
 
 
+def _prepared(r, scene, params):
+    """`r._prepare(scene, params)` with the packed layout unpacked into the
+    dict of device views the stages read (`pipeline.render.unpack_layout`)."""
+    from jello_tpu_torch.pipeline.render import unpack_layout
+
+    est_key, ld, (scene_t, packed, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    return est_key, ld, (scene_t, unpack_layout(packed), ramps_t, atlas_t), depth
+
+
 def _sha(*tensors):
     import hashlib
 
@@ -1066,6 +1084,158 @@ def _alternated(replay, eager, rounds=None, frames=None):
     return ms, enq
 
 
+def _reserved_by_builds(programs, log):
+    """Record in `log`, for each program a `Programs` (`cuda/program.py`)
+    builds from now on, (summary, reserved MiB the build added): the
+    device memory reserved after the capture minus before it, each read
+    after a synchronize, which is the program's own pool (and the warm
+    allocations of its capture). The hook holds `programs` weakly, so that
+    dropping their owner frees the programs' graphs and pools at once."""
+    import weakref
+
+    import torch
+
+    owner, get = weakref.ref(programs), type(programs).get
+
+    def measured(key, build, summary):
+        def build_measured():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_reserved()
+            prog = build()
+            torch.cuda.synchronize()
+            log.append((summary, (torch.cuda.memory_reserved() - before) / 2**20))
+            return prog
+        return get(owner(), key, build_measured, summary)
+
+    programs.get = measured
+
+
+# The gate scenes edited inside one class (phase 13): extra discs appended
+# to the scene, each edit a new layout (paths, stream offsets, target).
+EDITS = (("as built, two discs appended", 2, 0, 0), ("a path removed", 1, 0, 0),
+         ("a path added", 3, 0, 0), ("a cubic path turned into lines", 2, 1, 0),
+         ("the target resized inside the tile grid bucket", 2, 0, 1),
+         ("two paths added", 4, 0, 0), ("two cubic paths turned into lines", 2, 2, 0),
+         ("a path removed at the resized target", 1, 0, 1), ("as built again", 2, 0, 0))
+
+
+def _edited(jt, scene, params, extra, lines, resized):
+    """`scene` with `extra` translucent discs appended (the first `lines` of
+    them drawn as four lines to the same points as the disc's four cubics:
+    the same path tags, fewer path data words) and, with `resized`, its
+    target 16 pixels narrower and 8 lower: the same tile grid bucket
+    (`tile_grid_cap`, a power of two of the tiles), another width in tiles.
+    Returns (scene, params)."""
+    import dataclasses
+
+    from jello_tpu_torch.curve import circle
+
+    s = jt.Scene()
+    s.append(scene, jt.Affine.identity())
+    for k in range(extra):
+        x, y, r = 40.0 + 37.0 * k, 48.0 + 21.0 * k, 9.0 + 2.0 * k
+        path = circle(x, y, r)
+        if k < lines:
+            path = (jt.BezPath().move_to(x + r, y).line_to(x, y + r).line_to(x - r, y)
+                    .line_to(x, y - r).line_to(x + r, y).close())
+        s.fill(jt.Fill.NON_ZERO, jt.Affine.identity(),
+               jt.SolidBrush(jt.Color.rgba(0.1 + 0.2 * k, 0.5, 0.9 - 0.2 * k, 0.6)), None, path)
+    if resized:
+        params = dataclasses.replace(params, width=params.width - 16, height=params.height - 8)
+    return s, params
+
+
+def _edited_frames(scenes, smi):
+    """Phase 13's edited scenes: configs 3 and 5, each edited through
+    EDITS in one fresh renderer (a path removed or added, cubics turned
+    into lines, the target resized inside the tile grid bucket). Each
+    edit is a new stream shape, so its first render estimates and
+    calibrates eagerly and then renders its calibrated class: a replay of
+    the class's program once the class has one. Holds each edit's replay
+    to its own eager frame at the class bit for bit (assembled image and
+    u8 surface), no flag raised, 0 host-device synchronizations in a
+    settled render_surface_async, and one program a class over the edits
+    (the parent's tree keyed a program by the layout too: one an edit).
+    Prints the programs built, each capture's reserved MiB and
+    memory_reserved after each edit."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import jello_tpu_torch as jt
+    from jello_tpu_torch.cuda.render import (
+        Renderer,
+        assemble,
+        assemble_present,
+        output_layout,
+        unpack_flags,
+    )
+
+    for name in ("config3", "config5"):
+        base, params0 = scenes[name]
+        rc = Renderer(device="cuda")
+        captures = []
+        _reserved_by_builds(rc._cache, captures)
+        classes, rows = [], []
+        for what, extra, lines, resized in EDITS:
+            scene, params = _edited(jt, base, params0, extra, lines, resized)
+            u8 = rc.render_surface(scene, params)
+            if rc._program is None:  # the class's first clean frame settles it
+                u8 = rc.render_surface(scene, params)
+            prog = rc._program
+            flags = dict(rc.last_flags)
+            fine_rep, _ = rc.render_device(scene, params)
+            prepared = rc._prepare(scene, params)
+            cls = rc._class_of(prepared, params, rc._caps)
+            if cls not in classes:
+                if classes:  # what sets this class apart from the first
+                    first, new = dict(classes[0][3]), dict(cls[3])
+                    diff = {k: (first.get(k), new.get(k)) for k in first.keys() | new.keys()
+                            if first.get(k) != new.get(k)}
+                    print(f"{name} edited: {what}: a class of its own, caps {diff} (the first "
+                          "class's, this one's)")
+                classes.append(cls)
+            fine_e, packed_e, keys_e = _eager_frame(rc, prepared, params)
+            out_ld = output_layout(prepared[1], prepared[2][1])
+            same = (torch.equal(assemble(fine_rep, out_ld), assemble(fine_e, out_ld))
+                    and np.array_equal(u8, assemble_present(fine_e, out_ld, True,
+                                                            True).cpu().numpy()))
+            flags_e = unpack_flags(packed_e.cpu().tolist(), *keys_e)[0]
+            f_async, sites = _syncs(lambda: rc.render_surface_async(scene, params))
+            async_same = (np.array_equal(f_async.result(), u8)
+                          and not any(f_async.flags.values()))
+            torch.cuda.synchronize()
+            ld = prepared[1]
+            rows.append((what, prog is not None, same, async_same, len(sites),
+                         [k for k, v in {**flags, **flags_e}.items() if v],
+                         hashlib.sha256(u8.tobytes()).hexdigest()[:16],
+                         (int(ld["n_paths"]), int(ld["draw_tag_base"]),
+                          int(ld["width_in_tiles"]), int(ld["target_width"]),
+                          int(ld["target_height"])),
+                         len(rc.compile_log), torch.cuda.memory_reserved() / 2**20))
+            del fine_rep, fine_e, f_async
+        for (what, replayed, same, async_same, n_sync, raised, sha, lay, n_prog,
+             reserved) in rows:
+            print(f"{name} edited: {what}: (paths, draw tag base, width in tiles, target) "
+                  f"{lay}; a replay of the class's program: {replayed}; equal to its own eager "
+                  f"frame bit for bit: {same}; frame in flight equal: {async_same}; "
+                  f"{n_sync} host-device synchronizations in the settled async call; flags "
+                  f"raised {raised}; u8 SHA-256 {sha}; programs built so far {n_prog}; "
+                  f"memory_reserved {reserved:.1f} MiB")
+        print(f"{name} edited: {len(EDITS)} edits, {len(classes)} classes, "
+              f"{len(rc.compile_log)} programs built (the parent's tree: one program an edit, "
+              f"{len(EDITS)} here); captures {[(round(mib, 1), k) for k, mib in captures]} "
+              f"(reserved MiB each capture added); programs {rc.compile_log}; on {smi}")
+        bad = [r[0] for r in rows if not (r[1] and r[2] and r[3]) or r[4] or r[5]]
+        if bad or len(rc.compile_log) != len(classes):
+            _fail(f"{name} edited: {bad} not a replay equal to its eager frame with no flag and "
+                  f"no synchronization, or {len(rc.compile_log)} programs for {len(classes)} "
+                  "classes")
+        del rc
+        torch.cuda.empty_cache()
+
+
 def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
     """Phase 13: every settled frame is its class's program replayed (a
     CUDA graph, `cuda/program.py`). For configs 1 to 5 in area and msaa8,
@@ -1091,7 +1261,13 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
     import torch
 
     import jello_tpu_torch
-    from jello_tpu_torch.cuda.render import Renderer, assemble, assemble_present, unpack_flags
+    from jello_tpu_torch.cuda.render import (
+        Renderer,
+        assemble,
+        assemble_present,
+        output_layout,
+        unpack_flags,
+    )
 
     cases = [(name, aa, "") for name in scenes for aa in ("area", "msaa8")]
     cases += [("config4", "msaa16", ""), ("config4", "area", "b8"), ("config5", "area", "tap0")]
@@ -1108,6 +1284,8 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
             os.environ[env[0]] = env[1]
         try:
             rc = Renderer(device="cuda")
+            builds = []
+            _reserved_by_builds(rc._cache, builds)
             rc.render_surface(scene, params)  # the estimate and the calibration: eager
             settling = len(rc.compile_log)
             u8 = rc.render_surface(scene, params)  # builds the class's program
@@ -1117,9 +1295,9 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
             prog, flags_rep = rc._program, dict(rc.last_flags)
             prepared = rc._prepare(scene, params)
             fine_e, packed_e, keys_e = _eager_frame(rc, prepared, params)
-            layout_t = prepared[2][1]
-            img_rep, img_e = assemble(fine_rep, layout_t), assemble(fine_e, layout_t)
-            u8_e = assemble_present(fine_e, layout_t, True, True).cpu().numpy()
+            out_ld = output_layout(prepared[1], prepared[2][1])
+            img_rep, img_e = assemble(fine_rep, out_ld), assemble(fine_e, out_ld)
+            u8_e = assemble_present(fine_e, out_ld, True, True).cpu().numpy()
             flags_e = unpack_flags(packed_e.cpu().tolist(), *keys_e)[0]
             hashes = [(_sha(img_rep), _sha(img_e)), (_sha(fine_rep[1]), _sha(fine_e[1])),
                       (_sha(torch.from_numpy(u8)), _sha(torch.from_numpy(u8_e)))]
@@ -1158,7 +1336,8 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
                   f"{[round(v, 3) for v in ms['replayed']]} (median {med_r:.3f}), eager "
                   f"{[round(v, 3) for v in ms['eager']]} (median {med_e:.3f}); host ms a call, "
                   f"median: replayed {statistics.median(enq['replayed']):.3f}, eager "
-                  f"{statistics.median(enq['eager']):.3f}; on {smi}")
+                  f"{statistics.median(enq['eager']):.3f}; the capture added "
+                  f"{builds[0][1]:.1f} MiB reserved; on {smi}")
             print(f"{tag}: traced frame, replayed / eager: busy {busy:.3f} / {busy_e:.3f} ms, "
                   f"{n_k:g} / {n_ke:g} kernels and {n_c:g} / {n_ce:g} copies or memsets; device "
                   f"operations equal by name and count: {ops_r == ops_e}; the replay's kernels "
@@ -1202,8 +1381,8 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
     for (sc, pr), px in zip(moved, got):
         prepared = rf._prepare(sc, pr)
         fine_e = _eager_frame(rf, prepared, pr)[0]
-        same.append(np.array_equal(px, assemble_present(fine_e, prepared[2][1], True,
-                                                         True).cpu().numpy()))
+        same.append(np.array_equal(px, assemble_present(
+            fine_e, output_layout(prepared[1], prepared[2][1]), True, True).cpu().numpy()))
     raised = [sorted(k for k, v in f.flags.items() if v) for f in in_flight]
     print(f"compiled frame, frames in flight: 3 frames of one class (400 discs moved 0, 16 and "
           f"32 pixels) enqueued back to back, {rf._program.replays - before} replays; each "
@@ -1214,6 +1393,7 @@ def _compiled_frames(scenes, msaa_params, launches, on_path, smi):
         _fail("frames in flight of one program differ from their eager frames")
     kept.clear()
     torch.cuda.empty_cache()
+    _edited_frames(scenes, smi)
 
 
 def _multi_gpu(scenes, launches, smi, card_peak):
@@ -1239,7 +1419,7 @@ def _multi_gpu(scenes, launches, smi, card_peak):
     import torch
 
     from jello_tpu_torch.cuda import collectives, sharded, sharded2
-    from jello_tpu_torch.cuda.render import Renderer, assemble, upload, upload_atlas
+    from jello_tpu_torch.cuda.render import Renderer, assemble
     from jello_tpu_torch.renderer.params import AaConfig
 
     counters = _counters()
@@ -1289,11 +1469,13 @@ def _multi_gpu(scenes, launches, smi, card_peak):
         for name in ("config5", "config4"):
             for path, mod, opts, aa in modes:
                 inputs, caps_s, single = full[(name, aa)]
-                scene_u32, ld, ramps, atlas, _ = inputs
-                args = upload(scene_u32, ld, ramps, {}, "cuda")[:3] + (upload_atlas(atlas, "cuda"),)
+                ld, atlas = inputs[1], inputs[3]
+                args = sharded.rank_inputs(inputs, "cuda")
                 holder = (sharded2.RetryingRender(group) if mod is sharded2
                           else sharded.StripeFrames(group, opts["pallas_fine"]))
                 holders.append(holder)
+                builds = []
+                _reserved_by_builds(holder._programs, builds)
                 tag = f"{name}_ws1_{path}_{aa}"
                 if not holder.capture:
                     _fail(f"{tag}: over NCCL the sharded frame is not captured")
@@ -1349,7 +1531,8 @@ def _multi_gpu(scenes, launches, smi, card_peak):
                       f"{[round(v, 3) for v in ms['eager']]} (median {med_e:.3f}), {cuts[0]} "
                       f"rounds of {cuts[1]}; host ms a call, median: replayed "
                       f"{statistics.median(enq['replayed']):.3f}, eager "
-                      f"{statistics.median(enq['eager']):.3f}; on {smi}")
+                      f"{statistics.median(enq['eager']):.3f}; the capture added "
+                      f"{builds[0][1]:.1f} MiB reserved; on {smi}")
                 print(f"{tag}: the replay (its graph's nodes; traced for its busy ms) / the "
                       f"eager frame (traced): busy {busy:.3f} / {busy_e:.3f} ms, {n_k:g} / "
                       f"{n_ke:g} kernels and {n_c:g} / {n_ce:g} copies or memsets; device "
@@ -1647,7 +1830,7 @@ def main():
     scene3, params3 = config3()
     warm = Renderer(device="cuda")
     warm.render(scene3, params3)
-    _, _, (scene_t, layout_t, ramps_t, _), _ = warm._prepare(scene3, params3)
+    _, _, (scene_t, layout_t, ramps_t, _), _ = _prepared(warm, scene3, params3)
     caps = dict(warm._caps, **frame_routing(0, False, 0))
     out = {}
     calls = _record_calls(
@@ -1948,7 +2131,7 @@ def main():
     print(f"config 5: first render (estimate, grow, calibrate) {time.perf_counter() - t:.1f} s, "
           f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
     print(f"config 5 calibrated caps: {warm._caps}")
-    _, ld5, (scene_t, layout_t, ramps_t, atlas_t), _ = warm._prepare(scene5, params5)
+    _, ld5, (scene_t, layout_t, ramps_t, atlas_t), _ = _prepared(warm, scene5, params5)
     if atlas_t is None:
         _fail("config 5 resolved to no image atlas")
     caps = dict(warm._caps, **frame_routing(0, True, 0))
@@ -2140,8 +2323,8 @@ def main():
     print("config 4 calibrated caps: " + ", ".join(f"{k} {warm._caps[k]}" for k in (
         "legacy_tiles_cap", "cmds_per_tile", "blend_depth", "cmd_cap", "pair_cap",
         "tiles_cap", "area_rows_cap", "seg_cap", "n_clips_cap")))
-    _, ld4, (scene_t, layout_t, ramps_t, atlas_t), depth4 = warm._prepare(scene4, params4)
-    caps = dict(warm._caps, **frame_routing(layout_t["n_clips"], atlas_t is not None, depth4))
+    _, ld4, (scene_t, layout_t, ramps_t, atlas_t), depth4 = _prepared(warm, scene4, params4)
+    caps = dict(warm._caps, **frame_routing(int(ld4["n_clips"]), atlas_t is not None, depth4))
     stages = geometry(scene_t, layout_t, caps)[0]
     cmds, counted = stages["cmds"], stages["counted"]
     out = {}
@@ -2151,13 +2334,13 @@ def main():
                                                     caps)))
     if any(bool(v) for v in out["fine"][1].values()):
         _fail("config 4's fine stage raised a flag at the calibrated class")
-    g_args = calls4["interpret_tiles"][0][:9]  # without the batch switch
+    g_args = calls4["interpret_tiles"][0][:8]  # without the batch switch
     (b_args,) = calls4["composite_records"]
     g_counts, g_ids, _, g_slab, g_rows = g_args[:5]
-    GRID4, BD4 = caps["tile_grid_cap"], g_args[8]
+    GRID4, BD4 = caps["tile_grid_cap"], g_args[7]
 
     def plain_g():
-        return plain_int.interpret_plain(g_counts[:-1], *g_args[1:])
+        return plain_int.interpret_plain(*g_args)
 
     real = g_ids < GRID4
     n_real = int(real.sum())
@@ -2277,12 +2460,12 @@ def main():
         _fail("config 4's msaa8 fine stage raised a flag at the calibrated class")
     gm_all = calls4m["interpret_tiles"][0]
     (bm_args,) = calls4m["composite_records"]
-    if gm_all[10] is not True or bm_args[8] is not True:
+    if gm_all[9] is not True or bm_args[8] is not True:
         _fail("fine_hybrid did not ask for the resolved branch under msaa8")
-    gm_args = gm_all[:9]
+    gm_args = gm_all[:8]
     got_gm, ovf_gm = kint.interpret_tiles(*gm_args, False, True)
     got_hm, ovf_hm = kint.interpret_tiles(*gm_args, True, True)
-    want_gm, ovf_pm = plain_int.interpret_plain(gm_args[0][:-1], *gm_args[1:], resolved=True)
+    want_gm, ovf_pm = plain_int.interpret_plain(*gm_args, resolved=True)
     torch.cuda.synchronize()
     err_gm = _max_diff(got_gm[real], want_gm[real])
     err_hm = _max_diff(got_hm[real], want_gm[real])
@@ -2300,7 +2483,7 @@ def main():
     gn_args = g_args[:4] + (-1.5 * g_rows.abs(),) + g_args[5:]
     got_gn, _ = kint.interpret_tiles(*gn_args, False, True)
     got_hn, _ = kint.interpret_tiles(*gn_args, True, True)
-    want_gn, _ = plain_int.interpret_plain(gn_args[0][:-1], *gn_args[1:], resolved=True)
+    want_gn, _ = plain_int.interpret_plain(*gn_args, resolved=True)
     by_rule, _ = kint.interpret_tiles(*gn_args)
     torch.cuda.synchronize()
     err_gn = max(_max_diff(got_gn[real], want_gn[real]), _max_diff(got_hn[real], want_gn[real]))
@@ -2369,8 +2552,8 @@ def main():
     small = _small_clip_scene(jello_tpu_torch)
     warm = Renderer(device="cuda")
     warm.render(*small)
-    _, _, (scene_t, layout_t, ramps_t, atlas_t), depth_s = warm._prepare(*small)
-    caps = dict(warm._caps, **frame_routing(layout_t["n_clips"], False, depth_s))
+    _, ld_s, (scene_t, layout_t, ramps_t, atlas_t), depth_s = _prepared(warm, *small)
+    caps = dict(warm._caps, **frame_routing(int(ld_s["n_clips"]), False, depth_s))
     stages = geometry(scene_t, layout_t, caps)[0]
     fi_args = (stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t)
     full_g, flags_g = kint.fine_interp(*fi_args, caps)
@@ -2513,7 +2696,7 @@ def main():
             caps_f, fine_impl = plain_r._route(prepared, params, caps)
             with _PlainKernels():
                 fine_p, packed_p, keys_p = frame(*prepared[2], caps_f, fine_impl)
-                ref = assemble(fine_p, prepared[2][1]).cpu().numpy()
+                ref = assemble(fine_p, prepared[1]).cpu().numpy()
             if any_launch() or any(unpack_flags(packed_p.cpu().tolist(), *keys_p)[0].values()):
                 _fail(f"{name}: the plain reference launched a kernel or raised a flag")
             del fine_p, packed_p
@@ -2812,7 +2995,7 @@ def main():
             or launches["config5_tap0"]["image_tap"] != 0 or not np.isfinite(img_t0).all()):
         _fail("config 5 under JELLO_IMAGE_TAP=0 differs from the tap route, raised a flag "
               "or launched the tap")
-    _, _, (scene_t, layout_t, ramps_t, atlas_t), _ = r0._prepare(scene5, params5)
+    _, _, (scene_t, layout_t, ramps_t, atlas_t), _ = _prepared(r0, scene5, params5)
     g5 = {}
     for aa in ("area", "msaa8"):
         caps = dict(r0._caps, **frame_routing(0, True, 0, aa, image_tap=False))
@@ -2824,7 +3007,7 @@ def main():
                                                         ramps_t, atlas_t, layout_t, caps)))
         if any(bool(v) for v in out["fine"][1].values()):
             _fail(f"config5_tap0, {aa}: the fine stage raised a flag at the calibrated class")
-        g5[aa] = calls_t0["interpret_tiles"][0][:9]
+        g5[aa] = calls_t0["interpret_tiles"][0][:8]
         del stages, out, calls_t0
     gi_args = g5["area"]
     gi_counts, gi_ids, _, gi_slab, gi_rows = gi_args[:5]
@@ -2846,7 +3029,7 @@ def main():
     for aa, resolved in (("area", False), ("msaa8", True)):
         args = g5[aa]
         got_gi, ovf_gi = kint.interpret_tiles(*args, False, resolved)
-        want_gi, ovf_pi = plain_int.interpret_plain(args[0][:-1], *args[1:], resolved=resolved)
+        want_gi, ovf_pi = plain_int.interpret_plain(*args, resolved=resolved)
         torch.cuda.synchronize()
         err_gi = _max_diff(got_gi[real5], want_gi[real5])
         print(f"kernel G with images, config5_tap0, {aa}: max|row diff| vs plain {err_gi:.3e}, "
@@ -2873,8 +3056,7 @@ def main():
         if not all(torch.equal(a, b) for a, b in zip(outs, (got_gi, ovf_gi))):
             _fail(f"kernel G's bare C entry differs from its wrapper (config5_tap0, {aa})")
         b_ms = _time_ms(call, 20)
-        p_ms = _time_ms(lambda: plain_int.interpret_plain(args[0][:-1], *args[1:],
-                                                          resolved=resolved), 2)
+        p_ms = _time_ms(lambda: plain_int.interpret_plain(*args, resolved=resolved), 2)
         us = _device_us(call)
         n_k, n_c = _device_ops(lambda: kint.interpret_tiles(*args, False, resolved))
         gi_res[aa] = (err_gi, w_ms, p_ms, gi_bound, b_ms)
@@ -2933,7 +3115,7 @@ def main():
     caps_o, _ = r_o._route(prepared_o, params_o, r_o._caps, reroute=True)
     fine_e = frame(*prepared_o[2], caps_o, None)[0]
     same_o = torch.equal(fine_rep, fine_e)
-    err_rep = float(np.abs(assemble(fine_rep, prepared_o[2][1]).cpu().numpy() - ref_o).max())
+    err_rep = float(np.abs(assemble(fine_rep, prepared_o[1]).cpu().numpy() - ref_o).max())
     del fine_rep, fine_e
     med, lo, hi, peak = _frame_ms(lambda: r_o.render_device(scene_o, params_o))
     n_k, n_c, busy, _, _, tab = _profile(lambda: r_o.render_device(scene_o, params_o))

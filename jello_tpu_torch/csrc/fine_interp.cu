@@ -335,7 +335,7 @@ __global__ void __launch_bounds__(kTileThreads)
 interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_ids,
                    const float* __restrict__ base, const int* __restrict__ slab,
                    float* __restrict__ scratch, float* __restrict__ out, int* __restrict__ ovf,
-                   Tables tb, int MC, int wit, int levels, int rows) {
+                   Tables tb, int MC, int levels, int rows) {
   extern __shared__ float4 smem[];
   __shared__ int claimed;
   int* tape = reinterpret_cast<int*>(smem);
@@ -347,6 +347,9 @@ interp_tile_kernel(const int* __restrict__ counts, const int* __restrict__ tile_
 
   const int tile = __ldg(tile_ids + slot);
   const int count = min(__ldg(counts + slot), MC);
+  // The width in tiles: the word after the n slots' counts, the frame's
+  // data as in the Pallas kernel's scalar prefetch (counts_smem).
+  const int wit = __ldg(counts + gridDim.x);
   const int ox = (tile % wit) * 16, oy = (tile / wit) * 16;
   float gx[kPx], gy[kPx], v[kPx][4], area[kPx];
 #pragma unroll
@@ -433,7 +436,7 @@ __global__ void __launch_bounds__(kBatchTiles * 32 * W, M)
 interp_batch_kernel(const int* __restrict__ counts, const int* __restrict__ tile_ids,
                     const float* __restrict__ base, const int* __restrict__ slab,
                     float* __restrict__ scratch, float* __restrict__ out,
-                    int* __restrict__ ovf, Tables tb, int MC, int wit, int levels) {
+                    int* __restrict__ ovf, Tables tb, int MC, int levels) {
   constexpr int kThreads = 32 * W;             // a slot's threads
   constexpr int kPxH = kPixels / kThreads;     // pixels a thread: 8, 4 or 2
   constexpr int kVec = kPxH < 4 ? kPxH : 4;    // floats a vector access
@@ -452,6 +455,8 @@ interp_batch_kernel(const int* __restrict__ counts, const int* __restrict__ tile
 
   const int tile = __ldg(tile_ids + slot);
   const int count = min(__ldg(counts + slot), MC);
+  // The width in tiles: the word after the n slots' counts (as G's).
+  const int wit = __ldg(counts + gridDim.x * kBatchTiles);
   const int ox = (tile % wit) * 16, oy = (tile / wit) * 16;
   float gx[kPxH], gy[kPxH], v[kPxH][4], area[kPxH];
 #pragma unroll
@@ -597,7 +602,7 @@ cudaError_t batch_opt_in() {
 // Kernel H's build (warps, min_ctas) with `levels` shared stack levels.
 int batch_entry(const void* counts, const void* tile_ids, const void* base, const void* slab,
                 const void* scratch, void* out, void* ovf, const Tables& tb, int n, int MC,
-                int wit, int warps, int min_ctas, int levels, void* stream) {
+                int warps, int min_ctas, int levels, void* stream) {
   if (n % kBatchTiles != 0 || levels < 0 || levels > kHMaxLevels) return (int)cudaErrorInvalidValue;
   levels = batch_levels(levels, tb.BD);
   if (tb.BD > levels && scratch == nullptr) return (int)cudaErrorInvalidValue;
@@ -609,7 +614,7 @@ int batch_entry(const void* counts, const void* tile_ids, const void* base, cons
     interp_batch_kernel<V::kW, V::kM>
         <<<n / kBatchTiles, kBatchTiles * 32 * V::kW, batch_smem(levels), (cudaStream_t)stream>>>(
             (const int*)counts, (const int*)tile_ids, (const float*)base, (const int*)slab, sc,
-            (float*)out, (int*)ovf, tb, MC, wit, levels);
+            (float*)out, (int*)ovf, tb, MC, levels);
     return cudaGetLastError();
   });
 }
@@ -636,7 +641,8 @@ int batch_ctas(int warps, int min_ctas, int levels) {
 
 }  // namespace
 
-// counts [n] i32 (any words after the first n are not read), tile_ids [n]
+// counts [n + 1] i32 (the slots' tape lengths, then the width in tiles,
+// which the kernels read on the device), tile_ids [n]
 // i32, base [4] f32, slab [n, MC, 16] i32 (16-byte aligned), rows
 // [n_rows, 256] f32 (16-byte aligned), stops [NR, W] f32, atlas [4, AHp,
 // AWp] f32 or null, scratch (jello_fine_interp_scratch's floats) or null
@@ -647,14 +653,14 @@ extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const
                                  const void* slab, const void* rows, const void* stops,
                                  const void* atlas, void* scratch, void* out, void* ovf,
                                  int n, int MC, int n_rows, int n_ramp_rows, int row_w,
-                                 int wit, int BD, int AHp, int AWp, int batch,
-                                 int resolved, void* stream) {
+                                 int BD, int AHp, int AWp, int batch, int resolved,
+                                 void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const Tables tb{(const float*)rows, (const float*)stops, (const float*)atlas,
                   n_rows, n_ramp_rows, row_w, BD, AHp, AWp, resolved};
   const cudaStream_t s = (cudaStream_t)stream;
   if (batch != 0)
-    return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, wit, kHWarps,
+    return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, kHWarps,
                        kHMinCtas, kHLevels, stream);
   const int levels = tile_levels(BD);
   int pool = 0;
@@ -665,7 +671,7 @@ extern "C" int jello_fine_interp(const void* counts, const void* tile_ids, const
   }
   interp_tile_kernel<<<n, kTileThreads, tile_smem(levels), s>>>(
       (const int*)counts, (const int*)tile_ids, (const float*)base, (const int*)slab,
-      (float*)scratch, (float*)out, (int*)ovf, tb, MC, wit, levels, pool);
+      (float*)scratch, (float*)out, (int*)ovf, tb, MC, levels, pool);
   return (int)cudaGetLastError();
 }
 
@@ -705,13 +711,13 @@ extern "C" int jello_fine_interp_ctas(int batch, int BD) {
 extern "C" int jello_fine_interp_h(const void* counts, const void* tile_ids, const void* base,
                                    const void* slab, const void* rows, const void* stops,
                                    const void* atlas, void* scratch, void* out, void* ovf, int n,
-                                   int MC, int n_rows, int n_ramp_rows, int row_w, int wit,
+                                   int MC, int n_rows, int n_ramp_rows, int row_w,
                                    int BD, int AHp, int AWp, int resolved, int warps,
                                    int min_ctas, int levels, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const Tables tb{(const float*)rows, (const float*)stops, (const float*)atlas,
                   n_rows, n_ramp_rows, row_w, BD, AHp, AWp, resolved};
-  return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, wit, warps,
+  return batch_entry(counts, tile_ids, base, slab, scratch, out, ovf, tb, n, MC, warps,
                      min_ctas, levels, stream);
 }
 

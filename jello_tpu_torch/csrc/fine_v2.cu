@@ -70,7 +70,8 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
                const int* __restrict__ tile_end,
                const float* __restrict__ base,
                const float* __restrict__ fg_tab, float* __restrict__ out,
-               int n_ramp_rows, int row_w, int wit, int n_fg_rows, int resolved) {
+               const int* __restrict__ wit_ptr, int n_ramp_rows, int row_w, int n_fg_rows,
+               int resolved) {
   __shared__ int w[16];
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -78,6 +79,9 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
   const int end = tile_end[tile];
   if (start >= end) return;
 
+  // The width in tiles is the frame's data (the layout's word on the
+  // device, as the Pallas kernel's scalar prefetch): one uniform load.
+  const int wit = __ldg(wit_ptr);
   const float gx = (float)((tile % wit) * 16) + (float)(p & 15);
   const float gy = (float)((tile / wit) * 16) + (float)(p >> 4);
   float v0 = base[0], v1 = base[1], v2 = base[2], v3 = base[3];
@@ -171,16 +175,19 @@ fine_v2_kernel(const int* __restrict__ rec, const float* __restrict__ cov,
 
 }  // namespace
 
+// wit: the width in tiles, one int32 on the device (the packed layout's
+// word, `pipeline/render.py::pack_layout`), read by the kernel.
 extern "C" int jello_fine_v2(const void* rec, const void* cov, const void* stops,
                              const void* tile_start, const void* tile_end,
                              const void* base, const void* fg_tab, void* out,
-                             int n_tiles, int n_ramp_rows, int row_w, int wit,
+                             const void* wit, int n_tiles, int n_ramp_rows, int row_w,
                              int n_fg_rows, int resolved, void* stream) {
   if (n_tiles > 0) {
     fine_v2_kernel<<<n_tiles, kPixels, 0, (cudaStream_t)stream>>>(
         (const int*)rec, (const float*)cov, (const float*)stops,
         (const int*)tile_start, (const int*)tile_end, (const float*)base,
-        (const float*)fg_tab, (float*)out, n_ramp_rows, row_w, wit, n_fg_rows, resolved);
+        (const float*)fg_tab, (float*)out, (const int*)wit, n_ramp_rows, row_w, n_fg_rows,
+        resolved);
   }
   return (int)cudaGetLastError();
 }

@@ -66,12 +66,15 @@ __device__ __forceinline__ void store_zeros(float4* o, int lane) {
 
 __global__ void __launch_bounds__(kWarps * 32)
 image_tap_kernel(const int* __restrict__ rec, const float* __restrict__ atlas,
-                 float* __restrict__ out, unsigned char* __restrict__ region_flag, int n_recs,
-                 int grid, int wit, int AHp, int AWp) {
+                 float* __restrict__ out, unsigned char* __restrict__ region_flag,
+                 const int* __restrict__ wit_ptr, int n_recs, int grid, int AHp, int AWp) {
   __shared__ int words[kWarps][16];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int* w = words[warp];
+  // The width in tiles is the frame's data (the layout's word on the
+  // device, as the Pallas kernel's scalar prefetch): one uniform load.
+  const int wit = __ldg(wit_ptr);
   for (int i = blockIdx.x * kWarps + warp; i < n_recs; i += gridDim.x * kWarps) {
     __syncwarp();  // the previous record's words are read
     if (lane < 16) words[warp][lane] = __ldg(rec + (size_t)i * 16 + lane);
@@ -140,9 +143,10 @@ cudaError_t resident_ctas(int* per_sm, int* sms) {
 
 // tap_rec [n_recs, 16] i32, atlas [4, AHp, AWp] f32, out [n_recs, 1024]
 // f32, region_flag one byte (cleared here, set to 1 by a live record past
-// MAX_WIN windows).
+// MAX_WIN windows), wit the width in tiles, one int32 on the device (the
+// packed layout's word, `pipeline/render.py::pack_layout`).
 extern "C" int jello_image_tap(const void* rec, const void* atlas, void* out,
-                               void* region_flag, int n_recs, int grid, int wit,
+                               void* region_flag, const void* wit, int n_recs, int grid,
                                int AHp, int AWp, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(region_flag, 0, 1, s);
@@ -153,7 +157,7 @@ extern "C" int jello_image_tap(const void* rec, const void* atlas, void* out,
   const int need = (n_recs + kWarps - 1) / kWarps;
   image_tap_kernel<<<need < per_sm * sms ? need : per_sm * sms, kWarps * 32, 0, s>>>(
       (const int*)rec, (const float*)atlas, (float*)out, (unsigned char*)region_flag,
-      n_recs, grid, wit, AHp, AWp);
+      (const int*)wit, n_recs, grid, AHp, AWp);
   return (int)cudaGetLastError();
 }
 

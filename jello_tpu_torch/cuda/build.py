@@ -51,9 +51,10 @@ SIGNATURES = {
     "jello_coverage_grid": [I],
     # rec [PC, 16] i32, cov [>=PC, 256] f32, stops [NR, W] f32,
     # tile_start [GRID] i32, tile_end [GRID] i32, base [4] f32,
-    # fg_tab [IRC, 1024] f32 or null, out [PC, 4, 256] f32, GRID, NR, W,
-    # wit, IRC, resolved (1: cov holds resolved MSAA rows), stream
-    "jello_fine_v2": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # fg_tab [IRC, 1024] f32 or null, out [PC, 4, 256] f32, wit [] i32 (the
+    # width in tiles, read on the device), GRID, NR, W, IRC, resolved (1: cov
+    # holds resolved MSAA rows), stream
+    "jello_fine_v2": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # pos [R] i32, keep [R] bool, three value vectors [R] (null past K),
     # their type codes (0 int32, 1 float32), out [K, out_len] f32 (zeroed
     # by the entry), R, K, out_len, stream
@@ -75,18 +76,19 @@ SIGNATURES = {
     # RC, T, stream
     "jello_expand_rows": [P, P, P, P, P, P, I, I, I, P],
     # tap_rec [IRC, 16] i32, atlas [4, AHp, AWp] f32, out [IRC, 1024] f32,
-    # region flag, one byte (the entry clears it with a memset), IRC, GRID,
-    # wit, AHp, AWp, stream
-    "jello_image_tap": [P, P, P, P, I, I, I, I, I, P],
+    # region flag, one byte (the entry clears it with a memset), wit [] i32
+    # (the width in tiles, read on the device), IRC, GRID, AHp, AWp, stream
+    "jello_image_tap": [P, P, P, P, P, I, I, I, I, P],
     # F's CTAs resident on a multiprocessor (a query, no launch)
     "jello_image_tap_ctas": [],
-    # counts [n] i32, tile_ids [n] i32, base [4] f32, slab [n, MC, 16] i32,
+    # counts [n + 1] i32 (then the width in tiles, read on the device),
+    # tile_ids [n] i32, base [4] f32, slab [n, MC, 16] i32,
     # rows [R, 256] f32 (both 16-byte aligned), stops [NR, W] f32, atlas
     # [4, AHp, AWp] f32 or null, stack scratch (jello_fine_interp_scratch's
     # floats) or null, out [n, 4, 256] f32, ovf [n] i32, n, MC, R, NR, W,
-    # wit, BD, AHp, AWp, batch (0 kernel G, 1 kernel H), resolved (1: rows
+    # BD, AHp, AWp, batch (0 kernel G, 1 kernel H), resolved (1: rows
     # hold resolved MSAA coverage), stream
-    "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
+    "jello_fine_interp": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     # n, BD, batch: floats of stack scratch the entry needs (a query)
     "jello_fine_interp_scratch": [I, I, I],
     # batch, BD: G's or H's CTAs resident on a multiprocessor (a query)
@@ -94,8 +96,7 @@ SIGNATURES = {
     # kernel H at any point of its design space: jello_fine_interp's
     # arguments without batch, then the build (warps a slot, CTAs a
     # multiprocessor it is built for) and shared stack levels (0 to 4)
-    "jello_fine_interp_h": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
-                            P],
+    "jello_fine_interp_h": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P],
     # which (0 scratch floats, 1 resident CTAs, 2, 3, 4 the shipped warps,
     # CTAs and levels), n, BD, warps, min CTAs, levels (a query)
     "jello_fine_interp_h_query": [I, I, I, I, I, I],
@@ -182,6 +183,11 @@ def check(name: str, err: int) -> None:
 
 def check_tensor(name, t, dtype, device, shape) -> None:
     """Raise unless t is a contiguous `dtype` tensor of `shape` on `device`."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a {dtype} tensor {tuple(shape)} on {device}, got "
+                         f"{type(t).__name__}")
     if (t.dtype != dtype or t.device != device or tuple(t.shape) != tuple(shape)
             or not t.is_contiguous()):
         raise ValueError(

@@ -31,7 +31,7 @@ import torch
 
 from ..pipeline import ops
 from ..pipeline.coarse import classify_legacy_tiles
-from ..pipeline.fine_interp import OVF_BLEND_DEPTH, OVF_IMAGE_REGION, build_records
+from ..pipeline.fine_interp import OVF_BLEND_DEPTH, OVF_IMAGE_REGION, build_records, with_width
 from ..pipeline.flatten import expand_by_counts
 from ..pipeline.image_tap import image_tap
 from ..pipeline.ops import I32
@@ -121,9 +121,8 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
     counts = torch.where(
         legacy_ids < GRID,
         ops.gather_guarded(counts_tile, torch.clamp(legacy_ids, 0, GRID - 1)), 0)
-    counts = torch.cat([counts, counts.new_full((1,), int(wit))])
     legacy_out, ovf = kinterp.interpret_tiles(
-        counts, legacy_ids, layout["base_color"], slab, area, ramps, atlas, wit,
+        with_width(counts, wit), legacy_ids, layout["base_color"], slab, area, ramps, atlas,
         caps["blend_depth"], bool(caps.get("_interp_batch")), resolved)
     flags["blend_depth_overflow"] = ((ovf & OVF_BLEND_DEPTH) != 0).any()
     region = ((ovf & OVF_IMAGE_REGION) != 0).any()

@@ -22,12 +22,13 @@ from .build import check, check_tensor, kernels, stream_of
 H_TILES = 8
 
 
-def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend_depth,
+def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, blend_depth,
                     batch=False, resolved=False):
     """Walk each slot's command tape over its tile's 256 pixels.
 
     counts [n + 1] i32: the slots' tape lengths, then the width in tiles
-    (the scalar-prefetch layout of the Pallas call); tile_ids [n] i32 (a
+    (the scalar-prefetch layout of the Pallas call, `counts_smem`: the
+    kernels read it on the device); tile_ids [n] i32 (a
     pad slot has count 0 and any id; jello_tpu gives it the grid size);
     base [4] f32 premultiplied base color; slab [n, MC, 16] i32 records; rows
     [R, 256] f32 raw winding rows read at record word 1 (with `resolved`,
@@ -58,8 +59,8 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
     if BD < 1:
         raise ValueError(f"blend_depth {BD} < 1")
     if dev.type == "cpu":
-        return plain.interpret_plain(counts[:n], tile_ids, base, slab, rows, stops, atlas,
-                                     int(wit), BD, resolved)
+        return plain.interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, BD,
+                                     resolved)
     slab_ptr, rows_ptr = slab.data_ptr(), rows.data_ptr()
     if slab_ptr % 16 or rows_ptr % 16:
         raise ValueError("slab and rows must start 16-byte aligned")
@@ -82,8 +83,8 @@ def interpret_tiles(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend
         counts.data_ptr(), tile_ids.data_ptr(), base.data_ptr(), slab_ptr, rows_ptr,
         stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
         None if scratch is None else scratch.data_ptr(), buf.data_ptr(),
-        buf.data_ptr() + 4 * n_run * 1024, n_run, MC, rows.shape[0], NR, W, int(wit), BD, AHp,
-        AWp, 1 if batch else 0, 1 if resolved else 0, stream_of(slab))
+        buf.data_ptr() + 4 * n_run * 1024, n_run, MC, rows.shape[0], NR, W, BD, AHp, AWp,
+        1 if batch else 0, 1 if resolved else 0, stream_of(slab))
     check("jello_fine_interp", err)
     if batch:
         interpret_tiles.launches_batch += 1
@@ -130,13 +131,14 @@ def h_variant(warps, min_ctas, levels):
     stack levels a slot in shared memory), for measuring the points
     against each other; the renderer's H is `interpret_tiles(...,
     batch=True)` at the shipped point (`h_query(2)`, `(3)`, `(4)`).
-    Returns call(counts, tile_ids, base, slab, rows, stops, atlas, wit, BD,
+    Returns call(counts, tile_ids, base, slab, rows, stops, atlas, BD,
     resolved, out, ovf, scratch) on CUDA tensors: n (slab's slots) a
-    multiple of 8, out [n, 4, 256] f32, ovf [n] i32, scratch `h_query(0,
+    multiple of 8, counts [n + 1] (the width in tiles last), out [n, 4,
+    256] f32, ovf [n] i32, scratch `h_query(0,
     n, BD, levels=levels)` floats or None where that is 0."""
     lib = kernels()
 
-    def call(counts, tile_ids, base, slab, rows, stops, atlas, wit, BD, resolved, out, ovf,
+    def call(counts, tile_ids, base, slab, rows, stops, atlas, BD, resolved, out, ovf,
              scratch):
         n, MC, _ = slab.shape
         NR, W = stops.shape
@@ -145,7 +147,7 @@ def h_variant(warps, min_ctas, levels):
             counts.data_ptr(), tile_ids.data_ptr(), base.data_ptr(), slab.data_ptr(),
             rows.data_ptr(), stops.data_ptr(), None if atlas is None else atlas.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(), ovf.data_ptr(), n,
-            MC, rows.shape[0], NR, W, int(wit), int(BD), AHp, AWp, 1 if resolved else 0,
+            MC, rows.shape[0], NR, W, int(BD), AHp, AWp, 1 if resolved else 0,
             int(warps), int(min_ctas), int(levels), stream_of(slab))
         check("jello_fine_interp_h", err)
 
@@ -176,11 +178,10 @@ def fine_interp(cmds, counted, ramps, atlas, layout, caps):
     area, area_row_rec, rows_overflow = compute_area_rows(cmds, counted, caps)
     rec = plain.build_records(dict(cmds, area_row=area_row_rec), caps)
     slab, counts, slab_overflow = plain.build_cmd_slab(rec, cmds, caps)
-    wit = layout["width_in_tiles"]
-    counts = torch.cat([counts, counts.new_full((1,), int(wit))])
+    counts = plain.with_width(counts, layout["width_in_tiles"])
     tile_ids = torch.arange(GRID, dtype=I32, device=rec.device)
     out, ovf = interpret_tiles(counts, tile_ids, layout["base_color"], slab, area, ramps,
-                               atlas, wit, caps["blend_depth"],
+                               atlas, caps["blend_depth"],
                                batch=bool(caps.get("_interp_batch")),
                                resolved=caps.get("aa_mode", "area") != "area")
     flags = {

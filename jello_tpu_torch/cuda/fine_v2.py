@@ -179,7 +179,9 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=N
     per-record coverage, raw winding, or with `resolved` the resolved
     coverage of an MSAA frame; stops [NR, W] f32, W = 1 + 5 * stops; base [4] f32
     premultiplied base color; tile_start/tile_end [GRID] i32, each
-    tile's run [start, end) of records (coarse's run boundaries); fg_tab
+    tile's run [start, end) of records (coarse's run boundaries); wit []
+    i32, the width in tiles (the layout's word: the kernel reads it on the
+    device, as the Pallas kernel takes it by scalar prefetch); fg_tab
     [IRC, 1024] f32 or None, the image-tap table read by image records
     (without it an image record is the identity).
     Returns compact [PC, 4, 256] f32."""
@@ -193,6 +195,7 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=N
     check_tensor("base", base, F32, dev, (4,))
     check_tensor("tile_start", tile_start, I32, dev, (grid,))
     check_tensor("tile_end", tile_end, I32, dev, (grid,))
+    check_tensor("wit", wit, I32, dev, ())
     n_fg = 0 if fg_tab is None else fg_tab.shape[0]
     if fg_tab is not None:
         check_tensor("fg_tab", fg_tab, F32, dev, (n_fg, 1024))
@@ -203,8 +206,8 @@ def composite_records(rec, cov, stops, base, tile_start, tile_end, wit, fg_tab=N
     err = kernels().jello_fine_v2(
         rec.data_ptr(), cov.data_ptr(), stops.data_ptr(), tile_start.data_ptr(),
         tile_end.data_ptr(), base.data_ptr(),
-        None if fg_tab is None else fg_tab.data_ptr(), out.data_ptr(), grid, NR, W,
-        int(wit), n_fg, 1 if resolved else 0, stream_of(rec))
+        None if fg_tab is None else fg_tab.data_ptr(), out.data_ptr(), wit.data_ptr(), grid,
+        NR, W, n_fg, 1 if resolved else 0, stream_of(rec))
     check("jello_fine_v2", err)
     composite_records.launches += 1
     return out

@@ -21,8 +21,9 @@ def tap_records(tap_rec, atlas, wit, grid):
 
     tap_rec [IRC, 16] i32: image records in stream order, zero rows past
     the image count; atlas [4, AHp, AWp] f32 premultiplied planar
-    (`pipeline.image_tap.atlas_planar`); wit: width in tiles; grid: the
-    tile grid capacity. Returns (fg [IRC, 1024] f32, four 256-pixel
+    (`pipeline.image_tap.atlas_planar`); wit [] i32: the width in tiles
+    (the layout's word, read by the kernel on the device); grid: the tile
+    grid capacity. Returns (fg [IRC, 1024] f32, four 256-pixel
     channel blocks per record with the in-bounds mask folded in, zero for
     rows that are not image records; region-overflow flag, 0-dim bool)."""
     dev = tap_rec.device
@@ -32,6 +33,7 @@ def tap_records(tap_rec, atlas, wit, grid):
         raise ValueError(f"atlas: expected [4, AHp, AWp], got {tuple(atlas.shape)}")
     _, AHp, AWp = atlas.shape
     check_tensor("atlas", atlas, F32, dev, (4, AHp, AWp))
+    check_tensor("wit", wit, I32, dev, ())
     if dev.type == "cpu":
         return plain.tap_records_plain(tap_rec, atlas, wit, grid)
     out = torch.empty((IRC, 1024), dtype=F32, device=dev)
@@ -39,8 +41,8 @@ def tap_records(tap_rec, atlas, wit, grid):
     # flag is a view of it, with no comparison on the device.
     flag = torch.empty(1, dtype=torch.bool, device=dev)
     err = kernels().jello_image_tap(
-        tap_rec.data_ptr(), atlas.data_ptr(), out.data_ptr(), flag.data_ptr(), IRC,
-        int(grid), int(wit), AHp, AWp, stream_of(tap_rec))
+        tap_rec.data_ptr(), atlas.data_ptr(), out.data_ptr(), flag.data_ptr(), wit.data_ptr(),
+        IRC, int(grid), AHp, AWp, stream_of(tap_rec))
     check("jello_image_tap", err)
     tap_records.launches += 1
     return out, flag[0]

@@ -8,12 +8,24 @@ output geometry; here a `FrameProgram` captures one frame of a class
 `pack_flags`) into a `torch.cuda.CUDAGraph` with a memory pool of its
 own, and every later frame of the class is one replay. Its `present`
 captures the frame's assembly and present the same way, once for each
-(premul, srgb), reading the frame's outputs where they lie.
+output geometry and (premul, srgb), reading the frame's outputs where
+they lie.
 
-A program owns static tensors. Its inputs (scene words, base color, stop
-table, atlas) are copies, into which `run` copies a frame's inputs on
-the stream, device to device (a tensor is skipped when it is the one the
-last run copied). Its outputs (the fine output and the packed flags, the
+A program is keyed as jello_tpu keys an executable (`caps_key`: the
+padded scene length, the stop table's and atlas's shapes, the caps with
+the frame's routing) and the fine stage: the layout (stream offsets and
+counts, target size and tile grid width, base color) is not part of the
+key but an input, packed into one int32 device tensor
+(`pipeline/render.py::pack_layout`, as `tpu/render.py:294`), which the
+frame unpacks into 0-dim views; the kernels read the width in tiles from
+it on the device, as the Pallas kernels take it by scalar prefetch. So
+every scene of a class runs the one program: a path added or removed, a
+cubic flattened into lines, a target resized inside the tile grid.
+
+A program owns static tensors. Its inputs (scene words, packed layout,
+stop table, atlas) are copies, into which `run` copies a frame's inputs
+on the stream, device to device (a tensor is skipped when it is the one
+the last run copied). Its outputs (the fine output and the packed flags, the
 u8 surface of a present) are overwritten by every run: a caller that
 keeps one past the next run copies it. On the CPU there is no graph:
 `run` calls the function and copies its results into the same static
@@ -39,27 +51,33 @@ import time
 import torch
 
 
-def program_key(inputs, caps, fine_name) -> tuple:
-    """The key of a frame's program: jello_tpu's caps_key (`tpu/render.py:
-    390-394`: the padded scene length, the stop table's shape, the atlas's
-    shape or None, the sorted caps with the frame's routing), the
-    layout's host ints (the port keeps them on the host, where jello_tpu
-    packs them into a device array), and the fine stage's name."""
-    scene, layout, ramps, atlas = inputs
+def caps_key(inputs, caps) -> tuple:
+    """jello_tpu's caps_key (`tpu/render.py:390-394`): the padded scene
+    length, the stop table's shape, the atlas's shape or None, and the
+    sorted caps with the frame's routing. Nothing of the layout: a
+    program reads it from the device."""
+    scene, _, ramps, atlas = inputs
     return (scene.shape[0], tuple(ramps.shape), None if atlas is None else tuple(atlas.shape),
-            tuple(sorted(caps.items())),
-            tuple(sorted((k, v) for k, v in layout.items() if k != "base_color")), fine_name)
+            tuple(sorted(caps.items())))
+
+
+def program_key(inputs, caps, fine_name) -> tuple:
+    """The key of a frame's program: `caps_key` and the fine stage's name.
+    Every scene of a class shares its program, whatever its path count,
+    stream offsets or target size inside the class's tile grid."""
+    return caps_key(inputs, caps) + (fine_name,)
 
 
 def key_summary(key) -> str:
-    """One line that names a program key's class: target size, mode,
-    fine stage and input shapes."""
-    n, ramps, atlas, caps, layout, fine_name = key
-    caps, layout = dict(caps), dict(layout)
-    return (f"{layout['target_width']}x{layout['target_height']} {caps.get('aa_mode', 'area')} "
+    """One line that names a program key's class: tile grid, mode, fine
+    stage and input shapes."""
+    n, ramps, atlas, caps, fine_name = key[:5]
+    caps = dict(caps)
+    return (f"tile grid {caps.get('tile_grid_cap')} {caps.get('aa_mode', 'area')} "
             f"{fine_name}{' (kernel H)' if caps.get('_interp_batch') else ''}, scene {n} words, "
             f"stop table {ramps[0]}x{ramps[1]}, atlas {'none' if atlas is None else atlas}, "
             f"pair_cap {caps.get('pair_cap')}"
+            + (f", clip depth {caps['clip_depth_cap']}" if "clip_depth_cap" in caps else "")
             + (f", walk {caps['ref_slots_cap']} slots x {caps['ref_chunks_cap']} chunks"
                if "ref_slots_cap" in caps else ""))
 
@@ -140,20 +158,20 @@ class Captured:
 class FrameProgram:
     """The frame of one class on static inputs (module docstring).
 
-    inputs: (scene words, layout with `base_color` on the device, stop
-    table, atlas or None) of the frame that builds the program, copied;
-    frame_fn(scene, layout, ramps, atlas) -> a tuple of outputs, the fine
-    output first (the renderer's: fine output, packed flags, (flag keys,
-    stat keys)). capture: whether to capture a CUDA graph (default: the
-    inputs lie on the card) or to run frame_fn into the static outputs."""
+    inputs: (scene words, packed layout int32 [18] (`pipeline.render.
+    pack_layout`), stop table, atlas or None) of the frame that builds the
+    program, copied; frame_fn(scene, packed layout, ramps, atlas) -> a
+    tuple of outputs, the fine output first (the renderer's: fine output,
+    packed flags, (flag keys, stat keys)). capture: whether to capture a
+    CUDA graph (default: the inputs lie on the card) or to run frame_fn
+    into the static outputs. The layout is an input like the others, so
+    frames of any layout of the class run the one program."""
 
     def __init__(self, inputs, frame_fn, capture=None):
-        scene, layout, ramps, atlas = inputs
-        self._last = (scene, layout["base_color"], ramps, atlas)
+        self._last = tuple(inputs)
         self._static = map_tensors(self._last, torch.clone)
-        self.layout = dict(layout, base_color=self._static[1])
-        args = (self._static[0], self.layout, self._static[2], self._static[3])
-        self._frame = Captured(frame_fn, args, scene.is_cuda if capture is None else capture)
+        cuda = self._static[0].is_cuda if capture is None else capture
+        self._frame = Captured(frame_fn, self._static, cuda)
         self._presents = {}
         self.replays = 0
 
@@ -169,26 +187,28 @@ class FrameProgram:
 
     def run(self, inputs):
         """One frame of `inputs` (of the program's key): frame_fn's
-        outputs, the static ones."""
-        scene, layout, ramps, atlas = inputs
-        for i, t in enumerate((scene, layout["base_color"], ramps, atlas)):
+        outputs, the static ones. Each input is copied in on the stream,
+        ahead of the replay, so a frame in flight reads its own layout."""
+        for i, t in enumerate(inputs):
             if t is not self._last[i]:
                 if t.shape != self._static[i].shape:
                     raise ValueError(f"program input {i}: {tuple(t.shape)} where the program "
                                      f"holds {tuple(self._static[i].shape)}")
                 self._static[i].copy_(t)
-        self._last = (scene, layout["base_color"], ramps, atlas)
+        self._last = tuple(inputs)
         out = self._frame.run()
         self.replays += 1
         return out
 
     def present(self, key, present_fn):
-        """present_fn(fine output, layout) of the last run: the static u8
-        surface of the present program for `key` (built on first use,
-        reading this program's static outputs)."""
+        """present_fn(fine output, packed layout) of the last run: the
+        static u8 surface of the present program for `key` (the output
+        geometry and the present's switches, as `_get_present` keys its
+        executables, `tpu/render.py:196-200`; built on first use, reading
+        this program's static fine output and layout)."""
         prog = self._presents.get(key)
         if prog is None:
-            prog = self._presents[key] = Captured(present_fn, (self.fine_out, self.layout),
+            prog = self._presents[key] = Captured(present_fn, (self.fine_out, self._static[1]),
                                                   self._static[0].is_cuda, warm=True)
         return prog.run()
 

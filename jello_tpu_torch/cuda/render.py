@@ -18,8 +18,15 @@ The compiled frame (`cuda/program.py`): those first frames run eagerly.
 A class whose frame has come back with no capacity flag raised is
 settled, and its next frame builds the class's `FrameProgram`, one
 captured CUDA graph (`tpu/render.py::_get_compiled`), which every later
-frame of the class replays; `compile_log` records each build. The
-present of a program's frame is a program too (`_get_present`). The scene
+frame of the class replays; `compile_log` records each build. A class is
+keyed as jello_tpu keys an executable (`program.caps_key`), never by the
+scene's layout: the layout is packed into one int32 device tensor a scene
+(`upload_layout`) that the program copies in and reads, so scenes of one
+class with different layouts (paths added or removed, segments changed,
+a target resized inside the tile grid) share one program, and a new
+stream shape whose calibrated class is settled replays its program. The
+present of a program's frame is a program too, one for each output
+geometry (`_get_present`). The scene
 words and the stop table's rows are padded to power-of-two size classes
 (`tpu/render.py:276-293`), so that scenes of one bucket share a program,
 and the stop table and atlas are uploaded again only when their content
@@ -72,7 +79,7 @@ from ..gfx import premul32
 from ..pipeline.fine_ref import assemble_image
 from ..pipeline.gradient import stops_table_or_empty
 from ..pipeline.image_tap import atlas_planar
-from ..pipeline.render import render_frame
+from ..pipeline.render import pack_layout, render_frame, unpack_layout
 from ..renderer.atlas import build_image_atlas
 from ..renderer.estimate import (
     calibrate_caps,
@@ -85,11 +92,14 @@ from ..renderer.resolve import Resolver
 from .build import host_to_device
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
-from .program import FrameProgram, Programs, key_summary, map_tensors, program_key
+from .program import FrameProgram, Programs, caps_key, key_summary, map_tensors, program_key
 
 # The reference fine stage's walk bounds (`pipeline/fine_ref.py`), kept
 # beside a settled class.
 WALK_KEYS = ("ref_slots_cap", "ref_chunks_cap")
+# The layout fields that fix the shape of the assembled image: the present
+# keeps them as host ints and is keyed on them (`tpu/render.py:196-200`).
+OUTPUT_FIELDS = ("width_in_tiles", "height_in_tiles", "target_width", "target_height")
 
 
 def walk_bounds(stats) -> dict:
@@ -133,24 +143,32 @@ def upload_atlas(atlas, device):
 
 
 def upload_layout(ld, device):
-    """A layout dict as `render_frame` takes it: the integer fields as
-    host ints, `base_color` as a f32 [4] tensor on `device`."""
-    layout = {k: int(v) for k, v in ld.items() if k != "base_color"}
-    layout["base_color"] = host_to_device(
-        torch.from_numpy(np.asarray(ld["base_color"], dtype=np.float32)), device)
-    return layout
+    """A layout dict (`build_layout_dict`) as one int32 tensor on `device`,
+    `pack_layout`'s words (the u32 fields and the base color's bit
+    patterns), copied without a host wait: what a frame and its program
+    take, and unpack into 0-dim views (`pipeline.render.unpack_layout`)."""
+    return host_to_device(torch.from_numpy(pack_layout(ld).view(np.int32)), device)
+
+
+def output_layout(ld, packed):
+    """What assembly and the present read of a frame's layout: the output
+    geometry (OUTPUT_FIELDS) as host ints from the layout dict `ld`, and
+    the base color, a view of the frame's packed layout on the device."""
+    return dict({k: int(ld[k]) for k in OUTPUT_FIELDS},
+                base_color=unpack_layout(packed)["base_color"])
 
 
 def upload(scene_u32, ld, ramps, caps, device):
     """The inputs `jello_tpu` feeds `render_frame`, as torch inputs on
     `device` (copied without a host wait): scene words as int32 bit
-    patterns, the layout (`upload_layout`), the stop table as f32. The
+    patterns, the layout as the stages read it (`upload_layout`, unpacked:
+    0-dim int32 tensors and the base color), the stop table as f32. The
     atlas goes through `upload_atlas`.
     Returns (scene, layout, ramps, caps)."""
     device = torch.device(device)
     scene = torch.from_numpy(np.asarray(scene_u32, dtype=np.uint32).view(np.int32).copy())
     ramps_t = torch.from_numpy(np.ascontiguousarray(ramps, dtype=np.float32))
-    return (host_to_device(scene, device), upload_layout(ld, device),
+    return (host_to_device(scene, device), unpack_layout(upload_layout(ld, device)),
             host_to_device(ramps_t, device), dict(caps))
 
 
@@ -174,14 +192,17 @@ def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
     off (JELLO_IMAGE_TAP=0); for a clip-free frame the dense coarse
     branch; the 8-tile
     interpreter (kernel H) under JELLO_INTERP_BATCH=1, the reference's own
-    switch. `clip_depth_cap` is the scene's own nesting depth."""
+    switch. `clip_depth_cap`, the clip walk's trip count, is the scene's
+    own nesting depth rounded up to a power of two, so that scenes of
+    nearby depths share a class (a level past the deepest begin changes
+    nothing; jello_tpu walks MAX_CLIP_DEPTH = 64 levels for every scene)."""
     routing = {"_expand_pallas": True, "aa_mode": aa_mode}
     if has_atlas and image_tap:
         routing["_image_tap"] = True
     if n_clips == 0:
         routing["_coarse_dense"] = True
     else:
-        routing["clip_depth_cap"] = max(int(clip_depth), 1)
+        routing["clip_depth_cap"] = _pow2(max(int(clip_depth), 1))
     if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
         routing["_interp_batch"] = True
     return routing
@@ -212,9 +233,12 @@ def fetch_flags(packed, fkeys, skeys):
 
 
 def frame(scene, layout, ramps, atlas, caps, fine_impl):
-    """One frame as a program captures it: `render_frame` and
-    `pack_flags`. Returns (fine output, packed, (flag keys, stat keys))."""
-    fine_out, flags, stats = render_frame(scene, layout, ramps, atlas, caps, fine_impl)
+    """One frame as a program captures it: the packed layout unpacked
+    (`upload_layout`; views, no launch), `render_frame` and `pack_flags`
+    (the body of `tpu/render.py::_get_compiled`). Returns (fine output,
+    packed, (flag keys, stat keys))."""
+    fine_out, flags, stats = render_frame(scene, unpack_layout(layout), ramps, atlas, caps,
+                                          fine_impl)
     packed, fkeys, skeys = pack_flags(flags, stats)
     return fine_out, packed, (fkeys, skeys)
 
@@ -222,8 +246,9 @@ def frame(scene, layout, ramps, atlas, caps, fine_impl):
 def assemble(fine_out, ld):
     """A frame's fine output -> [H, W, 4] un-premultiplied image on its
     device: (compact, tile2rank) of the record-stream stages, or the
-    dense [4, GRID, 256] of the reference fine stage. `ld`: a layout dict,
-    its base color on the device or the host."""
+    dense [4, GRID, 256] of the reference fine stage. `ld`: a layout dict
+    whose OUTPUT_FIELDS are host values (they fix the image's shape), its
+    base color on the device or the host (`output_layout`)."""
     if isinstance(fine_out, tuple):
         return assemble_compact(*fine_out, ld)
     return assemble_image(fine_out, ld)
@@ -245,8 +270,16 @@ def present(img, premul: bool = True, srgb: bool = True):
 
 
 def assemble_present(fine_out, layout, premul, srgb):
-    """`present(assemble(...))`: what a present program captures."""
+    """`present(assemble(...))`: the eager present of a frame."""
     return present(assemble(fine_out, layout), premul, srgb)
+
+
+def present_packed(fine_out, packed, geometry, premul, srgb):
+    """What a present program captures: `assemble_present` of a frame's
+    fine output at the output geometry (OUTPUT_FIELDS' host ints, the
+    program's key), the base color read from the packed layout."""
+    ld = dict(zip(OUTPUT_FIELDS, geometry), base_color=unpack_layout(packed)["base_color"])
+    return assemble_present(fine_out, ld, premul, srgb)
 
 
 class Renderer:
@@ -302,7 +335,7 @@ class Renderer:
         # The programs, by `program.program_key` (`_programs`), with one
         # entry in `compile_log` a program built (`tpu/render.py:66-70,
         # 411-416`: index, seconds to capture it, `program.key_summary` of
-        # its class), and the classes (stream shape, class with routing)
+        # its class), and the classes (`_class_of`: `program.caps_key`)
         # whose frame came back with no capacity flag raised: their next
         # frame builds a program.
         self._cache = Programs()
@@ -328,7 +361,7 @@ class Renderer:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
         prepared = self._prepare(scene, params)
         fine_out = self._render_checked(prepared, params, max_retries)
-        return assemble(fine_out, prepared[2][1]).cpu().numpy()
+        return assemble(fine_out, output_layout(prepared[1], prepared[2][1])).cpu().numpy()
 
     def render_surface(self, scene, params: RenderParams, premul: bool = True,
                        srgb: bool = True, max_retries: int = 4) -> np.ndarray:
@@ -369,13 +402,16 @@ class Renderer:
 
     def _present(self, prepared, fine_out, premul, srgb):
         """The u8 surface of a frame's fine output: through the present
-        program of the frame's program when it came from one (a static
-        output, overwritten by that program's next present), else eagerly."""
+        program of the frame's program for the frame's output geometry
+        when it came from one (a static output, overwritten by that
+        program's next present), else eagerly."""
+        ld, packed = prepared[1], prepared[2][1]
         prog = self._program
         if prog is not None and fine_out is prog.fine_out:
-            return prog.present((premul, srgb), functools.partial(
-                assemble_present, premul=premul, srgb=srgb))
-        return assemble_present(fine_out, prepared[2][1], premul, srgb)
+            geometry = tuple(int(ld[k]) for k in OUTPUT_FIELDS)
+            return prog.present(geometry + (premul, srgb), functools.partial(
+                present_packed, geometry=geometry, premul=premul, srgb=srgb))
+        return assemble_present(fine_out, output_layout(ld, packed), premul, srgb)
 
     @contextlib.contextmanager
     def _call(self, label):
@@ -426,6 +462,8 @@ class Renderer:
             stops = np.concatenate([stops, np.zeros((_pow2(stops.shape[0]) - stops.shape[0],
                                                      stops.shape[1]), dtype=np.float32)])
             atlas = build_image_atlas(images)
+            # The layout is the frame's data, one packed upload a scene
+            # (`tpu/render.py:294`), not a part of its program's key.
             inputs = (host_to_device(torch.from_numpy(words.view(np.int32)), self.device),
                       upload_layout(ld, self.device), self._cached_upload("ramps", stops),
                       None if atlas is None else self._cached_upload("atlas",
@@ -453,9 +491,9 @@ class Renderer:
         """A frame's class with its routing (`frame_routing`) and its fine
         stage: (caps, fine_impl); fine_impl None for `reroute`, the
         reference fine stage."""
-        _, _, (_, layout_t, _, atlas_t), clip_depth = prepared
+        _, ld, (_, _, _, atlas_t), clip_depth = prepared
         has_atlas = atlas_t is not None
-        routing = frame_routing(layout_t["n_clips"], has_atlas, clip_depth,
+        routing = frame_routing(int(ld["n_clips"]), has_atlas, clip_depth,
                                 params.antialiasing_method.value, self.use_image_tap)
         # The record-stream stage alone takes a clip-free frame whose images,
         # if any, ride the tap; any other frame the hybrid (kernel B and the
@@ -464,9 +502,12 @@ class Renderer:
         return dict(caps, **routing), None if reroute else fine_v2 if alone else fine_hybrid
 
     def _class_of(self, prepared, params, caps):
-        """The settled-class key of a frame at `caps`: its stream shape and
-        its class with routing."""
-        return prepared[0], tuple(sorted(self._route(prepared, params, caps)[0].items()))
+        """The settled-class key of a frame at `caps`: `program.caps_key` of
+        its inputs and its class with routing, as jello_tpu keys its
+        executables. The stream shape is not in it (it chooses when to
+        estimate and calibrate again, `_prepare`): a new shape whose
+        calibrated class is settled replays that class's program."""
+        return caps_key(prepared[2], self._route(prepared, params, caps)[0])
 
     def _enqueue(self, prepared, params, caps, reroute=False):
         """Enqueue one frame of `prepared` at the class `caps`: (fine

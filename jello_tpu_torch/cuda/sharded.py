@@ -40,10 +40,11 @@ from ..pipeline.fine_interp import (
     OVF_IMAGE_REGION,
     build_cmd_slab,
     build_records,
+    with_width,
 )
 from ..pipeline.gradient import stops_table_or_empty
 from ..pipeline.ops import I32
-from ..pipeline.render import geometry
+from ..pipeline.render import geometry, unpack_layout
 from ..renderer.atlas import build_image_atlas
 from ..renderer.estimate import grow_caps
 from ..renderer.resolve import Resolver
@@ -59,6 +60,7 @@ from .render import (
     pack_flags,
     upload,
     upload_atlas,
+    upload_layout,
     walk_bounds,
 )
 
@@ -69,8 +71,12 @@ def make_sharded_render(group, caps, pallas_fine=False, report=False):
     caps: the single-device class with the frame's routing (`sharded_caps`;
     for the reference fine stage also its walk's bounds, WALK_KEYS, or
     none to read them from the device); `tile_grid_cap` must divide among
-    the ranks. Returns run(scene, layout, ramps, atlas=None) -> (fine_out
-    [4, GRID, 256] un-premultiplied, flags {name: 0-dim bool}), with
+    the ranks. What jello_tpu's jit takes as static (the class, the
+    routing, the stripe) is fixed here; what it traces (scene words, the
+    layout's fields, stop table, atlas) is `run`'s data: the layout a dict
+    of 0-dim device tensors (`unpack_layout`), the width in tiles read by
+    kernel G on the device. Returns run(scene, layout, ramps, atlas=None)
+    -> (fine_out [4, GRID, 256] un-premultiplied, flags {name: 0-dim bool}), with
     `report` also the walk's trip counts {ref_slots, ref_chunks}, the
     largest of any rank (empty with `pallas_fine`): the whole frame on
     every rank, which must all call it with the same inputs. Flags:
@@ -94,11 +100,10 @@ def make_sharded_render(group, caps, pallas_fine=False, report=False):
                 cmds, stages["counted"], caps)
             rec = build_records(dict(cmds, area_row=area_row_rec), caps)
             slab, counts, flags["cmd_slab_overflow"] = build_cmd_slab(rec, cmds, caps)
-            wit = layout["width_in_tiles"]
-            counts = torch.cat([counts[stripe], counts.new_full((1,), int(wit))])
             out, ovf = kinterp.interpret_tiles(
-                counts, ops.iota(local, scene.device) + base, layout["base_color"],
-                slab[stripe], area, ramps, atlas, wit, caps["blend_depth"],
+                with_width(counts[stripe], layout["width_in_tiles"]),
+                ops.iota(local, scene.device) + base, layout["base_color"],
+                slab[stripe], area, ramps, atlas, caps["blend_depth"],
                 bool(caps.get("_interp_batch")), caps.get("aa_mode", "area") != "area")
             # Each bit on its own: jello_tpu takes the maximum of the words.
             bits = pmax(group, torch.stack([((ovf & OVF_BLEND_DEPTH) != 0).any(),
@@ -127,9 +132,11 @@ def make_sharded_render(group, caps, pallas_fine=False, report=False):
 
 def packed_frame(run):
     """A sharded frame `run` (returning fine_out, flags and a report) as a
-    program's function: (fine_out, packed flags, flag keys, report)."""
+    program's function: fn(scene, packed layout, ramps, atlas) ->
+    (fine_out, packed flags, flag keys, report), the layout unpacked into
+    views inside, as a program takes it (`cuda/program.py`)."""
     def frame_fn(scene, layout, ramps, atlas):
-        fine_out, flags, rep = run(scene, layout, ramps, atlas)
+        fine_out, flags, rep = run(scene, unpack_layout(layout), ramps, atlas)
         packed, fkeys, _ = pack_flags(flags, {})
         return fine_out, packed, fkeys, rep
     return frame_fn
@@ -169,8 +176,10 @@ class StripeFrames:
         self._name = "stripes, kernel G" if pallas_fine else "stripes, fine_ref"
 
     def __call__(self, caps, scene, layout, ramps, atlas=None):
-        """One frame at the class `caps` (`sharded_caps`): (fine_out,
-        flags {name: bool}). A frame of a program whose walk ran short
+        """One frame at the class `caps` (`sharded_caps`) of the inputs
+        `rank_inputs` gives (the layout packed, `upload_layout`): (fine_out,
+        flags {name: bool}). The class's program serves every layout. A
+        frame of a program whose walk ran short
         (`ref_walk_overflow`) grows the walk's bounds and renders again,
         up to MAX_RETRIES times; any other raised flag comes back."""
         inputs = (scene, layout, ramps, atlas)
@@ -207,6 +216,15 @@ class StripeFrames:
         walk = self._settled.get(program_key(inputs, caps, self._name)) or {}
         return packed_frame(make_sharded_render(self.group, dict(caps, **walk),
                                                 self.pallas_fine, report=True))
+
+
+def rank_inputs(inputs, device):
+    """A `frame_inputs` tuple as a rank's frames take it on `device`:
+    (scene words, packed layout, stop table, atlas or None), each copied
+    without a host wait (`render.upload`, `upload_layout`, `upload_atlas`)."""
+    scene_u32, ld, ramps, atlas, _ = inputs
+    scene, _, ramps_t, _ = upload(scene_u32, ld, ramps, {}, device)
+    return scene, upload_layout(ld, device), ramps_t, upload_atlas(atlas, device)
 
 
 def frame_inputs(scene, params):
@@ -251,9 +269,7 @@ def rank_frames(group, jobs):
 
     out, holders = [], {}
     for make, inputs, caps, opts in jobs:
-        scene_u32, ld, ramps, atlas, _ = inputs
-        scene, layout, ramps_t, _ = upload(scene_u32, ld, ramps, {}, group.device)
-        args = (caps, scene, layout, ramps_t, upload_atlas(atlas, group.device))
+        args = (caps,) + rank_inputs(inputs, group.device)
         extra, holder = {}, None
         if make is make_sharded_render:
             if set(opts) - {"pallas_fine"}:
@@ -269,10 +285,11 @@ def rank_frames(group, jobs):
             key = (opts["max_retries"], bool(opts.get("debug")))
             holder = holders.setdefault(key, sharded2.RetryingRender(group, *key))
             res = holder(*args)
-            st = holder.state(*args[:3])
+            st = holder.state(*args)
             extra = {"retries": holder.last_retries, "grown": st[1], "seg_ex_cap": st[2]}
         else:
-            res = make(group, caps, **opts)(*args[1:])
+            scene, layout, ramps_t, atlas_t = args[1:]
+            res = make(group, caps, **opts)(scene, unpack_layout(layout), ramps_t, atlas_t)
         if holder is not None:
             extra.update(programs=len(holder.compile_log),
                          replayed=holder.last_program is not None)

@@ -46,7 +46,7 @@ from ..pipeline.render import draw_stages
 from ..pipeline.tiling import SEG_KEYS, path_count_expansions, path_count_params
 from .collectives import all_gather, all_to_all, pmax, psum
 from .fine_hybrid import fine_hybrid
-from .program import FrameProgram, Programs, key_summary, program_key
+from .program import FrameProgram, Programs, caps_key, key_summary, program_key
 from .sharded import packed_frame, read_flags
 
 
@@ -129,6 +129,10 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None, grown=
     `rank_caps`: `shard_caps` with the rank's entries of `grown` on top.
     seg_ex_cap: the exchange slice's rows in place of `shard_caps`'s, the
     same on every rank (a test forces a small one to show its flag).
+    What jello_tpu's jit takes as static (the classes, the rank's tag range
+    and stripe) is fixed here; what it traces (scene words, the packed
+    layout, stop table, atlas) is `run`'s data, the layout a dict of 0-dim
+    device tensors (`unpack_layout`).
     Returns run(scene, layout, ramps, atlas=None) -> (fine_out [4, GRID,
     256] un-premultiplied, flags {name: 0-dim bool}); with `report` or
     `debug` also a dict with raised [n, K] (each rank's own flags before
@@ -388,9 +392,11 @@ class RetryingRender:
     all_gather of its flags already carries) and grows the class with
     `grow_ranks`. Every rank derives the same class from the same gathered
     values, so the ranks stay in step with no exchange of their own. The
-    grown class is kept for the frame's shape (scene words, path tags,
-    paths, target, and the single-device class it started from), so that a
-    settled frame of that shape renders once and grows nothing.
+    grown class is kept for the frame's class (`program.caps_key`: padded
+    scene length, stop table and atlas shapes, the single-device class it
+    started from), so that a settled frame of that class renders once and
+    grows nothing; not for its layout, which is the frame's data: scenes of
+    one class share their grown class and its programs.
 
     The port of the `jax.jit` around the frame (`sharded2.py:469`): a
     class (the single-device class, `grown`, `seg_ex_cap`: `state`) runs
@@ -410,7 +416,7 @@ class RetryingRender:
         self.group = group
         self.max_retries = max_retries
         self.debug = debug
-        # shape key -> [caps, grown, seg_ex_cap]
+        # caps_key -> [caps, grown, seg_ex_cap]
         self.classes = {}
         # The last frame's retries: [(raised flags, {rank: grown keys},
         # seg_ex_cap)], one a frame that ran again.
@@ -421,20 +427,20 @@ class RetryingRender:
         self._settled = set()  # the program keys of classes that rendered clean
         self.last_program = None
 
-    def state(self, caps, scene, layout):
-        """The class kept for this frame's shape: [single-device class,
-        grown {rank: {key: value}}, seg_ex_cap or None]."""
-        key = (scene.numel(), layout["n_path_tags"], layout["n_paths"], layout["target_width"],
-               layout["target_height"], tuple(sorted(caps.items())))
+    def state(self, caps, scene, layout, ramps, atlas=None):
+        """The class kept for this frame's class (`caps_key` of its inputs
+        at `caps`): [single-device class, grown {rank: {key: value}},
+        seg_ex_cap or None]."""
+        key = caps_key((scene, layout, ramps, atlas), caps)
         return self.classes.setdefault(key, [dict(caps), {}, None])
 
     def __call__(self, caps, scene, layout, ramps, atlas=None):
         """Render one frame at `caps` (the single-device class with the
         frame's routing) or the class grown from it for this shape; every
-        rank calls it with the same inputs. Returns (fine_out, flags
-        {name: bool}, report: the frame's `make_sharded_render` report
-        dict)."""
-        st = self.state(caps, scene, layout)
+        rank calls it with the same inputs (`sharded.rank_inputs`: the
+        layout packed). Returns (fine_out, flags {name: bool}, report: the
+        frame's `make_sharded_render` report dict)."""
+        st = self.state(caps, scene, layout, ramps, atlas)
         n = self.group.world
         inputs = (scene, layout, ramps, atlas)
         self.last_retries = []
@@ -445,7 +451,7 @@ class RetryingRender:
             if key in self._settled:
                 self.last_program = self._programs.get(key, lambda: FrameProgram(
                     inputs, self.frame_fn(caps, *inputs), capture=self.capture),
-                    key_summary(key[:6]) + f", grown {st[1]}, seg_ex_cap {st[2]}")
+                    key_summary(key) + f", grown {st[1]}, seg_ex_cap {st[2]}")
                 fine_out, packed, keys, rep = self.last_program.run(inputs)
             else:
                 fine_out, packed, keys, rep = self.frame_fn(caps, *inputs)(*inputs)
@@ -467,7 +473,7 @@ class RetryingRender:
         """The frame at the class the shape of these inputs holds (`state`)
         as its program runs it: fn(scene, layout, ramps, atlas) ->
         (fine_out, packed flags, flag keys, report)."""
-        st = self.state(caps, scene, layout)
+        st = self.state(caps, scene, layout, ramps, atlas)
         return packed_frame(make_sharded_render(self.group, dict(st[0]), debug=self.debug,
                                                 seg_ex_cap=st[2], grown=st[1], report=True))
 

@@ -11,8 +11,12 @@ at a stream position is the most recent begin with that level (a
 cummax), and the stack-top bbox is the running intersection of the
 active begins' path bboxes over levels 0..L. One loop over depth levels,
 vectorized over all clip elements, replaces the sequential walk; its
-trip count is `clip_depth_cap`, the scene's deepest nesting when the
-renderer supplies it, else MAX_CLIP_DEPTH.
+trip count is `clip_depth_cap`, the scene's deepest nesting rounded up to
+a power of two when the renderer supplies it, else MAX_CLIP_DEPTH (a
+level past the deepest begin matches none and changes nothing). The
+clip count is device data (`i < n_clips` masks, as `jello_tpu`'s
+`clips.py:119-122`); a clip-free frame's routing (`_coarse_dense`) skips
+the walk.
 """
 
 from __future__ import annotations
@@ -34,13 +38,13 @@ def clip_leaf_vectorized(clip_idx_arr, clip_path_idx_arr, path_bbox, dm_path, dm
     NC = caps["n_clips_cap"]
     depth_cap = caps.get("clip_depth_cap", MAX_CLIP_DEPTH)
     dev = path_bbox.device
-    n_clips = int(layout["n_clips"])
     out_bbox = ops.unbounded_bboxes(NC, dev, BIG)
-    if n_clips == 0:
+    if caps.get("_coarse_dense"):
+        # The routing of a clip-free frame (n_clips == 0): no clip to walk.
         return out_bbox, dm_path, dm_scene
 
     i_idx = ops.iota(NC, dev)
-    active = i_idx < n_clips
+    active = i_idx < layout["n_clips"]
     is_begin = active & (clip_path_idx_arr >= 0)
     is_end = active & ~is_begin
     delta = is_begin.to(I32) - is_end.to(I32)

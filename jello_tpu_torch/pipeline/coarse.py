@@ -30,7 +30,7 @@ from ..encoding.draw import (
 from . import ops
 from .flatten import expand_by_counts
 from .ops import I32
-from .tiling import TILE_SCALE
+from .tiling import tile_rect
 
 BIG = 1e9
 
@@ -78,20 +78,10 @@ def build_commands(layout, dm, tag, dtab, draw_bbox, paths, counted, path_draw_f
     PC = caps["pair_cap"]
     GRID = caps["tile_grid_cap"]
     wit = layout["width_in_tiles"]
-    hit = layout["height_in_tiles"]
 
     act = (ops.iota(D, dev) < layout["n_draw_objects"]) & (tag != DRAW_TAG_NOP)
     nonempty = (draw_bbox[:, 0] < draw_bbox[:, 2]) & (draw_bbox[:, 1] < draw_bbox[:, 3])
-    ok = act & nonempty
-    z = torch.zeros_like(draw_bbox[:, 0])
-
-    def q(v, f):
-        return torch.where(ok, f(v * TILE_SCALE), z).to(I32)
-
-    rx0 = q(draw_bbox[:, 0], torch.floor).clamp(0, wit)
-    ry0 = q(draw_bbox[:, 1], torch.floor).clamp(0, hit)
-    rx1 = q(draw_bbox[:, 2], torch.ceil).clamp(0, wit)
-    ry1 = q(draw_bbox[:, 3], torch.ceil).clamp(0, hit)
+    rx0, ry0, rx1, ry1 = tile_rect(draw_bbox, act & nonempty, layout)
     pp = dm["path_idx"]
     prow_p = ops.gather_guarded(torch.stack(
         [paths["rect_x0"], paths["rect_y0"], paths["rect_x1"], paths["rect_y1"],

@@ -293,21 +293,30 @@ def walk_tapes(n_steps, fetch, coverage, tile_ids, base, stops, atlas, wit, blen
     return torch.cat([rgba[:, :3] * a_inv, rgba[:, 3:4]], dim=1), ovf
 
 
-def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, wit, blend_depth,
+def with_width(counts, wit):
+    """The slots' tape lengths [n] i32 with the width in tiles (a 0-dim
+    int32 tensor, the layout's word) appended, as kernels G and H take
+    them: [n + 1] i32, on the device."""
+    return torch.cat([counts.to(I32), wit.to(I32).reshape(1)])
+
+
+def interpret_plain(counts, tile_ids, base, slab, rows, stops, atlas, blend_depth,
                     resolved=False):
     """Plain version of kernels G and H (same inputs and outputs as
     `cuda.fine_interp.interpret_tiles`).
 
-    counts [n] i32 tape lengths; tile_ids [n] i32; base [4] f32
+    counts [n + 1] i32: the tape lengths, then the width in tiles;
+    tile_ids [n] i32; base [4] f32
     premultiplied; slab [n, MC, 16] i32;
     rows [R, 256] f32 raw winding rows (resolved coverage rows with
     `resolved`), indexed by record word 1; stops
     [NR, W] f32; atlas [4, AHp, AWp] f32 premultiplied planar or None;
-    wit the width in tiles; blend_depth the stack depth BD.
+    blend_depth the stack depth BD.
     Returns (out [n, 4, 256] f32 un-premultiplied, ovf [n] i32: bit 0 a
     push past BD, bit 1 an image record past the region window)."""
     n, MC, _ = slab.shape
-    counts = torch.clamp(counts.to(I32), max=MC)
+    wit = counts[n]
+    counts = torch.clamp(counts[:n].to(I32), max=MC)
     n_rows = rows.shape[0]
 
     def coverage(ci, idx, rec, even_odd):

@@ -146,7 +146,8 @@ def fine(cmds, segs, ramps, atlas, layout, caps, tile_base=0):
                           lambda ci: (rec[at(ci)], (start + ci) < end), coverage,
                           ops.iota(GRID, dev) + tile_base, layout["base_color"], ramps,
                           atlas, layout["width_in_tiles"], caps["blend_depth"],
-                          one_window=False, dense=True, clips=layout["n_clips"] > 0)
+                          one_window=False, dense=True,
+                          clips=not caps.get("_coarse_dense"))
     walk_overflow = torch.zeros((), dtype=torch.bool, device=dev)
     if slots_cap is not None:
         walk_overflow = (slots > slots_cap) | (need[0] > chunks_cap)

@@ -14,6 +14,7 @@ Stage order: flatten -> draw_leaf -> clip_leaf -> binning
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..encoding.draw import DRAW_TAG_NOP
@@ -24,6 +25,47 @@ from . import clips, coarse, drawobjs, fine_ref, flatten, ops, tiling
 # The stage spans of a frame, in order (`xtrace.attribute` reads them).
 STAGES = ("flatten", "draw_leaf", "clip_leaf", "tile_alloc", "path_count", "path_tiling",
           "coarse", "fine")
+
+# The layout's integer fields, in the order `pack_layout` packs them
+# (`jello_tpu/pipeline/render.py:24-39`).
+LAYOUT_INT_FIELDS = (
+    "path_tag_base",
+    "path_data_base",
+    "draw_tag_base",
+    "draw_data_base",
+    "transform_base",
+    "style_base",
+    "n_path_tags",
+    "n_paths",
+    "n_draw_objects",
+    "n_clips",
+    "width_in_tiles",
+    "height_in_tiles",
+    "target_width",
+    "target_height",
+)
+
+
+def pack_layout(ld: dict) -> np.ndarray:
+    """The layout dict as one u32 array: the integer fields, then the base
+    color's four f32 bit patterns (`jello_tpu/pipeline/render.py:42-53`),
+    so that a frame's layout is one upload and data, not constants, of the
+    frame that reads it."""
+    out = np.zeros(len(LAYOUT_INT_FIELDS) + 4, dtype=np.uint32)
+    for i, k in enumerate(LAYOUT_INT_FIELDS):
+        out[i] = np.uint32(int(ld[k]))
+    out[len(LAYOUT_INT_FIELDS):] = np.asarray(ld["base_color"], dtype=np.float32).view(np.uint32)
+    return out
+
+
+def unpack_layout(packed: torch.Tensor) -> dict:
+    """A packed layout (`pack_layout`'s words as an int32 tensor) as the
+    dict the stages read: each integer field a 0-dim int32 tensor, the base
+    color a f32 [4]; all views of `packed`, so unpacking launches nothing
+    (`jello_tpu/pipeline/render.py:56-63`)."""
+    ld = {k: packed[i] for i, k in enumerate(LAYOUT_INT_FIELDS)}
+    ld["base_color"] = packed[len(LAYOUT_INT_FIELDS):].view(torch.float32)
+    return ld
 
 
 def draw_stages(scene, layout, fl, caps):
@@ -85,8 +127,9 @@ def geometry(scene, layout, caps):
     tile = cmds["tile"]
     img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
                 & (tile >= 0)).sum()
-    # A clip-free frame whose images ride the tap has no legacy tile.
-    if layout["n_clips"] or not caps.get("_image_tap"):
+    # A clip-free frame (`_coarse_dense`, routed on n_clips == 0) whose
+    # images ride the tap has no legacy tile.
+    if not caps.get("_coarse_dense") or not caps.get("_image_tap"):
         legacy_tiles = coarse.classify_legacy_tiles(cmds, caps)[0].sum()
     else:
         legacy_tiles = torch.zeros((), dtype=torch.int64, device=tile.device)
@@ -117,8 +160,9 @@ def geometry(scene, layout, caps):
 def render_frame(scene, layout, ramps, atlas, caps, fine_impl):
     """Render one frame.
 
-    scene: int32 scene words on the device; layout: dict of host ints
-    plus `base_color` (f32 [4] premultiplied, on the device); ramps: f32
+    scene: int32 scene words on the device; layout: dict of 0-dim int32
+    tensors (or host ints) and `base_color` (f32 [4] premultiplied), on the
+    device (`unpack_layout`); ramps: f32
     [NR, W] stop table; atlas: f32 [4, AHp, AWp] premultiplied planar
     image atlas, or None; caps: capacity dict; fine_impl(cmds, counted,
     ramps, atlas, layout, caps) -> (fine_out, flags), or None for the

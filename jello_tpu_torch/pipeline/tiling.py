@@ -36,25 +36,30 @@ TINY = float(np.float32(1e-12))
 SEG_EPS = float(np.float32(1e-6))
 
 
+def tile_rect(draw_bbox, ok, layout):
+    """Each draw's bbox in whole tiles, clamped to the tile grid, 0 where
+    not `ok`: (x0, y0, x1, y1) i32 [D]. The grid's size is the layout's,
+    device data in a frame: both clamp bounds are device tensors, since a
+    clamp between a host number and a device tensor copies the number to
+    the device, which a capture refuses."""
+    z = torch.zeros_like(draw_bbox[:, 0])
+    lo = torch.zeros((), dtype=I32, device=draw_bbox.device)
+
+    def q(v, f, hi):
+        return torch.where(ok, f(v * TILE_SCALE), z).to(I32).clamp(lo, hi)
+
+    wit, hit = layout["width_in_tiles"], layout["height_in_tiles"]
+    return (q(draw_bbox[:, 0], torch.floor, wit), q(draw_bbox[:, 1], torch.floor, hit),
+            q(draw_bbox[:, 2], torch.ceil, wit), q(draw_bbox[:, 3], torch.ceil, hit))
+
+
 def tile_alloc(draw_bbox, tag, layout, caps):
     """Per-draw tile rect + exclusive tile-slot offsets + per-tile
     metadata (draw, tile coords, row start)."""
     T = caps["tiles_cap"]
-    wit = layout["width_in_tiles"]
-    hit = layout["height_in_tiles"]
-
     has_rect = (tag != DRAW_TAG_NOP) & (tag != DRAW_TAG_END_CLIP)
     nonempty = (draw_bbox[:, 0] < draw_bbox[:, 2]) & (draw_bbox[:, 1] < draw_bbox[:, 3])
-    ok = has_rect & nonempty
-    z = torch.zeros_like(draw_bbox[:, 0])
-
-    def q(v, f):
-        return torch.where(ok, f(v * TILE_SCALE), z).to(I32)
-
-    x0 = q(draw_bbox[:, 0], torch.floor).clamp(0, wit)
-    y0 = q(draw_bbox[:, 1], torch.floor).clamp(0, hit)
-    x1 = q(draw_bbox[:, 2], torch.ceil).clamp(0, wit)
-    y1 = q(draw_bbox[:, 3], torch.ceil).clamp(0, hit)
+    x0, y0, x1, y1 = tile_rect(draw_bbox, has_rect & nonempty, layout)
     w = x1 - x0
     h = y1 - y0
     rec, within, valid, tile_offset, total = expand_by_counts(w * h, T)

@@ -10,11 +10,14 @@ reference's tests of it.
     pairs_overflow;
   - tests/test_animation.py:55-101: a scene that grows ~40% over a sweep of
     frames leaks no flag to the caller, settles few classes and never
-    returns to an earlier one. A dozen frames here; the reference's 100
-    are slow-marked, as there.
+    returns to an earlier one, and compiles few programs. A dozen frames
+    here; the reference's 100 are slow-marked, as there.
 
-The port's Renderer compiles nothing, so classes are counted, not
-compiles: a class is the renderer's integer capacities after a frame.
+The port's Renderer builds one program (a captured CUDA graph on the card,
+`cuda/program.py`) a settled class, as jello_tpu compiles one executable a
+class whatever the scene's layout, so the sweep counts programs as the
+reference counts executables (`len(r._compiled) <= 4`), and classes (the
+renderer's integer capacities after a frame) beside them.
 """
 
 import numpy as np
@@ -126,7 +129,7 @@ def sweep(frames, ends_to_oracle):
     after the retries, so every frame returning is "no flag reached the
     caller". Holds the classes: at most 4, none returned to. With
     `ends_to_oracle`, the frames at t = 0 and t = 1 within ORACLE_TOL of
-    the numpy oracle."""
+    the numpy oracle. Returns (classes, programs built)."""
     jt = jello_tpu_torch
     params = jt.RenderParams(width=224, height=224, base_color=jt.Color.rgba(1, 1, 1, 1))
     r = Renderer(device="cpu")
@@ -146,17 +149,24 @@ def sweep(frames, ends_to_oracle):
                 ref, flags, _ = render_numpy(frame_scene(jello_tpu, t), params_j)
             assert not any(bool(v) for v in flags.values())
             assert np.abs(assemble(fine_out, ld).numpy() - ref).max() < ORACLE_TOL
-    print(f"{frames} frames, {len(classes)} classes")
+    programs = len(r.compile_log)
+    print(f"{frames} frames, {len(classes)} classes, {programs} programs: {r.compile_log}")
     assert len(classes) <= 4, f"{len(classes)} capacity classes over the sweep"
     assert len(classes) == len(set(classes)), "the capacity class went back to an earlier one"
+    return classes, programs
 
 
 def test_torch_growing_scene_settles_few_classes():
-    """A dozen frames of the growing scene."""
-    sweep(12, ends_to_oracle=True)
+    """A dozen frames of the growing scene: one program a class, whatever
+    the frames' layouts (every frame adds paths and moves the stream's
+    offsets)."""
+    classes, programs = sweep(12, ends_to_oracle=True)
+    assert programs == len(classes), f"{programs} programs for {len(classes)} classes"
 
 
 @pytest.mark.slow
 def test_torch_growing_scene_settles_few_classes_100_frames():
-    """The reference's 100-frame sweep (slow-marked there too)."""
-    sweep(100, ends_to_oracle=True)
+    """The reference's 100-frame sweep (slow-marked there too), and its
+    bound on compiles: `len(r._compiled) <= 4`."""
+    _, programs = sweep(100, ends_to_oracle=True)
+    assert programs <= 4, f"{programs} programs over the sweep"

@@ -14,10 +14,13 @@ from jello_tpu.pipeline import clips as clips_np
 from jello_tpu.pipeline import coarse as coarse_np
 from jello_tpu.pipeline import coverage as coverage_np
 
-from jello_tpu_torch.cuda import upload
+import jello_tpu_torch
+from jello_tpu_torch.cuda import Renderer, upload
+from jello_tpu_torch.cuda.render import frame
 from jello_tpu_torch.pipeline import clips, coarse, drawobjs
 from jello_tpu_torch.pipeline import coverage as coverage_t
 from jello_tpu_torch.pipeline.render import geometry
+from jello_tpu_torch.scenes import _blob, _rng, _solid, circle
 
 from .torch_reference import (
     CLIP_SCENES,
@@ -172,3 +175,58 @@ def test_torch_coverage_table_with_clips_matches_numpy(name):
     rows = want_ids >= 0
     n = rows.shape[0]
     assert np.abs(np.asarray(want)[:n][rows] - as_np(got)[:n][rows]).max() <= 1e-5
+
+
+def config4_reduced(jt):
+    """Config 4's nested layers (`scenes.config4`: a full-frame gradient
+    under stacks of one to three mix-blended layers, each over four blobs),
+    8 stacks at 256x256; one of them three deep."""
+    from jello_tpu_torch.scenes import _gradient
+
+    rng = _rng(4)
+    scene = jt.Scene()
+    mixes = [jt.Mix.NORMAL, jt.Mix.MULTIPLY, jt.Mix.SCREEN, jt.Mix.OVERLAY,
+             jt.Mix.DARKEN, jt.Mix.LIGHTEN, jt.Mix.DIFFERENCE, jt.Mix.EXCLUSION]
+    ident = jt.Affine.identity()
+    full = jt.BezPath().move_to(0, 0).line_to(256, 0).line_to(256, 256).line_to(0, 256).close()
+    scene.fill(jt.Fill.NON_ZERO, ident, _gradient(rng, 128, 128, 128), None, full)
+    for i in range(8):
+        cx, cy = rng.random(2) * 256
+        r = 16 + 40 * rng.random()
+        depth = 3 if i == 5 else 1 + int(rng.integers(0, 3))
+        for d in range(depth):
+            blend = jt.BlendMode(mixes[int(rng.integers(0, len(mixes)))], jt.Compose.SRC_OVER)
+            scene.push_layer(blend, float(0.5 + 0.5 * rng.random()), ident,
+                             circle(cx, cy, r * (1 - 0.2 * d)))
+        for _ in range(4):
+            bx, by = cx + rng.normal(0, r), cy + rng.normal(0, r)
+            scene.fill(jt.Fill.NON_ZERO, ident, _solid(rng), None, _blob(rng, bx, by, r * 0.5))
+        for _ in range(depth):
+            scene.pop_layer()
+    return scene, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+@pytest.mark.parametrize("name", sorted(SCENES) + ["config4_reduced"])
+def test_torch_bucketed_clip_depth_is_bit_equal_to_the_exact_depth(name):
+    """The routing's clip walk runs the scene's nesting depth rounded up to
+    a power of two (`frame_routing`), so that scenes of nearby depths share
+    a class: a level past the deepest begin matches nothing. The frame at
+    that bucket, and at jello_tpu's 64 levels, equals the frame walked to
+    the exact depth bit for bit (fine output, flags and stats)."""
+    build = config4_reduced if name == "config4_reduced" else SCENES[name]
+    scene, params = build(jello_tpu_torch)
+    r = Renderer(device="cpu")
+    prepared = r._prepare(scene, params)
+    depth = prepared[3]
+    caps, fine_impl = r._route(prepared, params, r._caps)
+    exact = max(depth, 1)
+    assert caps["clip_depth_cap"] == 1 << (exact - 1).bit_length()
+    if name == "config4_reduced":
+        assert depth == 3 and caps["clip_depth_cap"] == 4
+    outs = [frame(*prepared[2], dict(caps, clip_depth_cap=cap), fine_impl)
+            for cap in (exact, caps["clip_depth_cap"], clips.MAX_CLIP_DEPTH)]
+    for fine_out, packed, keys in outs[1:]:
+        assert keys == outs[0][2] and torch.equal(packed, outs[0][1])
+        want = outs[0][0] if isinstance(outs[0][0], tuple) else (outs[0][0],)
+        got = fine_out if isinstance(fine_out, tuple) else (fine_out,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -144,7 +144,7 @@ def test_torch_clip_frame_matches_oracle_with_the_batched_interpreter(name, monk
     real = kinterp.interpret_tiles
 
     def spy(*args):
-        seen.append(args[9])
+        seen.append(args[8])
         return real(*args)
 
     monkeypatch.setattr(kinterp, "interpret_tiles", spy)

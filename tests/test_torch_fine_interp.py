@@ -148,7 +148,7 @@ def test_torch_interpret_tiles_rejects_bad_inputs():
     with pytest.raises(ValueError):
         interpret_tiles(args[0][:-1], *args[1:])
     with pytest.raises(ValueError):
-        interpret_tiles(*args[:8], 0)
+        interpret_tiles(*args[:7], 0)
 
 
 @pytest.mark.parametrize("name", ["mix_stack", "full_scene"])

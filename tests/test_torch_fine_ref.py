@@ -19,7 +19,7 @@ from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.cuda import render as render_mod
 from jello_tpu_torch.cuda.render import assemble, frame_routing
 from jello_tpu_torch.pipeline import fine_ref
-from jello_tpu_torch.pipeline.render import render_frame
+from jello_tpu_torch.pipeline.render import render_frame, unpack_layout
 
 from .test_torch_render import _image_scene, _three_kinds
 from .torch_reference import (
@@ -69,10 +69,11 @@ def _through_fine_ref(scene, params):
     """One frame of the port with the reference fine stage in place of the
     kernels' fine stages, at the scene's estimated class."""
     r = Renderer(device="cpu")
-    _, ld, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
-    caps = dict(r._caps, **frame_routing(layout_t["n_clips"], atlas_t is not None, depth,
+    _, ld, (scene_t, packed, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    caps = dict(r._caps, **frame_routing(ld["n_clips"], atlas_t is not None, depth,
                                          params.antialiasing_method.value))
-    fine_out, flags, _ = render_frame(scene_t, layout_t, ramps_t, atlas_t, caps, None)
+    fine_out, flags, _ = render_frame(scene_t, unpack_layout(packed), ramps_t, atlas_t, caps,
+                                      None)
     assert fine_out.shape == (4, caps["tile_grid_cap"], 256) and fine_out.dtype == torch.float32
     assert "blend_depth_overflow" in flags and "area_rows_overflow" not in flags
     assert not any(bool(v) for v in flags.values()), flags
@@ -127,8 +128,9 @@ def test_torch_fine_ref_reports_blend_depth_overflow():
     """Its one flag: a push past `blend_depth`."""
     scene, params = CLIP_SCENES["mix_stack"](jello_tpu_torch)
     r = Renderer(device="cpu")
-    _, _, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
-    caps = dict(r._caps, **frame_routing(layout_t["n_clips"], False, depth), blend_depth=2)
+    _, ld, (scene_t, packed, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    layout_t = unpack_layout(packed)
+    caps = dict(r._caps, **frame_routing(ld["n_clips"], False, depth), blend_depth=2)
     _, flags, _ = render_frame(scene_t, layout_t, ramps_t, atlas_t, caps, None)
     assert bool(flags["blend_depth_overflow"])
     _, flags, _ = render_frame(scene_t, layout_t, ramps_t, atlas_t, dict(caps, blend_depth=3),

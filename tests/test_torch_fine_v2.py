@@ -190,14 +190,15 @@ def test_torch_fine_resolved_switch_clips_rows_and_applies_no_rule():
     cov = ((rng.random((PC, 256)) - 0.4) * 4).astype(np.float32)
     base = np.array([0.0, 0.0, 0.0, 0.0], np.float32)
     start = torch.arange(PC, dtype=torch.int32)
+    wit = torch.tensor(4, dtype=torch.int32)
     out = composite_records(torch.from_numpy(rec), torch.from_numpy(cov),
-                            torch.zeros((1, 11)), torch.from_numpy(base), start, start + 1, 4,
+                            torch.zeros((1, 11)), torch.from_numpy(base), start, start + 1, wit,
                             None, True)
     c = np.where(rec[:, 1:2] >= 0, np.clip(cov, 0.0, 1.0), 1.0)
     np.testing.assert_allclose(as_np(out)[:, 3], rgba[3] * c, atol=1e-6)
     by_rule = composite_records(torch.from_numpy(rec), torch.from_numpy(cov),
                                 torch.zeros((1, 11)), torch.from_numpy(base), start, start + 1,
-                                4)
+                                wit)
     assert (out - by_rule).abs().max() > 0.1
 
 
@@ -229,7 +230,7 @@ def test_torch_fine_scan_matches_record_walk():
     start_t, end_t = torch.from_numpy(start), torch.from_numpy(end)
     out = composite_records(torch.from_numpy(rec), torch.from_numpy(cov),
                             torch.from_numpy(stops), torch.from_numpy(base), start_t, end_t,
-                            wit)
+                            torch.tensor(wit, dtype=torch.int32))
     out = as_np(out)
     v = np.zeros((grid, 4, 256), np.float32)
     v[:] = base[None, :, None]

@@ -192,23 +192,30 @@ def test_torch_tap_records_wrapper_contract_on_the_cpu():
     """The wrapper's outputs on CPU tensors (the plain version): the fg
     table [IRC, 1024] f32, zero on rows that are not live image records,
     and the region flag a 0-dim bool, set by a record past MAX_WIN
-    windows; inputs of another type or shape raise."""
+    windows; inputs of another type or shape raise, the width in tiles
+    too (a 0-dim int32 tensor, the layout's word, which the kernel reads
+    on the device)."""
     rec, atlas = random_tap_records(0, n=24)
     r = torch.from_numpy(rec.view(np.int32))
     a = torch.from_numpy(atlas)
     rows = torch.cat([r, torch.zeros((8, 16), dtype=torch.int32)])
-    fg, flag = tap_records(rows, a, 8, 64)
+    wit = torch.tensor(8, dtype=torch.int32)
+    fg, flag = tap_records(rows, a, wit, 64)
     assert fg.shape == (32, 1024) and fg.dtype == torch.float32 and fg.is_contiguous()
     assert flag.shape == () and flag.dtype == torch.bool and bool(flag)
     assert not fg[24:].any() and fg[:24].any()
-    _, flag_ok = tap_records(rows[1:4], a, 8, 64)
+    _, flag_ok = tap_records(rows[1:4], a, wit, 64)
     assert flag_ok.shape == () and not bool(flag_ok)
     with pytest.raises(ValueError):
-        tap_records(rows.to(torch.int64), a, 8, 64)
+        tap_records(rows.to(torch.int64), a, wit, 64)
     with pytest.raises(ValueError):
-        tap_records(rows[:, :8].contiguous(), a, 8, 64)
+        tap_records(rows[:, :8].contiguous(), a, wit, 64)
     with pytest.raises(ValueError):
-        tap_records(rows, a[0], 8, 64)
+        tap_records(rows, a[0], wit, 64)
+    with pytest.raises(ValueError):
+        tap_records(rows, a, 8, 64)
+    with pytest.raises(ValueError):
+        tap_records(rows, a, wit.to(torch.int64), 64)
 
 
 def _three_images(jt):

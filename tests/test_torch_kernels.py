@@ -535,10 +535,11 @@ def test_torch_image_tap_kernel_synthetic(cuda, seed):
     rows = torch.cat([torch.from_numpy(rec.view(np.int32)),
                       torch.zeros((40, 16), dtype=torch.int32)]).to(cuda)
     a = torch.from_numpy(atlas).to(cuda)
+    wit = torch.full((), 8, dtype=torch.int32, device=cuda)  # the layout's width in tiles
     n0 = ktap.tap_records.launches
-    got, flag = ktap.tap_records(rows, a, 8, 64)
+    got, flag = ktap.tap_records(rows, a, wit, 64)
     assert ktap.tap_records.launches == n0 + 1
-    want, want_flag = plain_tap.tap_records_plain(rows, a, 8, 64)
+    want, want_flag = plain_tap.tap_records_plain(rows, a, wit, 64)
     torch.cuda.synchronize()
     assert flag.shape == () and flag.dtype == torch.bool
     assert bool(flag) and bool(want_flag)
@@ -547,8 +548,8 @@ def test_torch_image_tap_kernel_synthetic(cuda, seed):
     g = plain_tap.tap_geometry(rows, 8, 64)
     bad = plain_tap.region_bad(g, a.shape[1], a.shape[2]) & g["valid"]
     assert bad.any() and not got[bad].any()
-    got2, flag2 = ktap.tap_records(rows[~bad].contiguous(), a, 8, 64)
-    want2, _ = plain_tap.tap_records_plain(rows[~bad].contiguous(), a, 8, 64)
+    got2, flag2 = ktap.tap_records(rows[~bad].contiguous(), a, wit, 64)
+    want2, _ = plain_tap.tap_records_plain(rows[~bad].contiguous(), a, wit, 64)
     torch.cuda.synchronize()
     assert not bool(flag2) and torch.equal(got2, want2)
 
@@ -588,7 +589,7 @@ def test_torch_interpreter_kernels_match_plain(cuda, depth):
     got_h, ovf_h = kint.interpret_tiles(*args, batch=True)
     assert kint.interpret_tiles.launches == n0 + 1
     assert kint.interpret_tiles.launches_batch == n1 + 1
-    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
+    want, ovf_p = plain_int.interpret_plain(*args)
     torch.cuda.synchronize()
 
     def premul(o):
@@ -614,7 +615,7 @@ def test_torch_interpreter_kernels_deep_tapes(cuda, depth):
     args = interpret_args(h, cuda)
     got_g, ovf_g = kint.interpret_tiles(*args)
     got_h, ovf_h = kint.interpret_tiles(*args, batch=True)
-    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
+    want, ovf_p = plain_int.interpret_plain(*args)
     torch.cuda.synchronize()
 
     def premul(o):
@@ -638,8 +639,8 @@ def test_torch_interpreter_kernel_image_branch_matches_plain(cuda, seed):
     h = solid_image_slab(seed)
     args = interpret_args(h, cuda)
     got, ovf = kint.interpret_tiles(*args)
-    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:])
-    no_atlas, _ = plain_int.interpret_plain(args[0][:-1], *args[1:6], None, *args[7:])
+    want, ovf_p = plain_int.interpret_plain(*args)
+    no_atlas, _ = plain_int.interpret_plain(*args[:6], None, *args[7:])
     torch.cuda.synchronize()
 
     def premul(o):
@@ -660,7 +661,7 @@ def test_torch_interpreter_kernels_resolved_match_plain(cuda):
     args = interpret_args(hand_built_slab(seed=5), cuda)
     got_g, ovf_g = kint.interpret_tiles(*args, False, True)
     got_h, ovf_h = kint.interpret_tiles(*args, True, True)
-    want, ovf_p = plain_int.interpret_plain(args[0][:-1], *args[1:], resolved=True)
+    want, ovf_p = plain_int.interpret_plain(*args, resolved=True)
     by_rule, _ = kint.interpret_tiles(*args)
     torch.cuda.synchronize()
     assert torch.equal(ovf_g, ovf_p) and torch.equal(ovf_h, ovf_p)

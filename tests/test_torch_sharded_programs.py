@@ -16,7 +16,7 @@ import torch
 
 import jello_tpu_torch
 from jello_tpu_torch.cuda import collectives, sharded, sharded2
-from jello_tpu_torch.cuda.render import Renderer, assemble, upload, upload_atlas
+from jello_tpu_torch.cuda.render import Renderer, assemble
 
 from .test_torch_frames import blobs
 
@@ -24,13 +24,13 @@ SINGLE_TOL = 1e-6  # tests/test_torch_sharded.py's world size 1
 
 
 def _setup(scene, params):
-    """(the single-device CPU frame, the frame's inputs on the CPU, its class
-    on the renderer's routing)."""
+    """(the single-device CPU frame, the frame's inputs on the CPU as a rank
+    takes them, its class on the renderer's routing, its layout dict)."""
     r = Renderer(device="cpu")
     single = r.render(scene, params)
     inputs = sharded.frame_inputs(scene, params)
-    args = upload(*inputs[:3], {}, "cpu")[:3] + (upload_atlas(inputs[3], "cpu"),)
-    return single, args, sharded.sharded_caps(r._caps, inputs)
+    args = sharded.rank_inputs(inputs, "cpu")
+    return single, args, sharded.sharded_caps(r._caps, inputs), inputs[1]
 
 
 @pytest.mark.parametrize("path", ["stripes_kernel", "stripes_fine_ref", "geometry"])
@@ -39,7 +39,7 @@ def test_torch_sharded_frames_are_programs_once_settled(tmp_path, path):
     program, the last two replay it; each equals the eager frame at the
     class bit for bit and the single-device frame within 1e-6."""
     scene, params = sharded2.dryrun_scene(jello_tpu_torch, full_profile=path == "geometry")
-    single, args, caps = _setup(scene, params)
+    single, args, caps, ld = _setup(scene, params)
     with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu") as g:
         holder = (sharded2.RetryingRender(g) if path == "geometry"
                   else sharded.StripeFrames(g, path == "stripes_kernel"))
@@ -55,7 +55,7 @@ def test_torch_sharded_frames_are_programs_once_settled(tmp_path, path):
     assert holder.last_program.graph is None
     for f in frames:
         assert torch.equal(f, eager)
-    err = np.abs(assemble(frames[-1], args[1]).numpy() - single).max()
+    err = np.abs(assemble(frames[-1], ld).numpy() - single).max()
     print(f"{path}: programs {holder.compile_log}; max abs difference from the single device "
           f"{err:.3e}")
     assert err <= SINGLE_TOL
@@ -69,8 +69,8 @@ def test_torch_grown_geometry_class_builds_a_program_of_its_own(tmp_path):
     replays (the shape keeps its grown class)."""
     small, params = blobs(jello_tpu_torch, 1.0)
     grown, _ = blobs(jello_tpu_torch, 25.0)
-    _, args, caps = _setup(small, params)
-    single_g, args_g, _ = _setup(grown, params)
+    _, args, caps, _ = _setup(small, params)
+    single_g, args_g, _, ld_g = _setup(grown, params)
     with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu") as g:
         holder = sharded2.RetryingRender(g)
         for _ in range(2):
@@ -82,7 +82,7 @@ def test_torch_grown_geometry_class_builds_a_program_of_its_own(tmp_path):
         fine_out, flags = holder(caps, *args_g)[:2]
         assert holder.last_program is not None and len(holder.compile_log) == 2
         assert not any(flags.values())
-        err = np.abs(assemble(fine_out, args_g[1]).numpy() - single_g).max()
+        err = np.abs(assemble(fine_out, ld_g).numpy() - single_g).max()
         holder(caps, *args)
         assert len(holder.compile_log) == 2
     print(f"grown: retries {retried}; programs {holder.compile_log}; max abs difference from "
@@ -105,10 +105,8 @@ def test_torch_sharded_programs_over_nccl_on_the_card(cuda, tmp_path):
         for path in ("stripes_kernel", "stripes_fine_ref", "geometry"):
             scene, params = sharded2.dryrun_scene(jello_tpu_torch,
                                                   full_profile=path == "geometry")
-            single, args, caps = _setup(scene, params)
-            args = tuple(None if a is None else
-                         {k: v.cuda() if torch.is_tensor(v) else v for k, v in a.items()}
-                         if isinstance(a, dict) else a.cuda() for a in args)
+            single, args, caps, ld = _setup(scene, params)
+            args = tuple(None if a is None else a.cuda() for a in args)
             holder = (sharded2.RetryingRender(g) if path == "geometry"
                       else sharded.StripeFrames(g, path == "stripes_kernel"))
             assert holder.capture
@@ -118,5 +116,5 @@ def test_torch_sharded_programs_over_nccl_on_the_card(cuda, tmp_path):
             assert prog is not None and prog.graph is not None and len(holder.compile_log) == 1
             assert not any(flags.values())
             assert torch.equal(prog.run(args)[0], holder.frame_fn(caps, *args)(*args)[0])
-            err = np.abs(assemble(fine_out, args[1]).cpu().numpy() - single).max()
+            err = np.abs(assemble(fine_out, ld).cpu().numpy() - single).max()
             assert err <= 1e-3, (path, err)

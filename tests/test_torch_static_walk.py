@@ -36,7 +36,7 @@ from jello_tpu_torch.cuda.render import (
 from jello_tpu_torch.pipeline import fine_ref, ops
 from jello_tpu_torch.pipeline.fine_interp import build_records, walk_tapes
 from jello_tpu_torch.pipeline.ops import F32
-from jello_tpu_torch.pipeline.render import geometry, render_frame
+from jello_tpu_torch.pipeline.render import geometry, render_frame, unpack_layout
 from jello_tpu_torch.renderer.estimate import grow_caps
 from jello_tpu_torch.scenes import circle
 
@@ -88,9 +88,10 @@ def _settled(scene, params):
     (cmds, segs, (scene, layout, ramps, atlas), caps)."""
     r = Renderer(device="cpu")
     r.render(scene, params)
-    _, _, inputs, depth = r._prepare(scene, params)
-    caps = dict(r._caps, **frame_routing(inputs[1]["n_clips"], inputs[3] is not None, depth,
+    _, ld, (scene_t, packed, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    caps = dict(r._caps, **frame_routing(ld["n_clips"], atlas_t is not None, depth,
                                          params.antialiasing_method.value))
+    inputs = (scene_t, unpack_layout(packed), ramps_t, atlas_t)
     stages = geometry(inputs[0], inputs[1], caps)[0]
     return stages["cmds"], stages["segs"], inputs, caps
 
@@ -208,8 +209,10 @@ def test_torch_rerouted_render_is_a_program():
     prepared = r._prepare(scene, params)
     caps, fine_impl = r._route(prepared, params, r._caps, reroute=True)
     eager_out, _, _ = frame(*prepared[2], caps, fine_impl)
-    cmds, segs = (lambda st: (st["cmds"], st["segs"]))(geometry(*prepared[2][:2], caps)[0])
-    _, layout, ramps, atlas = prepared[2]
+    _, packed, ramps, atlas = prepared[2]
+    layout = unpack_layout(packed)
+    cmds, segs = (lambda st: (st["cmds"], st["segs"]))(
+        geometry(prepared[2][0], layout, caps)[0])
     assert torch.equal(r._program.fine_out, eager_out)
     assert torch.equal(eager_out, compact_fine(cmds, segs, ramps, atlas, layout, caps))
     assert np.array_equal(img, assemble(eager_out, prepared[1]).numpy())

@@ -727,13 +727,14 @@ def deep_slab(BD):
 
 def interpret_args(h, device="cpu"):
     """The arguments of `cuda.fine_interp.interpret_tiles` from a
-    `hand_built_slab` dict, on `device`."""
+    `hand_built_slab` dict, on `device` (the width in tiles as the last
+    word of the counts)."""
     dev = torch.device(device)
     counts = np.concatenate([h["counts"], [h["wit"]]]).astype(np.int32)
     return (to_torch(counts).to(dev), to_torch(h["tile_ids"]).to(dev),
             to_torch(h["base"]).to(dev), to_torch(h["slab"]).to(dev),
             to_torch(h["rows"]).to(dev), to_torch(h["stops"]).to(dev),
-            to_torch(h["atlas"]).to(dev), h["wit"], h["BD"])
+            to_torch(h["atlas"]).to(dev), h["BD"])
 
 
 # Edge shapes of an expansion by counts (the cases the expand kernel's

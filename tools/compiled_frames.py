@@ -38,7 +38,7 @@ def run_case(case, scenes, smi):
     import torch
 
     from jello_tpu_torch.cuda import Renderer
-    from jello_tpu_torch.cuda.render import assemble, assemble_present
+    from jello_tpu_torch.cuda.render import assemble, assemble_present, output_layout
     from jello_tpu_torch.renderer.params import AaConfig
 
     sha = chip_smoke._sha
@@ -63,11 +63,12 @@ def run_case(case, scenes, smi):
             raise SystemExit(f"FAIL {case}: compile_log {r.compile_log}")
         prepared = r._prepare(scene, params)
         fine_e, _, _ = chip_smoke._eager_frame(r, prepared, params)
-        u8_e = assemble_present(fine_e, prepared[2][1], True, True).cpu().numpy()
+        out_ld = output_layout(prepared[1], prepared[2][1])
+        u8_e = assemble_present(fine_e, out_ld, True, True).cpu().numpy()
         # The fine output as assembly reads it: rows of records outside
         # every tile's run are never written.
-        fine = (assemble(fine, prepared[2][1]), fine[1])
-        fine_e = (assemble(fine_e, prepared[2][1]), fine_e[1])
+        fine = (assemble(fine, out_ld), fine[1])
+        fine_e = (assemble(fine_e, out_ld), fine_e[1])
         same = all(torch.equal(a, b) for a, b in zip(fine, fine_e))
         same_u8 = bool((u8 == u8_e).all())
         print(f"{case}: first render {first_s:.3f} s ({r.last_retries}); the build's render "

@@ -69,9 +69,9 @@ def _rank(group, jobs, frames, replay=False):
     the program's hold or None)}."""
     import torch
 
-    from jello_tpu_torch.cuda.render import upload, upload_atlas
-    from jello_tpu_torch.cuda.sharded import StripeFrames
+    from jello_tpu_torch.cuda.sharded import StripeFrames, rank_inputs
     from jello_tpu_torch.cuda.sharded2 import RetryingRender
+    from jello_tpu_torch.pipeline.render import unpack_layout
 
     def sync():
         if group.device.type == "cuda":
@@ -79,16 +79,15 @@ def _rank(group, jobs, frames, replay=False):
 
     out = {}
     for tag, make, inputs, caps, opts in jobs:
-        scene_u32, ld, ramps, atlas, _ = inputs
-        args = upload(scene_u32, ld, ramps, {}, group.device)[:3] + (
-            upload_atlas(atlas, group.device),)
+        args = rank_inputs(inputs, group.device)
         holder = None
         if "max_retries" in opts:
             holder = RetryingRender(group, opts["max_retries"])
         elif replay:
             holder = StripeFrames(group, opts["pallas_fine"])
         if holder is None:
-            run = make(group, caps, **opts)
+            run = lambda s, lay, *a, run=make(group, caps, **opts): run(  # noqa: E731
+                s, unpack_layout(lay), *a)
         else:
             run = lambda *a, holder=holder, caps=caps: holder(caps, *a)  # noqa: E731
         res = run(*args)

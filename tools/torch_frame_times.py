@@ -34,15 +34,21 @@ entry layout the tree's `cuda/build.py` declares: the prefix computed in
 the entry, or (older trees) passed in, computed beforehand.
 
 With --kernels-fg it first times kernel F (the image tap) on the inputs
-the tap stage of config 5 gives it, and kernels G and H (the per-tile
+the tap stage of config 5 gives it, kernel B (record-stream fine) on
+config 5's records (with the tap's table) and config 4's (clip groups),
+and kernels G and H (the per-tile
 interpreter, one tile and eight tiles a CTA) on the inputs config 4's
 fine stage gives them in area mode and under msaa8 (the resolved
 branch), in the same way: wrapper and bare C entry (medians of 5 means
 of 100 calls), device time by kernel and memset, and a SHA-256 of the
-outputs (F's table and region flag; G's and H's rows and overflow
-words). The bare entries follow the tree's entry layout: F's flag a
-zeroed int32 (older trees) or a byte the entry clears; G's stack scratch
-as the tree's `cuda.fine_interp.scratch_shape` says, where it has one.
+outputs (F's table and region flag; B's rows of the records in the
+tiles' runs, which are all it writes; G's and H's rows and
+overflow words). The bare entries follow the tree's entry layout: F's
+flag a zeroed int32 (older trees) or a byte the entry clears; G's stack
+scratch as the tree's `cuda.fine_interp.scratch_shape` says, where it
+has one; the width in tiles an int argument of B, F, G and H (older
+trees) or device data (a pointer for B and F, the counts' last word for
+G and H).
 `--configs ""` times no frames.
 
 With --h-sweep it runs kernel H at every point of its design space (a
@@ -193,8 +199,21 @@ def record_geometry_calls(k):
     r = Renderer(device="cuda")
     r.render(scene, params)
     _, _, (scene_t, layout_t, _, atlas_t), _ = r._prepare(scene, params)
+    layout_t = prepared_layout(layout_t)
     caps = dict(r._caps, **frame_routing(0, atlas_t is not None, 0))
     return spy_calls(GEOMETRY_WRAPPERS, lambda: geometry(scene_t, layout_t, caps))
+
+
+def prepared_layout(layout_t):
+    """The layout dict of a prepared frame's inputs: unpacked on trees that
+    upload it packed (one int32 tensor), as it is on older trees."""
+    import torch
+
+    if isinstance(layout_t, torch.Tensor):
+        from jello_tpu_torch.pipeline.render import unpack_layout
+
+        return unpack_layout(layout_t)
+    return layout_t
 
 
 def spy_calls(wrappers, run):
@@ -426,6 +445,7 @@ def record_tap_call():
     r = Renderer(device="cuda")
     r.render(scene, params)
     _, _, (scene_t, layout_t, _, atlas_t), _ = r._prepare(scene, params)
+    layout_t = prepared_layout(layout_t)
     caps = dict(r._caps, **frame_routing(0, True, 0))
     stages = geometry(scene_t, layout_t, caps)[0]
     cmds = stages["cmds"]
@@ -449,8 +469,9 @@ def record_interp_calls():
     scene, params = GATE_SCENES[4]()
     r = Renderer(device="cuda")
     r.render(scene, params)
-    _, _, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
-    caps = dict(r._caps, **frame_routing(layout_t["n_clips"], atlas_t is not None, depth))
+    _, ld, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
+    layout_t = prepared_layout(layout_t)
+    caps = dict(r._caps, **frame_routing(int(ld["n_clips"]), atlas_t is not None, depth))
     stages = geometry(scene_t, layout_t, caps)[0]
     out = {}
     for mode in ("area", "msaa8"):
@@ -458,7 +479,37 @@ def record_interp_calls():
             stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t,
             dict(caps, aa_mode=mode)))
         args = calls["interpret_tiles"][0]
-        out[mode] = (args[:9], bool(args[10]))
+        # The arguments before the batch switch (nine where the width in
+        # tiles is still one of them, eight where it is the counts' last
+        # word), then the resolved switch.
+        k = len(args) - 2
+        out[mode] = (args[:k], bool(args[k + 1]))
+    return out
+
+
+def record_fine_v2_calls():
+    """{"config5": args, "config4": args}: the arguments of kernel B's call
+    in config 5's fine stage (the image tap's table) and config 4's (clip
+    groups) at their calibrated classes, on the card."""
+    from jello_tpu_torch.cuda import Renderer
+    from jello_tpu_torch.cuda.fine_hybrid import fine_hybrid
+    from jello_tpu_torch.cuda.fine_v2 import fine_v2
+    from jello_tpu_torch.cuda.render import frame_routing
+    from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.scenes import GATE_SCENES
+
+    out = {}
+    for k, fine in ((5, fine_v2), (4, fine_hybrid)):
+        scene, params = GATE_SCENES[k]()
+        r = Renderer(device="cuda")
+        r.render(scene, params)
+        _, ld, (scene_t, layout_t, ramps_t, atlas_t), depth = r._prepare(scene, params)
+        layout_t = prepared_layout(layout_t)
+        caps = dict(r._caps, **frame_routing(int(ld["n_clips"]), atlas_t is not None, depth))
+        stages = geometry(scene_t, layout_t, caps)[0]
+        calls = spy_calls([("fine_v2", "composite_records")], lambda: fine(
+            stages["cmds"], stages["counted"], ramps_t, atlas_t, layout_t, caps))
+        out[f"config{k}"] = calls["composite_records"][0]
     return out
 
 
@@ -468,23 +519,52 @@ def bare_tap(args):
     an int32 the kernel ORs into (older trees) or a byte the entry clears."""
     import torch
 
+    from jello_tpu_torch.cuda import build
+
     tap_rec, atlas, wit, grid = args
     IRC = tap_rec.shape[0]
     _, AHp, AWp = atlas.shape
     out = torch.empty((IRC, 1024), dtype=torch.float32, device="cuda")
     flag = torch.zeros(4, dtype=torch.uint8, device="cuda")
+    if build.SIGNATURES["jello_image_tap"][4] is build.P:  # the width read on the device
+        return bare_call("jello_image_tap", [tap_rec, atlas, out, flag, wit],
+                         [IRC, int(grid), AHp, AWp]), (out, flag)
     return bare_call("jello_image_tap", [tap_rec, atlas, out, flag],
                      [IRC, int(grid), int(wit), AHp, AWp]), (out, flag)
 
 
+def bare_fine_v2(args):
+    """(bare, (out,)): kernel B's bare C entry on `args` (composite_records'
+    own), into an output allocated once. The width in tiles goes as an int
+    where the tree's entry takes one, else as the pointer the kernel reads."""
+    import torch
+    from jello_tpu_torch.cuda import build
+
+    rec, cov, stops, base, start, end, wit, fg_tab, resolved = (
+        list(args) + [None, False][len(args) - 7:])
+    PC = rec.shape[0]
+    NR, W = stops.shape
+    n_fg = 0 if fg_tab is None else fg_tab.shape[0]
+    out = torch.empty((PC, 4, 256), dtype=torch.float32, device="cuda")
+    tensors = [rec, cov, stops, start, end, base, fg_tab, out]
+    ints = [start.shape[0], NR, W, n_fg, 1 if resolved else 0]
+    if build.SIGNATURES["jello_fine_v2"][8] is build.P:  # the width read on the device
+        return bare_call("jello_fine_v2", tensors + [wit], ints), (out,)
+    return bare_call("jello_fine_v2", tensors, ints[:3] + [int(wit)] + ints[3:]), (out,)
+
+
 def bare_interp(args, batch, resolved):
     """(bare, (out, ovf)): kernel G's (or H's) bare C entry on `args`
-    (interpret_tiles' first nine), into buffers allocated once; H's slots
-    padded to a multiple of eight here, once."""
+    (interpret_tiles' arguments before the batch switch), into buffers
+    allocated once; H's slots padded to a multiple of eight here, once.
+    The width in tiles goes as an int where the tree's entry takes one,
+    else it is the counts' last word, read on the device."""
     import torch
+    from jello_tpu_torch.cuda import build
     from jello_tpu_torch.cuda import fine_interp as kint
 
-    counts, ids, base, slab, rows, stops, atlas, wit, BD = args
+    counts, ids, base, slab, rows, stops, atlas, *wit, BD = args
+    wit_arg = [int(wit[0])] if len(build.SIGNATURES["jello_fine_interp"]) == 22 else []
     n, MC, _ = slab.shape
     if batch and n % 8:
         pad = -n % 8
@@ -503,7 +583,7 @@ def bare_interp(args, batch, resolved):
     AHp, AWp = (0, 0) if atlas is None else atlas.shape[1:]
     call = bare_call("jello_fine_interp",
                      [counts, ids, base, slab, rows, stops, atlas, scratch, out, ovf],
-                     [n_run, MC, rows.shape[0], NR, W, int(wit), int(BD), AHp, AWp,
+                     [n_run, MC, rows.shape[0], NR, W, *wit_arg, int(BD), AHp, AWp,
                       1 if batch else 0, 1 if resolved else 0])
     return call, (out[:n], ovf[:n])
 
@@ -544,7 +624,7 @@ def lockstep_efficiency(counts, MC, tiles=8):
 
 def h_sweep(args, resolved, ptxas_log=None):
     """Kernel H at every point of H_BUILDS x H_LEVELS on `args`
-    (interpret_tiles' first nine, CUDA tensors), each point's outputs held
+    (interpret_tiles' first eight, CUDA tensors), each point's outputs held
     to kernel G's on the same slots bit for bit (raises on a difference).
     Returns [(W, M, levels, bare ms, device us, registers, spill stores,
     spill loads, resident CTAs, scratch MiB)], then G's row as (0, 0, 0,
@@ -553,13 +633,13 @@ def h_sweep(args, resolved, ptxas_log=None):
     import torch
     from jello_tpu_torch.cuda import fine_interp as kint
 
-    counts, ids, base, slab, rows, stops, atlas, wit, BD = args
+    counts, ids, base, slab, rows, stops, atlas, BD = args
     n, MC, _ = slab.shape
     want = kint.interpret_tiles(*args, False, resolved)
     pad = -n % 8
     slab8 = torch.cat([slab, slab.new_zeros((pad, MC, 16))])
     ids8 = torch.cat([ids, ids.new_zeros(pad)])
-    counts8 = torch.cat([counts[:n], counts.new_zeros(pad)])
+    counts8 = torch.cat([counts[:n], counts.new_zeros(pad), counts[n:]])
     n8 = n + pad
     regs = ptxas_kernels(ptxas_log) if ptxas_log else {}
 
@@ -577,7 +657,7 @@ def h_sweep(args, resolved, ptxas_log=None):
             ovf = torch.empty(n8, dtype=torch.int32, device="cuda")
 
             def run():
-                call(counts8, ids8, base, slab8, rows, stops, atlas, wit, BD, resolved, out, ovf,
+                call(counts8, ids8, base, slab8, rows, stops, atlas, BD, resolved, out, ovf,
                      scratch)
 
             run()
@@ -620,13 +700,15 @@ def h_sweep_lines(tag, args, resolved, table, smi):
 
 
 def kernels_fg_times(tag, smi):
-    """Kernel F on config 5's recorded inputs, G and H on config 4's (area
-    and msaa8): the wrapper and the bare C entry (median of 5 means of 100
+    """Kernel F on config 5's recorded inputs, B on config 5's and config
+    4's, G and H on config 4's (area and msaa8): the wrapper and the bare
+    C entry (median of 5 means of 100
     calls), the device time of each kernel and memset a bare call puts on
     the card, and a digest of the outputs (the bare entry's must equal the
     wrapper's)."""
     import torch
     from jello_tpu_torch.cuda import fine_interp as kint
+    from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
 
     def report(what, fn, call, got, outs):
@@ -648,11 +730,20 @@ def kernels_fg_times(tag, smi):
     report(f"config5 tap_records ({f_args[0].shape[0]} rows, {n_img} image records)",
            lambda: ktap.tap_records(*f_args), call, (fg, flag.reshape(1)),
            (out, flag_bytes.any().reshape(1)))
+    for name, b_args in record_fine_v2_calls().items():
+        # The rows of the tiles' runs, a prefix of the records: B leaves the
+        # rows past them unwritten.
+        live = int(b_args[5].max())
+        got = kfine.composite_records(*b_args)[:live]
+        call, (out,) = bare_fine_v2(b_args)
+        report(f"{name} composite_records, kernel B ({live} records in runs of "
+               f"{b_args[0].shape[0]})", lambda: kfine.composite_records(*b_args), call, (got,),
+               (out[:live],))
     for mode, (args, resolved) in record_interp_calls().items():
         for batch, name in ((False, "G"), (True, "H")):
             got = kint.interpret_tiles(*args, batch, resolved)
             call, outs = bare_interp(args, batch, resolved)
-            resident = (f", {kint.resident_ctas(batch, args[8])} CTAs a multiprocessor"
+            resident = (f", {kint.resident_ctas(batch, args[-1])} CTAs a multiprocessor"
                         if hasattr(kint, "resident_ctas") else "")
             report(f"config4 {mode} interpret_tiles, kernel {name} ({args[3].shape[0]} slots"
                    f"{resident})", lambda: kint.interpret_tiles(*args, batch, resolved), call,
