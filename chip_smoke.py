@@ -84,7 +84,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      efficiency of the parent's mapping (records walked over eight times
      the longest tape of each CTA) against a warp group a slot; and G and
      H through fine_interp over the full tile grid of a small scene with
-     clips, blends, gradients and an image vs the plain version;
+     clips, blends, gradients and an image vs the plain version; and a
+     64x64 scene of clip layers nested 65 deep, one more than jello_tpu's
+     clip walk takes (`clip_depth_cap` 64, printed), rendered on the card
+     (kernel G must launch) and held to Renderer(device="cpu") (image
+     within 1e-4, flags equal and clear);
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
      stroked and dashed paths, 512x512), config 5 and config 4, render()
@@ -780,6 +784,31 @@ def _small_clip_scene(jt):
              jt.SolidBrush(jt.Color.rgba(0, 0, 0, 1)), None,
              jt.BezPath().move_to(10, 30).cubic_to(80, 5, 170, 60, 246, 25))
     return s, jt.RenderParams(width=256, height=256, base_color=jt.Color.rgba(1, 1, 1, 1))
+
+
+def _deep_clip_scene(jt, depth, size=64):
+    """`depth` clip layers nested in one another over a ground, their rects
+    shrinking by a fraction of a pixel a level, with a translucent fill
+    every eighth level and in the two deepest (the scene of
+    tests/test_torch_deep_clips.py)."""
+    def rect(x0, y0, x1, y1):
+        return jt.BezPath().move_to(x0, y0).line_to(x1, y0).line_to(x1, y1).line_to(x0, y1).close()
+
+    ident = jt.Affine.identity()
+    s = jt.Scene()
+    s.fill(jt.Fill.NON_ZERO, ident, jt.SolidBrush(jt.Color.rgba(0.9, 0.8, 0.1, 1)), None,
+           rect(0, 0, size, size))
+    for k in range(depth):
+        d = 0.37 * k
+        s.push_layer(jt.BlendMode(jt.Mix.CLIP, jt.Compose.SRC_OVER), 1.0, ident,
+                     rect(1 + d, 1.3 + d, size - 1 - 0.5 * d, size - 1.2 - 0.45 * d))
+        if k % 8 == 7 or k >= depth - 2:
+            s.fill(jt.Fill.NON_ZERO, ident,
+                   jt.SolidBrush(jt.Color.rgba((k % 5) / 5, 0.3, 1 - (k % 7) / 7, 0.6)), None,
+                   rect(0, 0, size, size))
+    for _ in range(depth):
+        s.pop_layer()
+    return s, jt.RenderParams(width=size, height=size, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
 def _over_minified_scene(jt):
@@ -2574,6 +2603,29 @@ def main():
     res["G"] = (max(res["G"][0], err_fg),) + res["G"][1:]
     res["H"] = (max(res["H"][0], err_fh),) + res["H"][1:]
     del stages, fi_args, full_g, full_h, full_p, warm
+    torch.cuda.empty_cache()
+
+    # Clip layers nested one level deeper than jello_tpu's clip walk
+    # takes: the routing caps the walk at 64 levels, as jello_tpu's is.
+    deep = _deep_clip_scene(jello_tpu_torch, 65)
+    r_deep = Renderer(device="cuda")
+    _, ld_d, _, depth_d = _prepared(r_deep, *deep)
+    cap_d = frame_routing(int(ld_d["n_clips"]), False, depth_d)["clip_depth_cap"]
+    g0 = kint.interpret_tiles.launches
+    img_d = r_deep.render(*deep)
+    g_d = kint.interpret_tiles.launches - g0
+    r_cpu = Renderer(device="cpu")
+    want_d = r_cpu.render(*deep)
+    err_d = float(np.abs(img_d - want_d).max())
+    raised_d = sorted(k for k, v in r_deep.last_flags.items() if v)
+    print(f"65-deep clip scene: nesting depth {depth_d}, clip_depth_cap {cap_d}, kernel G "
+          f"launches {g_d}, max abs error vs Renderer(device='cpu') {err_d:.3e}, flags "
+          f"{raised_d}, frames run again for {r_deep.last_retries}")
+    if (depth_d != 65 or cap_d != 64 or g_d < 1 or not err_d <= G_TOL or raised_d
+            or dict(r_deep.last_flags) != dict(r_cpu.last_flags)):
+        _fail("the 65-deep clip scene disagrees with the CPU frame")
+    res["G"] = (max(res["G"][0], err_d),) + res["G"][1:]
+    del r_deep, r_cpu, img_d, want_d
     torch.cuda.empty_cache()
 
     # ---- 9. main path ----------------------------------------------------

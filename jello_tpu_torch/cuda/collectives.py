@@ -14,13 +14,22 @@ once the communicator exists (`init_group` makes it). "gloo" copies each
 operand to the host, runs the collective there and copies the result
 back: the CPU tests and several ranks on one card take it, and no graph
 can hold it.
+
+Every wait is bounded. `init_group`'s `timeout` bounds the rendezvous
+and each collective of the group (a collective whose peer is gone
+raises instead of waiting out the backend's default, 30 minutes under
+gloo), and `run_ranks`' `timeout` the whole run: a rank still running a
+little before it prints its Python stacks to stderr, and the call then
+stops every rank and raises `TimeoutError` naming the ranks it stopped.
 """
 
 from __future__ import annotations
 
+import datetime
+import faulthandler
 import multiprocessing
 import multiprocessing.connection
-import os
+import sys
 import tempfile
 import time
 from dataclasses import dataclass
@@ -52,11 +61,13 @@ class Group:
         self.close()
 
 
-def init_group(rank, world, backend, init_file, device) -> Group:
+def init_group(rank, world, backend, init_file, device, timeout=None) -> Group:
     """Join the `world`-rank group as `rank` through a FileStore at
     `init_file` (a path no earlier group used), on `device`. Under NCCL the
     communicator is made here (`device_id`), not at the first collective,
-    which may be inside a capture."""
+    which may be inside a capture. `timeout` (a `datetime.timedelta`; None
+    keeps torch's default) bounds the rendezvous and every collective of
+    the group."""
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
@@ -67,7 +78,7 @@ def init_group(rank, world, backend, init_file, device) -> Group:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=Path(init_file).absolute().as_uri(),
-                            rank=rank, world_size=world,
+                            rank=rank, world_size=world, timeout=timeout,
                             device_id=device if backend == "nccl" else None)
     return Group(rank, world, backend, device)
 
@@ -126,11 +137,20 @@ def _rank_device(device, rank, world):
     return torch.device("cuda", device.index or 0)
 
 
-def _rank_main(fn, rank, world, backend, init_file, device, args, out_path):
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    with init_group(rank, world, backend, init_file, _rank_device(device, rank, world)) as g:
+def _rank_main(fn, rank, world, backend, init_file, device, args, out_path, timeout,
+               deadline, threads):
+    # Stacks to stderr a little before the caller's deadline (on its
+    # time.monotonic(), one clock for every process of the machine),
+    # armed before anything can hang.
+    faulthandler.dump_traceback_later(
+        max(deadline - min(5.0, 0.1 * timeout) - time.monotonic(), 0.01), file=sys.stderr)
+    # The ranks share the caller's intra-op threads.
+    torch.set_num_threads(max(1, threads // world))
+    with init_group(rank, world, backend, init_file, _rank_device(device, rank, world),
+                    datetime.timedelta(seconds=timeout)) as g:
         result = fn(g, *args)
     torch.save(result, out_path)
+    faulthandler.cancel_dump_traceback_later()
 
 
 def run_ranks(fn, world, backend, device, args=(), timeout=900.0):
@@ -141,7 +161,10 @@ def run_ranks(fn, world, backend, device, args=(), timeout=900.0):
     `backend` "nccl" needs a card per rank and raises otherwise; "gloo"
     runs anywhere. The kernels are built here first, so that the ranks
     never run nvcc together. A rank that fails or outlives `timeout`
-    seconds makes the call raise, after every rank has been stopped."""
+    seconds makes the call raise, after every rank has been stopped; each
+    rank's group waits at most `timeout` for a peer, and a rank still
+    running a little before the deadline prints its Python stacks to
+    stderr (pytest shows them in the failing test's report)."""
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
@@ -156,17 +179,20 @@ def run_ranks(fn, world, backend, device, args=(), timeout=900.0):
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as d:
         outs = [Path(d) / f"rank{r}.pt" for r in range(world)]
+        deadline = time.monotonic() + timeout
         procs = [ctx.Process(target=_rank_main, args=(
-            fn, r, world, backend, Path(d) / "store", str(device), args, outs[r]))
-            for r in range(world)]
+            fn, r, world, backend, Path(d) / "store", str(device), args, outs[r], timeout,
+            deadline, torch.get_num_threads())) for r in range(world)]
         try:
             for p in procs:
                 p.start()
-            deadline = time.monotonic() + timeout
             while any(p.exitcode is None for p in procs):
                 left = deadline - time.monotonic()
                 if left <= 0:
-                    raise TimeoutError(f"run_ranks: ranks still running after {timeout} s")
+                    alive = [r for r, p in enumerate(procs) if p.exitcode is None]
+                    raise TimeoutError(
+                        f"run_ranks: ranks {alive} of {world} still running after {timeout} s "
+                        f"and stopped (their Python stacks are on stderr)")
                 multiprocessing.connection.wait(
                     [p.sentinel for p in procs if p.exitcode is None], left)
                 failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]

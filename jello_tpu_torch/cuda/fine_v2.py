@@ -14,7 +14,7 @@ an affine map of the running pixel color. `composite_records` launches
 kernel B for CUDA tensors (one CTA per tile walks the tile's records in
 order) and takes `composite_records_plain` only for CPU tensors: a
 vectorized Hillis-Steele segmented scan of the (A, B) affine pairs over
-the whole record stream, segments keyed on the tile column.
+the record stream up to its padding, segments keyed on the tile column.
 
 A depth-1 clip group whose blend is src-over (any alpha) is itself an
 affine map of the background, so it stays here: the group's records are
@@ -84,7 +84,10 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
                             resolved=False):
     """Plain version of kernel B (same inputs and output as
     `composite_records`). The scan is keyed on the records' tile column;
-    tile_start/tile_end only bound which tiles are in range."""
+    tile_start/tile_end only bound which tiles are in range. It skips the
+    class's padding on any device, as `coverage_rows_plain` does: the
+    host reads that finds it wait for the device's queue, and no frame
+    runs this version on a GPU tensor."""
     PC = rec.shape[0]
     n_tiles = tile_start.shape[0]
     kind = rec[:, 0:1]
@@ -99,6 +102,15 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     is_img = (kind == CMD_IMAGE) if fg_tab is not None else torch.zeros_like(is_color)
     live = valid & (is_color | is_grad | is_img) & ((flags & 2) == 0)
 
+    # The capacity's padding: the rows at the end that share the last
+    # row's tile. When that tile is out of range and no clip group holds
+    # them, they paint nothing and form one run of identities, which both
+    # scans leave as they are: only the first n rows are painted and
+    # scanned (the output is the same bit for bit).
+    other = torch.nonzero(tile != tile[-1])
+    n = int(other[-1]) + 1 if other.numel() else 0
+    if bool(valid[-1, 0]) or bool((flags[n:] & 48).any()):
+        n = PC
     a = cov[:PC]
     if resolved:
         c = nz = resolved_coverage(a)
@@ -108,8 +120,11 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
         c = torch.where((flags & 1) != 0, eo, nz)
     c = torch.where(rec[:, 1:2] >= 0, c, torch.ones_like(c))
     c = c * live.to(F32)
+    if not bool(torch.isfinite(c[n:]).all()):
+        n = PC  # non-finite coverage in the padding: scanned as it is
 
-    gfg = gradient_fg(rec, stops, rec[:, 3:4], wit)
+    live, is_color, is_img, fr, c = live[:n], is_color[:n], is_img[:n], fr[:n], c[:n]
+    gfg = gradient_fg(rec[:n], stops, rec[:n, 3:4], wit)
     zero = torch.zeros((), dtype=F32, device=rec.device)
     # Records that paint nothing are the identity, whatever their words.
     fg = [torch.where(live, torch.where(is_color, fr[:, 5 + ch:6 + ch], gfg[ch]), zero)
@@ -117,7 +132,7 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     if fg_tab is not None:
         # Image paints: the record's row of the image-tap table; a rank
         # past the table paints nothing.
-        rank = rec[:, 14]
+        rank = rec[:n, 14]
         rows = torch.where(((rank >= 0) & (rank < fg_tab.shape[0]))[:, None],
                            ops.gather_guarded(fg_tab, rank), zero)
         fg = [torch.where(live & is_img, rows[:, 256 * ch:256 * (ch + 1)], fg[ch])
@@ -125,16 +140,18 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
 
     # (A, B) affine pairs of the records.
     A = 1.0 - fg[3] * c
-    B = torch.stack([f * c for f in fg], dim=1)  # [PC, 4, 256]
+    B = torch.stack([f * c for f in fg], dim=1)  # [n, 4, 256]
 
-    def scan(A, B, key):
+    def scan(A, B, key, run=0):
         """Hillis-Steele inclusive scan of the affine pairs within runs of
         equal keys (runs are contiguous, so the first distance with no
-        equal pair ends it)."""
+        equal pair ends it), over the first n rows; `run`, the length of
+        a run of identities after them, keeps the loop going as long as
+        it would over all rows."""
         k = 1
-        while k < PC:
+        while k < n:
             same = (key[k:] == key[:-k])[:, None]
-            if not bool(same.any()):
+            if k >= run and not bool(same.any()):
                 break
             B = torch.cat([B[:k], B[k:] + torch.where(same[:, None], A[k:, None] * B[:-k],
                                                        zero)])
@@ -146,26 +163,28 @@ def composite_records_plain(rec, cov, stops, base, tile_start, tile_end, wit, fg
     # members, bit 5 its EndClip) share the id in bits 8+, so the scan's
     # value at the EndClip is the group's composite (A_g, B_g) over
     # transparent black. Every other record is a run of its own.
-    ident2 = (flags & 16) != 0
-    end_t = (flags & 32) != 0
+    ident2 = (flags[:n] & 16) != 0
+    end_t = (flags[:n] & 32) != 0
     if bool((ident2 | end_t).any()):
-        seg = ops.shr(rec[:, 4], 8).long()
+        seg = ops.shr(rec[:n, 4], 8).long()
         key = torch.where((ident2 | end_t)[:, 0], 2 * seg,
-                          2 * torch.arange(PC, device=rec.device) + 1)
+                          2 * torch.arange(n, device=rec.device) + 1)
         A, B = scan(A, B, key)
         # The EndClip composes the group over the background as
         # (1 - covc (1 - A_g), covc B_g), covc its clip row by the nonzero
         # rule (a resolved row as it is), or, rowless, full when its tile
         # backdrop (word 7) is not 0, times the group alpha; Begin and
         # members become the identity.
-        covc = torch.where(rec[:, 1:2] >= 0, nz,
-                           torch.clamp(torch.abs(rec[:, 7:8].to(F32)), max=1.0)) * fr[:, 6:7]
+        covc = torch.where(rec[:n, 1:2] >= 0, nz[:n],
+                           torch.clamp(torch.abs(rec[:n, 7:8].to(F32)), max=1.0)) * fr[:, 6:7]
         A = torch.where(end_t, 1.0 - covc * (1.0 - A), A)
         A = torch.where(ident2, torch.ones_like(A), A)
         B = torch.where(end_t[:, None], covc[:, None] * B, B)
         B = torch.where(ident2[:, None], zero, B)
     # Pass 2: compositing within tiles.
-    A, B = scan(A, B, tile)
+    A, B = scan(A, B, tile[:n], PC - n)
+    A = torch.cat([A, A.new_ones((PC - n, 256))])
+    B = torch.cat([B, B.new_zeros((PC - n, 4, 256))])
     v = B + A[:, None] * base.to(F32)[None, :, None]
     inv_a = rdiv(1.0, torch.clamp(v[:, 3], min=1e-6))
     return torch.cat([v[:, :3] * inv_a[:, None], v[:, 3:]], dim=1)

@@ -76,6 +76,7 @@ import torch
 
 from ..encoding.draw import DRAW_TAG_BEGIN_CLIP, DRAW_TAG_END_CLIP
 from ..gfx import premul32
+from ..pipeline.clips import MAX_CLIP_DEPTH
 from ..pipeline.fine_ref import assemble_image
 from ..pipeline.gradient import stops_table_or_empty
 from ..pipeline.image_tap import atlas_planar
@@ -195,14 +196,17 @@ def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
     switch. `clip_depth_cap`, the clip walk's trip count, is the scene's
     own nesting depth rounded up to a power of two, so that scenes of
     nearby depths share a class (a level past the deepest begin changes
-    nothing; jello_tpu walks MAX_CLIP_DEPTH = 64 levels for every scene)."""
+    nothing), and at most `clips.MAX_CLIP_DEPTH` = 64: jello_tpu's
+    accelerator route walks `caps.get("clip_depth_cap", MAX_CLIP_DEPTH)`
+    levels for every scene (`jello_tpu/pipeline/clips.py:117`), so a
+    begin nested deeper matches no level there, nor here."""
     routing = {"_expand_pallas": True, "aa_mode": aa_mode}
     if has_atlas and image_tap:
         routing["_image_tap"] = True
     if n_clips == 0:
         routing["_coarse_dense"] = True
     else:
-        routing["clip_depth_cap"] = _pow2(max(int(clip_depth), 1))
+        routing["clip_depth_cap"] = min(_pow2(max(int(clip_depth), 1)), MAX_CLIP_DEPTH)
     if os.environ.get("JELLO_INTERP_BATCH", "0") == "1":
         routing["_interp_batch"] = True
     return routing

@@ -516,13 +516,15 @@ def dryrun_scene(jt, full_profile=False):
     return scene, jt.RenderParams(width=W, height=H, base_color=jt.Color.rgba(1, 1, 1, 1))
 
 
-def dryrun(n, device="cuda", backend="nccl", full_profile=False, image_tap=False, aa="area"):
+def dryrun(n, device="cuda", backend="nccl", full_profile=False, image_tap=False, aa="area",
+           timeout=900.0):
     """Render `dryrun_scene` on n ranks (`sharded2.py::dryrun`; `image_tap`
     routes its image through kernel F, `aa` "area", "msaa8" or "msaa16")
     through `RetryingRender` (a raised flag grows the ranks that raised it
     and renders again, up to MAX_RETRIES times) and hold the frame to the
-    single-device renderer's on `device` (within 1e-3). Returns the max
-    abs difference; raises on a larger one or on a flag still raised."""
+    single-device renderer's on `device` (within 1e-3). `timeout` bounds
+    the ranks' run (`collectives.run_ranks`). Returns the max abs
+    difference; raises on a larger one or on a flag still raised."""
     import dataclasses
 
     import jello_tpu_torch as jt
@@ -539,7 +541,8 @@ def dryrun(n, device="cuda", backend="nccl", full_profile=False, image_tap=False
     inputs = frame_inputs(scene, params)
     job = (make_sharded_render, inputs, sharded_caps(r._caps, inputs, aa, image_tap),
            {"max_retries": MAX_RETRIES})
-    fine_out, flags, _ = run_ranks(rank_frames, n, backend, device, ([job],))[0][0]
+    fine_out, flags, _ = run_ranks(rank_frames, n, backend, device, ([job],),
+                                   timeout=timeout)[0][0]
     raised = [k for k, v in flags.items() if v]
     err = float(np.abs(assemble(fine_out, inputs[1]).numpy() - ref).max())
     if raised or not err < 1e-3:

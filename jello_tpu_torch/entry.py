@@ -34,16 +34,17 @@ def entry(device="cuda"):
     return fn, args
 
 
-def dryrun_multichip(n, device="cuda", backend="nccl"):
+def dryrun_multichip(n, device="cuda", backend="nccl", timeout=900.0):
     """Render the geometry-sharded dry run (`cuda/sharded2.py::dryrun`
     with its full-profile scene through the image tap) on n ranks, each
     in its own process, a raised flag retried with the ranks that raised
-    it grown; raises if a rank fails, a flag stays raised or the frame
-    leaves the single-device one (`__graft_entry__.py::dryrun_multichip`).
-    Several ranks on one card need backend "gloo"."""
+    it grown; raises if a rank fails, a flag stays raised, the ranks
+    outlive `timeout` seconds or the frame leaves the single-device one
+    (`__graft_entry__.py::dryrun_multichip`). Several ranks on one card
+    need backend "gloo"."""
     from .cuda.sharded2 import dryrun
 
-    err = dryrun(n, device, backend, full_profile=True, image_tap=True)
+    err = dryrun(n, device, backend, full_profile=True, image_tap=True, timeout=timeout)
     print(f"dryrun_multichip({n}, {device}, {backend}): ok, max abs difference from the "
           f"single-device frame {err:.2e}")
     return err

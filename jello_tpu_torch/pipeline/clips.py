@@ -12,8 +12,12 @@ cummax), and the stack-top bbox is the running intersection of the
 active begins' path bboxes over levels 0..L. One loop over depth levels,
 vectorized over all clip elements, replaces the sequential walk; its
 trip count is `clip_depth_cap`, the scene's deepest nesting rounded up to
-a power of two when the renderer supplies it, else MAX_CLIP_DEPTH (a
-level past the deepest begin matches none and changes nothing). The
+a power of two and at most MAX_CLIP_DEPTH when the renderer supplies it,
+else MAX_CLIP_DEPTH (a level past the deepest begin matches none and
+changes nothing). As in jello_tpu's walk, a begin nested deeper than
+MAX_CLIP_DEPTH keeps the unbounded box and its EndClip stays unpatched
+(jello_tpu's sequential `clip_leaf`, its numpy oracle's, clamps such a
+push at the top level instead, `jello_tpu/pipeline/clips.py:85`). The
 clip count is device data (`i < n_clips` masks, as `jello_tpu`'s
 `clips.py:119-122`); a clip-free frame's routing (`_coarse_dense`) skips
 the walk.

@@ -215,13 +215,20 @@ def coverage_rows_plain(stream, row_start, row_end, row_bd, offsets=None, row_eo
     seg_row = ops.cummax(marks)
     inside = (seg_row >= 0) & (pos < ops.gather_guarded(row_end, seg_row))
     idx = torch.where(inside, seg_row, R).to(I64)
+    # Segments past the last row's end add into the dropped row R only,
+    # so the sums stop there (the same sums, bit for bit). Reading that
+    # bound waits for the device's queue; no frame runs this version on
+    # a GPU tensor (`cuda/coverage.py` launches the kernel there), and
+    # `composite_records_plain` skips its padding the same way.
+    used = int(torch.where(row_end > row_start, row_end, 0).amax()) if R else 0
 
     def row_sums(contrib_fn):
         out = torch.zeros((R + 1, 256), dtype=F32, device=dev)
-        for s in range(0, SC, _SEG_BLOCK):
-            blk = stream[s:s + _SEG_BLOCK]
+        for s in range(0, used, _SEG_BLOCK):
+            e = min(s + _SEG_BLOCK, used)
+            blk = stream[s:e]
             contrib = contrib_fn(blk[:, 0], blk[:, 1], blk[:, 2], blk[:, 3], blk[:, 4])
-            out.index_add_(0, idx[s:s + _SEG_BLOCK], contrib * blk[:, 5:6])
+            out.index_add_(0, idx[s:e], contrib * blk[:, 5:6])
         return out[:R] + row_bd[:, None]
 
     if offsets is None:

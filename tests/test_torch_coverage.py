@@ -112,6 +112,40 @@ def test_torch_coverage_rows_plain_row_ranges():
         assert torch.allclose(got[r], want, atol=1e-5), r
 
 
+def _bits(x):
+    return x.view(torch.int32)  # -0 and +0 differ, as do NaNs
+
+
+@pytest.mark.parametrize("aa", ["area", "msaa8", "msaa16"])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_torch_coverage_rows_plain_stops_at_the_last_row_bit_for_bit(name, aa):
+    """`coverage_rows_plain` stops its sums at the last row's end, before
+    the class's padding. Held to the walk of the whole stream, which one
+    more segment and a row reading it force (every other row sums the
+    same segments in the same order), bit for bit; and so on a stream
+    whose rows are all empty, which sums nothing."""
+    _, cmds, counted, caps = _inputs(name)
+    stream, rs, re_, bd, eo, _, _ = cov.slot_rank_rows(cmds, counted, dict(caps, aa_mode=aa))
+    offsets = cov.sample_offsets(aa)
+
+    def rows(stream, rs, re_, bd, eo):
+        return cov.coverage_rows_plain(stream, rs, re_, bd,
+                                       *(() if offsets is None else (offsets, eo)))
+
+    def whole(stream, rs, re_, bd, eo):
+        at = torch.tensor([stream.shape[0]], dtype=rs.dtype)
+        return rows(torch.cat([stream, stream[:1]]), torch.cat([rs, at]), torch.cat([re_, at + 1]),
+                    torch.cat([bd, bd[:1]]), None if eo is None else torch.cat([eo, eo[:1]]))
+
+    R = rs.shape[0]
+    assert int(torch.where(re_ > rs, re_, 0).amax()) < stream.shape[0]  # padding to skip
+    got = rows(stream, rs, re_, bd, eo)
+    assert torch.equal(_bits(got), _bits(whole(stream, rs, re_, bd, eo)[:R]))
+    empty = rows(stream, rs, rs, bd, eo)
+    assert not torch.equal(got, empty)
+    assert torch.equal(_bits(empty), _bits(whole(stream, rs, rs, bd, eo)[:R]))
+
+
 def _area_numpy(seg, dtype, regrouped):
     """The area formula on vertical-edge segments [n, 5] in `dtype`, the
     numerator summed as jello_tpu's kernels do (b + (d^2 - c^2)/2 - xmin)

@@ -15,7 +15,13 @@ from jello_tpu_torch.cuda.render import assemble
 from jello_tpu_torch.entry import dryrun_multichip, entry
 from jello_tpu_torch.scenes import config1
 
+from .torch_reference import child_env
+
 REPO = Path(__file__).resolve().parent.parent
+# Limits of about three times what each takes in the suite (8.8 s and
+# 7.9 s on an 8-core machine under six workers).
+DEMO_TIMEOUT = 30
+DRYRUN_TIMEOUT = 30.0
 
 
 def test_torch_entry_frame_is_the_renderers():
@@ -32,7 +38,7 @@ def test_torch_demo_writes_a_ppm_on_the_cpu(tmp_path):
     out = tmp_path / "demo.ppm"
     res = subprocess.run([sys.executable, str(REPO / "examples" / "render_demo_torch.py"),
                           str(out), "--device", "cpu", "--size", "96"],
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=DEMO_TIMEOUT, env=child_env())
     assert res.returncode == 0, res.stderr
     data = out.read_bytes()
     header = b"P6 96 96 255\n"
@@ -42,4 +48,4 @@ def test_torch_demo_writes_a_ppm_on_the_cpu(tmp_path):
 
 
 def test_torch_dryrun_multichip_two_ranks_over_gloo():
-    assert dryrun_multichip(2, device="cpu", backend="gloo") < 1e-3
+    assert dryrun_multichip(2, device="cpu", backend="gloo", timeout=DRYRUN_TIMEOUT) < 1e-3

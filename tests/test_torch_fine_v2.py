@@ -13,6 +13,7 @@ from jello_tpu.cpu import render_numpy
 from jello_tpu.pipeline import coverage as np_cov
 from jello_tpu.renderer.params import RenderParams
 
+from jello_tpu_torch.cuda import fine_v2 as fv
 from jello_tpu_torch.cuda.fine_v2 import (
     assemble_compact,
     build_records,
@@ -171,6 +172,52 @@ def test_torch_fine_plain_resolved_matches_oracle(name, aa):
     img, _ = check_msaa_frame(_port_fine, built)
     params_area = CASES[name]()[1]
     assert np.abs(img - _port_fine(scene, params_area)).max() > 0.05
+
+
+def _bits(x):
+    return x.view(torch.int32)  # -0 and +0 differ, as do NaNs
+
+
+@pytest.mark.parametrize("aa", ["area", "msaa8", "msaa16"])
+@pytest.mark.parametrize("name", ["solid_rules", "grad_reflect"])
+def test_torch_fine_plain_skips_the_padding_bit_for_bit(name, aa, monkeypatch):
+    """`composite_records_plain` paints and scans only the records before
+    the class's padding. Held, on a frame's records, to the scan of every
+    record, which one more record in range at the end forces (a record's
+    output reads only the records before it), bit for bit; so on the
+    stream cut after its last record in range (the last record valid);
+    and so on the records all out of range, a stream that is all
+    padding."""
+    calls = []
+    plain = fv.composite_records_plain
+    monkeypatch.setattr(fv, "composite_records_plain",
+                        lambda *a: calls.append(a) or plain(*a))
+    scene, params = CASES[name]()
+    params.antialiasing_method = jt.AaConfig(aa)
+    _port_fine(scene, params)
+    assert calls
+    for rec, cov, *rest in calls:
+        PC, n_tiles = rec.shape[0], rest[2].shape[0]
+        tile = rec[:, 3]
+        assert not bool(((tile >= 0) & (tile < n_tiles))[-1])  # padding to skip
+        first = int(torch.nonzero((tile >= 0) & (tile < n_tiles))[0, 0])
+
+        def whole(rec):
+            more = rec[first:first + 1].clone()
+            more[:, 3] = n_tiles - 1
+            return plain(torch.cat([rec, more]), torch.cat([cov[:PC], cov[first:first + 1]]),
+                         *rest)[:PC]
+
+        got = plain(rec, cov, *rest)
+        assert torch.equal(_bits(got), _bits(whole(rec)))
+        # Cut after the last record in range: no padding, the last tile's
+        # run painted and scanned as before.
+        m = int(torch.nonzero((tile >= 0) & (tile < n_tiles))[-1, 0]) + 1
+        assert torch.equal(_bits(plain(rec[:m], cov[:m], *rest)), _bits(got[:m]))
+        padding = rec.clone()
+        padding[:, 3] = n_tiles
+        assert not torch.equal(got, plain(padding, cov, *rest))
+        assert torch.equal(_bits(plain(padding, cov, *rest)), _bits(whole(padding)))
 
 
 def test_torch_fine_resolved_switch_clips_rows_and_applies_no_rule():

@@ -64,7 +64,7 @@ def _thirty_stops(jt):
     return s, jt.RenderParams(width=128, height=128, base_color=jt.Color.rgba(0, 0, 0, 0))
 
 
-# Config 2 is held in tests/test_torch_config2.py, which builds it once for
+# Config 2 is held in tests/test_torch_stroke.py, which builds it once for
 # the host comparison and the frame.
 SCENES = {
     "config1": _config(1), "config3": _config(3), "config4": _config(4),

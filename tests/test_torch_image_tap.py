@@ -9,6 +9,14 @@ numpy oracle within 8e-3, the tolerance of jello_tpu's own tap tests
 jello_tpu's own MSAA tap scene, under msaa8. (A frame whose image
 minifies past the tap's region windows renders through the reference
 fine stage: tests/test_torch_fine_ref.py.)
+
+Last, a cut of config 5 (300 of its 10,000 paths, at its full 1920x1080
+canvas) against the numpy oracle: long fills, thin round-capped strokes,
+even-odd glyphs, gradients and image paints in one frame, within 2e-3
+and with no flag. The oracle takes over a minute at this canvas; the test
+lives in this file of many tests because pytest-xdist's `--dist
+loadfile` hands files out by their test counts, most first, and a file
+of one long test would start last.
 """
 
 import numpy as np
@@ -381,3 +389,18 @@ def test_torch_image_frame_msaa_matches_oracle(aa):
     assert r.last_stats["img_recs"] > 0 and r.last_flags["image_region_overflow"] is False
     area, _, _ = check_frame(Renderer(device="cpu"), _dark_image_triangle, tol=FRAME_TOL)
     assert np.abs(img - area).max() > 0.05  # the scene tells the two modes apart
+
+
+def _config5_300(jt):
+    return jt.scenes.config5(n_paths=300)
+
+
+def test_torch_renderer_reduced_config5_matches_oracle():
+    import jello_tpu.scenes  # noqa: F401  (check_frame builds through both packages)
+    import jello_tpu_torch.scenes  # noqa: F401
+
+    r = Renderer(device="cpu")
+    check_frame(r, _config5_300)
+    assert r.last_stats["img_recs"] > 0 and r.last_stats["work_b"] > 0
+    assert r.last_stats["arc_lines"] > 0
+    assert r._caps["img_recs_cap"] >= r.last_stats["img_recs"]

@@ -343,7 +343,7 @@ def test_torch_frames_in_flight_of_two_layouts_on_one_program_each_equal_their_o
 @pytest.mark.parametrize("config", [1, 3, 4, 5])
 def test_torch_pack_layout_matches_jello_tpu(config):
     """The port's `pack_layout` equals jello_tpu's word for word on the gate
-    scenes (config 2 in tests/test_torch_config2.py, which builds it once),
+    scenes (config 2 in tests/test_torch_stroke.py, which builds it once),
     and `unpack_layout` reads back what jello_tpu's does."""
     import jello_tpu.scenes  # noqa: F401  (the gate scenes through jello_tpu)
 

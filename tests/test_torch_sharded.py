@@ -26,6 +26,7 @@ rounds tag slots up to 8,192, which would leave ranks 2 and 3 none.
 """
 
 import dataclasses
+import datetime
 import functools
 
 import numpy as np
@@ -66,6 +67,12 @@ TAG_SLOTS = 4096
 RTOL = ATOL = 1e-5  # lines fed the oracle's cbrt (tests/test_torch_stages.py)
 ORACLE_TOL = 8e-3  # the geometry-sharded frame vs the oracle (sharded2.py:576)
 FRAME_TOL = 1e-3  # a sharded frame vs a single-device one (sharded.py:250)
+# The limits of the waits, about three times what each takes in the suite
+# (an 8-core machine under six workers): the spawn of WORLD ranks that
+# renders every frame of FRAMES (the `world4` fixture, 40 s), and a
+# collective of an in-process group of one rank (none waits).
+SPAWN_TIMEOUT = 120.0
+GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 
 
 def fills900(jt):
@@ -187,7 +194,7 @@ def test_torch_flatten_shards_match_numpy(n):
 @pytest.mark.parametrize("config", [1, 3, 4, 5])
 def test_torch_shard_caps_match_jello_tpu(config):
     """shard_caps on a gate scene's estimated class equals jello_tpu's,
-    key for key (config 2 in tests/test_torch_config2.py, which builds it
+    key for key (config 2 in tests/test_torch_stroke.py, which builds it
     once)."""
     check_shard_caps(*GATE_SCENES[config]())
 
@@ -308,7 +315,8 @@ def world4():
     setups = {name: made[(build, aa)] for name, (build, aa, _, _) in FRAMES.items()}
     jobs = [(mod.make_sharded_render, setups[name][2], setups[name][3], opts)
             for name, (_, _, mod, opts) in FRAMES.items()]
-    per_rank = collectives.run_ranks(sharded.rank_frames, WORLD, "gloo", "cpu", (jobs,))
+    per_rank = collectives.run_ranks(sharded.rank_frames, WORLD, "gloo", "cpu", (jobs,),
+                                     timeout=SPAWN_TIMEOUT)
     return {name: (setups[name], [res[i] for res in per_rank])
             for i, name in enumerate(FRAMES)}
 
@@ -494,7 +502,7 @@ def _class_inputs():
 def test_torch_world_size_1_equals_single_device(tmp_path):
     """One rank, in this process: each path's frame is the single-device
     frame."""
-    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu") as g:
+    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu", GROUP_TIMEOUT) as g:
         for build, mod, opts in ((_dryrun, sharded, {"pallas_fine": True}),
                                  (_dryrun, sharded, {"pallas_fine": False}),
                                  (_full, sharded2, {})):

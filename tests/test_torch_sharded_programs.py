@@ -19,6 +19,7 @@ from jello_tpu_torch.cuda import collectives, sharded, sharded2
 from jello_tpu_torch.cuda.render import Renderer, assemble
 
 from .test_torch_frames import blobs
+from .test_torch_sharded import GROUP_TIMEOUT
 
 SINGLE_TOL = 1e-6  # tests/test_torch_sharded.py's world size 1
 
@@ -40,7 +41,7 @@ def test_torch_sharded_frames_are_programs_once_settled(tmp_path, path):
     class bit for bit and the single-device frame within 1e-6."""
     scene, params = sharded2.dryrun_scene(jello_tpu_torch, full_profile=path == "geometry")
     single, args, caps, ld = _setup(scene, params)
-    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu") as g:
+    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu", GROUP_TIMEOUT) as g:
         holder = (sharded2.RetryingRender(g) if path == "geometry"
                   else sharded.StripeFrames(g, path == "stripes_kernel"))
         assert not holder.capture
@@ -71,7 +72,7 @@ def test_torch_grown_geometry_class_builds_a_program_of_its_own(tmp_path):
     grown, _ = blobs(jello_tpu_torch, 25.0)
     _, args, caps, _ = _setup(small, params)
     single_g, args_g, _, ld_g = _setup(grown, params)
-    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu") as g:
+    with collectives.init_group(0, 1, "gloo", tmp_path / "store", "cpu", GROUP_TIMEOUT) as g:
         holder = sharded2.RetryingRender(g)
         for _ in range(2):
             holder(caps, *args)
@@ -101,7 +102,7 @@ def test_torch_sharded_programs_over_nccl_on_the_card(cuda, tmp_path):
     """Over NCCL on the card each path's program is a CUDA graph with its
     collectives inside: the replay equals the eager frame at the class bit
     for bit, and the frame the single-device CPU frame within 1e-3."""
-    with collectives.init_group(0, 1, "nccl", tmp_path / "store", "cuda") as g:
+    with collectives.init_group(0, 1, "nccl", tmp_path / "store", "cuda", GROUP_TIMEOUT) as g:
         for path in ("stripes_kernel", "stripes_fine_ref", "geometry"):
             scene, params = sharded2.dryrun_scene(jello_tpu_torch,
                                                   full_profile=path == "geometry")

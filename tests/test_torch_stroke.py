@@ -6,7 +6,17 @@ against jello_tpu's stage under numpy on the same inputs: line counts
 and every integer field equal, end points within 1e-5 when the port is
 fed the oracle's cbrt values (as in test_torch_stages.py; with its own
 cbrt they move by up to 2e-3 px). Then stroked frames against the numpy
-oracle within 2e-3 (config 2's is in test_torch_config2.py).
+oracle within 2e-3.
+
+Config 2 (100 stroked cubic chains with every cap and join, dashes on one
+in four, 512x512): the host half and the packed layout against
+jello_tpu's, the sharded class against jello_tpu's, and the frame
+against the numpy oracle within 2e-3. The scene is built once per
+package and shared (`torch_reference.config2_both`): its dashes are
+flattened in Python on the host, tens of seconds a build. Its tests live
+in this file, which holds many, because pytest-xdist's `--dist loadfile`
+hands files out in the order of their test counts, most first: a file of
+four tests and minutes of work would start last and end the run late.
 """
 
 import numpy as np
@@ -22,7 +32,10 @@ from jello_tpu_torch.cuda import Renderer
 from jello_tpu_torch.cuda.render import upload
 from jello_tpu_torch.pipeline import flatten
 
-from .torch_reference import as_np, check_frame, prepare, u32
+from .test_torch_host import check_host_half
+from .test_torch_program import check_pack_layout
+from .test_torch_sharded import check_shard_caps
+from .torch_reference import as_np, check_frame, config2_both, prepare, u32
 
 ATOL = 1e-5
 FRAME_TOL = 2e-3
@@ -120,3 +133,26 @@ def test_torch_stroke_frame_matches_oracle(name):
     r = Renderer(device="cpu")
     check_frame(r, SCENES[name], tol=FRAME_TOL)
     assert r.last_stats["work_b"] > 0
+
+
+def test_torch_config2_host_half_matches_jello_tpu():
+    check_host_half(*config2_both())
+
+
+def test_torch_config2_frame_matches_oracle():
+    r = Renderer(device="cpu")
+    check_frame(r, config2_both, tol=2e-3)
+    assert r.last_stats["work_b"] > 0 and r.last_stats["arc_lines"] > 0
+    assert r.last_stats["simple_lines"] > 0  # the dashes' line segments
+
+
+def test_torch_config2_pack_layout_matches_jello_tpu():
+    """The packed layout of config 2 equals jello_tpu's word for word (the
+    other gate scenes: tests/test_torch_program.py)."""
+    check_pack_layout(*config2_both())
+
+
+def test_torch_config2_shard_caps_match_jello_tpu():
+    """`cuda/sharded2.py::shard_caps` on config 2's estimated class equals
+    jello_tpu's (the other gate scenes: tests/test_torch_sharded.py)."""
+    check_shard_caps(*config2_both()[1])

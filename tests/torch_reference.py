@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 
 import numpy as np
 import torch
@@ -29,7 +30,14 @@ from jello_tpu.renderer.resolve import Resolver
 
 # The suite runs in several worker processes at once; torch's default of
 # one intra-op thread per core in each of them oversubscribes the cores.
-torch.set_num_threads(min(torch.get_num_threads(), 2))
+THREADS = 2
+torch.set_num_threads(min(torch.get_num_threads(), THREADS))
+
+
+def child_env():
+    """The environment of a subprocess a test starts: the worker's thread
+    budget holds there too."""
+    return dict(os.environ, OMP_NUM_THREADS=str(THREADS), MKL_NUM_THREADS=str(THREADS))
 
 
 def both(build, *args, **kw):
