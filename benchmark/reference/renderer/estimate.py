@@ -1,0 +1,412 @@
+"""Capacity class estimation (the role of renderer/estimate.go).
+
+The reference computes Wang-formula bump estimates during scene
+construction but never wires them into buffer sizing (SURVEY §2,
+estimate.go); buffers are fixed "hand picked" powers of two. The TPU
+build needs static shapes per compiled size class, so we:
+
+  1. derive cheap stream-based lower bounds from the encoding,
+  2. bucket every capacity to a power of two (few recompiles),
+  3. rely on device-side overflow flags + host retry-with-doubling for
+     the rare underestimate (the reference's bump-failure protocol made
+     into an actual retry loop).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+def _pow2(n: int, lo: int) -> int:
+    v = max(int(n), lo, 1)
+    p = 1
+    while p < v:
+        p <<= 1
+    return p
+
+
+def _bucket(n: int, lo: int, q: int = 8192) -> int:
+    """Round up to a multiple of q (finer-grained than powers of two;
+    expansion stages process the full capacity, so cap slack is wasted
+    work). Compiled-class churn is bounded by the retry protocol."""
+    v = max(int(n), lo, 1)
+    return -(-v // q) * q
+
+
+def estimate_caps(layout, width: int, height: int, base=None) -> dict:
+    """Initial capacity class for a resolved encoding."""
+    caps = dict(base) if base else {}
+    n_tags = layout.n_path_tags
+    n_paths = max(layout.n_paths, 1)
+    n_draws = max(layout.n_draw_objects, 1)
+    n_clips = max(layout.n_clips, 1)
+    wit = (width + 15) // 16
+    hit = (height + 15) // 16
+    grid = wit * hit
+
+    n_slots = _pow2(((n_tags + 1023) // 1024) * 1024, 1024)
+    euler = _pow2(n_tags * 8, 1 << 12)
+    simple = _pow2(n_tags, 1 << 10)
+    arc = _pow2(n_tags * 4, 1 << 10)
+    caps.setdefault("max_iters", 32)
+    caps.setdefault("work_a_cap", max(_pow2(n_tags + 1, 256), caps.get("work_a_cap", 0)))
+    caps.setdefault("work_b_cap", max(_pow2(n_tags + 1, 256), caps.get("work_b_cap", 0)))
+    caps.setdefault("blend_depth", 8)
+    caps.setdefault("fine_seg_chunk", 8)
+    caps.setdefault("cmds_per_tile", 64)
+    caps.setdefault("legacy_tiles_cap", 2048)
+    caps.setdefault("img_recs_cap", 1024)
+    caps.update(
+        n_tag_slots=max(n_slots, caps.get("n_tag_slots", 0)),
+        euler_line_cap=max(euler, caps.get("euler_line_cap", 0)),
+        simple_line_cap=max(simple, caps.get("simple_line_cap", 0)),
+        arc_line_cap=max(arc, caps.get("arc_line_cap", 0)),
+        n_paths_cap=max(_pow2(n_paths, 64), caps.get("n_paths_cap", 0)),
+        n_draws_cap=max(_pow2(n_draws, 64), caps.get("n_draws_cap", 0)),
+        n_clips_cap=max(_pow2(n_clips, 16), caps.get("n_clips_cap", 0)),
+        info_cap=max(_pow2(n_draws * 10 + 16, 1 << 10), caps.get("info_cap", 0)),
+        tiles_cap=max(_pow2(4 * grid + 8 * n_draws, 1 << 12), caps.get("tiles_cap", 0)),
+        seg_cap=max(_pow2(n_tags * 32, 1 << 14), caps.get("seg_cap", 0)),
+        row_cap=max(_pow2(n_tags * 16, 1 << 12), caps.get("row_cap", 0)),
+        pair_cap=max(_pow2(4 * grid + 8 * n_draws, 1 << 12), caps.get("pair_cap", 0)),
+        tile_grid_cap=max(_pow2(grid, 256), caps.get("tile_grid_cap", 0)),
+        area_rows_cap=max(
+            _pow2(2 * grid + 8 * n_draws, 1 << 12), caps.get("area_rows_cap", 0)
+        ),
+    )
+    caps["line_cap"] = max(
+        _pow2(caps["euler_line_cap"] + caps["simple_line_cap"] + caps["arc_line_cap"], 1),
+        caps.get("line_cap", 0),
+    )
+    _apply_expand_floors(caps)
+    return caps
+
+
+def estimate_caps_from_scene(scene_u32, layout, width: int, height: int,
+                             base=None, floors: bool = True):
+    """Wang-formula capacity estimation from the resolved scene
+    (reference: renderer/estimate.go — which the reference computes but
+    never wires into buffer sizing; here it actually sizes the class).
+
+    Vectorized numpy decode of the packed streams: per segment, Wang's
+    formula bounds the flattened line count (estimate.go:368-384), arc
+    counts bound round caps/joins, and approximate arclengths bound the
+    tile-crossing count (estimate.go:305-330). Results carry a safety
+    factor; underestimates are caught by device overflow flags + retry.
+    """
+    import numpy as np
+
+    from ..encoding.path import (
+        FLAGS_CAP_BITS_ROUND,
+        FLAGS_END_CAP_MASK,
+        FLAGS_JOIN_BITS_ROUND,
+        FLAGS_JOIN_MASK,
+        FLAGS_START_CAP_MASK,
+        FLAGS_STYLE_BIT,
+    )
+    from ..pipeline import flatten as fmod
+    from ..pipeline import ops as pops
+
+    caps = dict(base) if base else {}
+    n_tags = layout.n_path_tags
+    N = ((n_tags + 1023) // 1024) * 1024
+    ld = {
+        "path_tag_base": np.int32(layout.path_tag_base),
+        "path_data_base": np.int32(layout.path_data_base),
+        "style_base": np.int32(layout.style_base),
+        "transform_base": np.int32(layout.transform_base),
+        "n_path_tags": np.int32(layout.n_path_tags),
+    }
+    tags = fmod.decode_tag_stream(np, scene_u32, ld["path_tag_base"], N)
+    mono = fmod.exclusive_monoids(np, tags)
+    active = np.arange(N) < n_tags
+    style_idx = (mono["style_idx"] - 2).astype(np.uint32)
+    trans_idx = (mono["trans_idx"] - 1).astype(np.uint32)
+    style_flags = pops.gather_guarded(
+        np, scene_u32, ld["style_base"] + style_idx.astype(np.int64)
+    )
+    linewidth = pops.bitcast_u32_f32(
+        np,
+        pops.gather_guarded(
+            np, scene_u32, ld["style_base"] + style_idx.astype(np.int64) + 1
+        ),
+    )
+    base_words = ld["path_data_base"] + mono["path_seg_offset"].astype(np.int64)
+    raw = fmod._read_points(np, scene_u32, base_words, tags)
+    P, seg_type, is_marker, is_open = fmod._normalize_segment(
+        np, raw[:8], raw[8], tags, (style_flags & np.uint32(FLAGS_STYLE_BIT)) != 0
+    )
+    seg = active & (raw[8] != 0)
+    is_stroke = seg & ((style_flags & np.uint32(FLAGS_STYLE_BIT)) != 0)
+    T = fmod._transform_read(np, scene_u32, ld["transform_base"], trans_idx)
+
+    # Wang's formula for cubics under the transform.
+    v1x = P[2] * -2 + P[0] + P[4]
+    v1y = P[3] * -2 + P[1] + P[5]
+    v2x = P[4] * -2 + P[2] + P[6]
+    v2y = P[5] * -2 + P[3] + P[7]
+
+    def txv(x, y):  # transform a vector (no translation)
+        return T[0] * x + T[2] * y, T[1] * x + T[3] * y
+
+    w1x, w1y = txv(v1x, v1y)
+    w2x, w2y = txv(v2x, v2y)
+    m = np.maximum(np.hypot(w1x, w1y), np.hypot(w2x, w2y))
+    rsqrt_tol = 1.0 / np.sqrt(0.25)
+    wang = np.ceil(0.86602540378 * np.sqrt(m) * rsqrt_tol)
+    wang = np.maximum(np.where(seg, wang, 0.0), np.where(seg, 1.0, 0.0))
+
+    regular_stroke = is_stroke & ~is_marker
+    lines_per_seg = np.where(is_stroke, 2.0 * wang, wang)
+    euler_lines = float(np.sum(np.where(seg & ~(is_stroke & is_marker), lines_per_seg, 0.0)))
+
+    # Round join/cap arcs: n <= angle / (2 acos(1 - tol/r)).
+    offs = 0.5 * linewidth
+    sx = np.hypot(T[0], T[1])
+    sy = np.hypot(T[2], T[3])
+    r_dev = np.maximum(offs * np.maximum(sx, sy), 0.25)
+    theta = np.maximum(2.0 * np.arccos(np.clip(1.0 - 0.25 / r_dev, -1, 1)), 1e-4)
+    narc = np.ceil(np.pi / theta) + 1.0
+    has_round_join = regular_stroke & (
+        (style_flags & np.uint32(FLAGS_JOIN_MASK)) == FLAGS_JOIN_BITS_ROUND
+    )
+    has_round_cap = (
+        ((style_flags & np.uint32(FLAGS_START_CAP_MASK)) >> 2 == FLAGS_CAP_BITS_ROUND)
+        | ((style_flags & np.uint32(FLAGS_END_CAP_MASK)) == FLAGS_CAP_BITS_ROUND)
+    ) & is_stroke & seg
+    arc_lines = float(np.sum(np.where(has_round_join | has_round_cap, narc, 0.0)))
+    simple_lines = float(np.sum(np.where(is_stroke & seg, 3.0, 0.0)))
+
+    # Tile crossings: each flattened line of length ~arclen/n crosses
+    # ~ceil(len * 0.0625 * sqrt2) tiles (estimate.go:327-330).
+    c0x, c0y = fmod._apply_transform(T, P[0], P[1])
+    c1x, c1y = fmod._apply_transform(T, P[2], P[3])
+    c2x, c2y = fmod._apply_transform(T, P[4], P[5])
+    c3x, c3y = fmod._apply_transform(T, P[6], P[7])
+    chord = np.hypot(c3x - c0x, c3y - c0y)
+    poly = (
+        np.hypot(c1x - c0x, c1y - c0y)
+        + np.hypot(c2x - c1x, c2y - c1y)
+        + np.hypot(c3x - c2x, c3y - c2y)
+    )
+    arclen = 0.5 * (chord + poly) + 2.0 * r_dev * is_stroke
+    safe_n = np.maximum(lines_per_seg, 1.0)
+    per_line = np.maximum(np.ceil(arclen / safe_n * 0.0625 * 1.41421356), 1.0)
+    crossings = float(
+        np.sum(np.where(seg, lines_per_seg * per_line + narc * (has_round_join | has_round_cap), 0.0))
+    )
+
+    # Viewport-clamped per-path tile rect areas (for tiles/pairs).
+    n_paths = max(layout.n_paths, 1)
+    pidx = mono["path_idx"].astype(np.int64)
+    allx = np.stack([c0x, c1x, c2x, c3x])
+    ally = np.stack([c0y, c1y, c2y, c3y])
+    bx0 = np.where(seg, allx.min(0) - r_dev, 1e9)
+    bx1 = np.where(seg, allx.max(0) + r_dev, -1e9)
+    by0 = np.where(seg, ally.min(0) - r_dev, 1e9)
+    by1 = np.where(seg, ally.max(0) + r_dev, -1e9)
+    px0 = np.full(n_paths + 1, 1e9, np.float32)
+    px1 = np.full(n_paths + 1, -1e9, np.float32)
+    py0 = np.full(n_paths + 1, 1e9, np.float32)
+    py1 = np.full(n_paths + 1, -1e9, np.float32)
+    np.minimum.at(px0, np.minimum(pidx, n_paths), bx0)
+    np.maximum.at(px1, np.minimum(pidx, n_paths), bx1)
+    np.minimum.at(py0, np.minimum(pidx, n_paths), by0)
+    np.maximum.at(py1, np.minimum(pidx, n_paths), by1)
+    wit = (width + 15) // 16
+    hit = (height + 15) // 16
+    tx0 = np.clip(np.floor(px0 / 16.0), 0, wit)
+    tx1 = np.clip(np.ceil(px1 / 16.0), 0, wit)
+    ty0 = np.clip(np.floor(py0 / 16.0), 0, hit)
+    ty1 = np.clip(np.ceil(py1 / 16.0), 0, hit)
+    areas = np.maximum(tx1 - tx0, 0) * np.maximum(ty1 - ty0, 0)
+    tiles = float(areas[:n_paths].sum())
+
+    SAFETY = 1.5
+    n_seg_slots = int(np.sum(seg & ~(is_stroke & is_marker)))
+    n_stroke_slots = int(np.sum(regular_stroke))
+    est = dict(
+        # n_path_tags is exact for this stream shape; no pow2 rounding.
+        n_tag_slots=_bucket(n_tags + 1, 1024, 8192),
+        work_a_cap=_bucket(n_seg_slots + 1, 256, 1024),
+        work_b_cap=_bucket(n_stroke_slots + 1, 256, 1024),
+        euler_line_cap=_bucket(int(euler_lines * SAFETY), 1 << 12),
+        simple_line_cap=_bucket(int(simple_lines * SAFETY), 1 << 10, 2048),
+        arc_line_cap=_bucket(int(arc_lines * SAFETY), 1 << 10, 2048),
+        # The Pallas expansions clamp per-record counts to >= 1 (window
+        # bound; tpu/expand_pallas.py), so every line owns a slot even
+        # when it produces no crossing/row: size for crossings + lines.
+        seg_cap=_bucket(
+            int(max((crossings + euler_lines + simple_lines + arc_lines)
+                    * SAFETY, 512)), 1 << 13),
+        row_cap=_bucket(
+            int(max((crossings + euler_lines + simple_lines + arc_lines)
+                    * SAFETY, 512)), 1 << 12),
+        tiles_cap=_bucket(int(tiles * SAFETY + 256), 1 << 12),
+        pair_cap=_bucket(int(tiles * SAFETY + 256), 1 << 12),
+        area_rows_cap=_bucket(int(min(crossings, tiles) * SAFETY + 256), 1 << 12),
+    )
+    # Start from the stream-based caps for the non-estimated fields,
+    # then *override* the estimated ones (the whole point is that the
+    # Wang-based numbers are tighter than the stream heuristics). Caps
+    # from a previous frame (`base`) only ever grow, so settled size
+    # classes stay settled.
+    caps = estimate_caps(layout, width, height, None)
+    caps.update(est)
+    if base:
+        for k, v in base.items():
+            if isinstance(v, int):
+                caps[k] = max(caps.get(k, 0), v)
+    caps["line_cap"] = (
+        caps["euler_line_cap"] + caps["simple_line_cap"] + caps["arc_line_cap"]
+    )
+    if base:
+        caps["line_cap"] = max(caps["line_cap"], base.get("line_cap", 0))
+    if floors:
+        # Device (Pallas) classes need the >=1-clamp slack floors.
+        # floors=False serves the HOST calibration pass: the numpy
+        # expansions don't clamp, and every gather/expansion there
+        # costs proportionally to its capacity (the fat floors made
+        # host calibration itself a multi-minute warmup item).
+        _apply_expand_floors(caps)
+    return caps
+
+
+def _apply_expand_floors(caps: dict) -> None:
+    """seg/row capacities must cover one clamped slot per *line-cap*
+    slot (incl. family padding) plus the real expansion outputs
+    (tpu/expand_pallas.py's count>=1 window bound). Pre-calibration
+    this is deliberately fat; the measured-use calibration replaces it
+    with exact totals."""
+    caps["euler_line_cap"] = _bucket(
+        caps["euler_line_cap"] + caps["work_a_cap"] + caps["work_b_cap"],
+        1, 8192,
+    )
+    caps["line_cap"] = (
+        caps["euler_line_cap"] + caps["simple_line_cap"] + caps["arc_line_cap"]
+    )
+    caps["seg_cap"] = _bucket(caps["line_cap"] + caps["seg_cap"], 1, 8192)
+    caps["row_cap"] = _bucket(caps["line_cap"] + caps["row_cap"], 1, 8192)
+    # Nonzero-count line compaction caps (tiling.py path_count): at
+    # most every line produces crossings/rows, so line_cap is the
+    # pre-calibration bound; the measured frame shrinks these to the
+    # actual nonzero-line counts.
+    caps["cross_lines_cap"] = max(
+        _bucket(caps["line_cap"], 1024), caps.get("cross_lines_cap", 0)
+    )
+    caps["row_lines_cap"] = max(
+        _bucket(caps["line_cap"], 1024), caps.get("row_lines_cap", 0)
+    )
+
+
+def calibrate_caps(caps: dict, stats: dict, margin: float = 1.15) -> dict:
+    """Shrink the capacity class to measured actual use (+margin).
+
+    `stats` holds the exact per-frame counters fetched from the device
+    (pipeline/render.py with_stats). The Wang-formula pre-estimates run
+    1.8-3.8x above actual on real scenes, and every expansion/sort/
+    gather in the frame costs proportionally to its capacity, so one
+    measured frame pays for itself immediately. The margin covers
+    animated scenes that keep the same stream shape but move geometry;
+    underestimates still hit the overflow-retry path.
+    """
+    out = dict(caps)
+
+    def m(v):
+        return int(int(v) * margin) + 1
+
+    out["work_a_cap"] = _bucket(m(stats["work_a"]), 256, 1024)
+    out["work_b_cap"] = _bucket(m(stats["work_b"]), 256, 1024)
+    # The Pallas expansions clamp counts to >= 1, so each stream's
+    # capacity covers the real outputs plus one slot per *input* slot
+    # of the calibrated class (capacity-aware floors: the stats above
+    # are capacity-independent actuals).
+    out["euler_line_cap"] = _bucket(
+        m(stats["euler_lines"]) + out["work_a_cap"] + out["work_b_cap"],
+        1 << 12,
+    )
+    out["simple_line_cap"] = _bucket(m(stats["simple_lines"]), 1 << 10, 2048)
+    out["arc_line_cap"] = _bucket(m(stats["arc_lines"]), 1 << 10, 2048)
+    out["line_cap"] = (
+        out["euler_line_cap"] + out["simple_line_cap"] + out["arc_line_cap"]
+    )
+    out["tiles_cap"] = _bucket(m(stats["tiles"]), 1 << 12)
+    # With the nonzero-line compaction (tiling.py) the streaming
+    # expansions no longer carry a clamped slot per line, so the
+    # seg/row capacities size to real crossings/rows only.
+    out["seg_cap"] = _bucket(m(stats["segs"]), 1 << 13)
+    out["row_cap"] = _bucket(m(stats["bd_rows"]), 1 << 12)
+    out["cross_lines_cap"] = _bucket(m(stats["cross_lines"]), 1024)
+    out["row_lines_cap"] = _bucket(m(stats["row_lines"]), 1024)
+    out["area_rows_cap"] = _bucket(m(stats["area_rows"]), 1 << 12)
+    out["pair_cap"] = _bucket(m(stats["pairs"]), 1 << 12)
+    # Sorted-stream live prefix (coarse.build_commands): excluded
+    # records sort to the tail, so the fine/coverage machinery only has
+    # to walk the included commands (+margin).
+    if "cmds" in stats:
+        out["cmd_cap"] = min(
+            out["pair_cap"], _bucket(m(stats["cmds"]), 1 << 12)
+        )
+    out["cmds_per_tile"] = max(_pow2(m(stats["max_cmds"]), 16), 16)
+    # Hybrid fine's interpreter grid: one Pallas program per tile that
+    # holds any clip/image command. Uncalibrated this defaults to 2048
+    # and the first device frame of a clip-heavy scene trips
+    # legacy_overflow -> a full recompile; the host stats pass counts
+    # the real number.
+    if "legacy_tiles" in stats:
+        out["legacy_tiles_cap"] = _bucket(m(stats["legacy_tiles"]), 256, 256)
+    # Image-tap kernel grid: one Pallas program per image record
+    # (tpu/image_tap.py).
+    if "img_recs" in stats:
+        out["img_recs_cap"] = _bucket(m(stats["img_recs"]), 256, 256)
+    # The lockstep walk kernel and the euler expansion's record scan
+    # are unrolled proportionally to max_iters; size it to the measured
+    # iteration requirement (host-calibration numpy pass reports the
+    # true count; the Pallas path reports its static IT, in which case
+    # this is a no-op). Aligned to 4 to bound compiled-class churn;
+    # depth growth on animated scenes re-enters via flatten_overflow.
+    it_need = int(stats.get("lockstep_iters", caps["max_iters"]))
+    if it_need < caps["max_iters"]:
+        out["max_iters"] = min(
+            caps["max_iters"], max(8, -(-int(it_need * 1.25) // 4) * 4)
+        )
+    return out
+
+
+# Which overflow flag grows which capacities on retry.
+GROW_ON_FLAG = {
+    "flatten_overflow": ("euler_line_cap", "simple_line_cap", "arc_line_cap", "line_cap", "max_iters"),
+    "tiles_overflow": ("tiles_cap",),
+    "segs_overflow": ("seg_cap", "row_cap", "cross_lines_cap", "row_lines_cap"),
+    "pairs_overflow": ("pair_cap", "cmd_cap"),
+    "blend_depth_overflow": ("blend_depth",),
+    "cmd_slab_overflow": ("cmds_per_tile",),
+    "area_rows_overflow": ("area_rows_cap",),
+    "legacy_overflow": ("legacy_tiles_cap",),
+    "img_recs_overflow": ("img_recs_cap",),
+}
+
+
+def grow_caps(caps: dict, flags: dict) -> dict:
+    """Double the capacities implicated by raised overflow flags."""
+    out = dict(caps)
+    for flag, keys in GROW_ON_FLAG.items():
+        if bool(flags.get(flag, False)):
+            for k in keys:
+                if k not in out:
+                    continue
+                if k == "max_iters":
+                    out[k] = min(out[k] * 2, 128)
+                else:
+                    out[k] = out[k] * 2
+    # line_cap is the exact family sum (the members are already
+    # bucketed). Re-inflating it to a power of two here doubled every
+    # line-array pass after ANY retry — e.g. a legacy_overflow retry
+    # (fine-only) used to balloon line_cap 1.07M -> 2.10M and with it
+    # all of path_count's prep cumsums/scatters.
+    out["line_cap"] = (
+        out["euler_line_cap"] + out["simple_line_cap"] + out["arc_line_cap"]
+    )
+    if "cmd_cap" in out:
+        out["cmd_cap"] = min(out["cmd_cap"], out["pair_cap"])
+    return out
