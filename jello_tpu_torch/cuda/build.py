@@ -100,6 +100,9 @@ SIGNATURES = {
     # which (0 scratch floats, 1 resident CTAs, 2, 3, 4 the shipped warps,
     # CTAs and levels), n, BD, warps, min CTAs, levels (a query)
     "jello_fine_interp_h_query": [I, I, I, I, I, I],
+    # slots [n] i64, slot, stream: the card's %globaltimer (ns) into
+    # slots[slot] (the stage clock's stamp, `profiler.named_scope`)
+    "jello_stamp": [P, I, P],
 }
 
 
@@ -203,12 +206,23 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def host_to_device(t, device):
-    """A host tensor on `device`. A CUDA copy goes from pinned memory and
-    does not make the host wait for the queue (a pageable copy would)."""
+def pinned(t, device):
+    """A host tensor made ready to copy to `device`: a copy in pinned
+    memory for a CUDA device, else t itself."""
+    import torch
+
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def copy_to(t, device):
+    """A `pinned` host tensor on `device`; a CUDA copy does not make the
+    host wait for the queue (a pageable copy would)."""
     import torch
 
     device = torch.device(device)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, non_blocking=device.type == "cuda")
+
+
+def host_to_device(t, device):
+    """A host tensor on `device` (`pinned`, then `copy_to`)."""
+    return copy_to(pinned(t, device), device)

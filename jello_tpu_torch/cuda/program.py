@@ -42,6 +42,12 @@ collectives on the card) or to run the function into the static outputs
 (gloo, which copies through the host, and the CPU). A capture that fails
 raises; nothing falls back to the eager frame. `Programs` keeps a
 caller's programs by key and logs each build.
+
+A frame's stage clock (`profiler.stage_clock`) is captured with it: its
+nine stamps are kernel nodes of the graph, so every replay stamps its own
+stages. The whole frame is captured on the one side stream `capture`
+opens (no stage launches on a stream of its own), so each stamp follows
+the work of the stage before it. `graph_ops` reads a graph's nodes back.
 """
 
 from __future__ import annotations
@@ -127,6 +133,58 @@ def capture(fn, args):
     torch.cuda.current_stream().wait_stream(stream)
     graph.instantiate()
     return graph, out
+
+
+def graph_ops(graph) -> dict:
+    """{device operation: nodes} of a captured CUDA graph (the
+    `torch.cuda.CUDAGraph` that `cuda/program.py::capture` keeps), read
+    from the graph itself through the CUDA driver API: a kernel node under
+    its function's demangled name (as torch.profiler names it), memcpy and
+    memset nodes together under "copies and memsets"; nodes that run
+    nothing (event records and waits, empty joins) are left out."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.restype = ctypes.c_void_p
+    cxx.__cxa_demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    libc = ctypes.CDLL("libc.so.6")
+    libc.free.argtypes = [ctypes.c_void_p]
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t()
+    check(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            params = (ctypes.c_void_p * 16)()  # CUDA_KERNEL_NODE_PARAMS_v2, func first
+            check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+                  "cuGraphKernelNodeGetParams")
+            name = ctypes.c_char_p()
+            check(cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])),
+                  "cuFuncGetName")
+            status = ctypes.c_int()
+            p = cxx.__cxa_demangle(name.value, None, None, ctypes.byref(status))
+            key = name.value.decode()
+            if status.value == 0 and p:
+                key = ctypes.string_at(p).decode()
+                libc.free(p)
+        elif kind.value in (1, 2):  # CU_GRAPH_NODE_TYPE_MEMCPY, _MEMSET
+            key = "copies and memsets"
+        else:
+            continue
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 class Captured:

@@ -30,7 +30,7 @@ geometry (`_get_present`). The scene
 words and the stop table's rows are padded to power-of-two size classes
 (`tpu/render.py:276-293`), so that scenes of one bucket share a program,
 and the stop table and atlas are uploaded again only when their content
-changes (`_cached_upload`, `tpu/render.py:510-523`). A frame rerouted to
+changes (`_upload`, `tpu/render.py:510-523`). A frame rerouted to
 the reference fine stage at a settled class is a program of its own too
 (jello_tpu runs that class's compiled program with `_no_pallas_fine`,
 `tpu/render.py:428-434`): its walk's two bounds (`pipeline/fine_ref.py`)
@@ -47,6 +47,15 @@ its pixels and packed flags come back in one asynchronous copy. Unlike
 jello_tpu, whose settled async frames read no flag, `Frame.result()`
 reads the frame's flags with its pixels, and on a raised flag grows the
 class and renders that frame again from the inputs it was enqueued with.
+
+The stage clock: on the card every frame, eager or replayed, stamps the
+card's clock at the entry of each pipeline stage and after the last
+(`frame`, `profiler.stage_clock`; nine one-thread kernels, graph nodes in
+a program), and the stamps come back with the frame's flags, in the read
+or the copy that brings those back: `last_stage_ms` of a checked frame,
+`Frame.stage_ms` of a frame in flight, and with a `profiler` a `device`
+span under the call's `enqueue` span. `counters` keeps running totals of
+calls, replays, eager frames, bytes uploaded and uploads skipped.
 
 Every single-device frame jello_tpu renders: fills and strokes with
 solid, gradient and image paints, clip layers and blend groups, under
@@ -80,7 +89,8 @@ from ..pipeline.clips import MAX_CLIP_DEPTH
 from ..pipeline.fine_ref import assemble_image
 from ..pipeline.gradient import stops_table_or_empty
 from ..pipeline.image_tap import atlas_planar
-from ..pipeline.render import pack_layout, render_frame, unpack_layout
+from ..pipeline.render import STAGES, pack_layout, render_frame, unpack_layout
+from ..profiler import device_result, stage_clock, stage_ms, stamp_buffer
 from ..renderer.atlas import build_image_atlas
 from ..renderer.estimate import (
     calibrate_caps,
@@ -90,7 +100,7 @@ from ..renderer.estimate import (
 )
 from ..renderer.params import RenderParams
 from ..renderer.resolve import Resolver
-from .build import host_to_device
+from .build import copy_to, host_to_device, pinned
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
 from .program import FrameProgram, Programs, caps_key, key_summary, map_tensors, program_key
@@ -212,13 +222,16 @@ def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
     return routing
 
 
-def pack_flags(flags: dict, stats: dict):
+def pack_flags(flags: dict, stats: dict, stamps=None):
     """A frame's flags and stats as one int32 vector on their device,
-    flags then stats, each in sorted key order (`tpu/render.py:114-121`).
+    flags then stats, each in sorted key order (`tpu/render.py:114-121`),
+    then the frame's stage clock (`stamps`, int64, as int32 pairs) if it
+    has one, so that one read brings both back.
     Returns (packed, flag keys, stat keys)."""
     fkeys, skeys = sorted(flags), sorted(stats)
     packed = torch.stack([flags[k].to(torch.int32).reshape(()) for k in fkeys]
-                         + [stats[k].to(torch.int32).reshape(()) for k in skeys])
+                         + [stats[k].to(torch.int32).reshape(()) for k in skeys]
+                         + ([] if stamps is None else list(stamps.view(torch.int32).unbind())))
     return packed, fkeys, skeys
 
 
@@ -230,20 +243,38 @@ def unpack_flags(values, fkeys, skeys):
             dict(zip(skeys, values[len(fkeys):])))
 
 
+def unpack_stamps(values, fkeys, skeys):
+    """The stage clock of a `pack_flags` vector's host values: its stamps
+    (ns on the card's clock) as ints, None for a frame that has none."""
+    tail = values[len(fkeys) + len(skeys):]
+    return np.asarray(tail, dtype=np.int32).view(np.int64).tolist() if tail else None
+
+
 def fetch_flags(packed, fkeys, skeys):
     """Read a `pack_flags` vector to the host (one copy; the host waits
     for the frame) -> (flags, stats)."""
-    return unpack_flags(packed.cpu().tolist(), fkeys, skeys)
+    return fetch_frame(packed, fkeys, skeys)[:2]
+
+
+def fetch_frame(packed, fkeys, skeys):
+    """`fetch_flags` with the frame's stamps (`unpack_stamps`), from the
+    same read -> (flags, stats, stamps)."""
+    values = packed.cpu().tolist()
+    return unpack_flags(values, fkeys, skeys) + (unpack_stamps(values, fkeys, skeys),)
 
 
 def frame(scene, layout, ramps, atlas, caps, fine_impl):
     """One frame as a program captures it: the packed layout unpacked
-    (`upload_layout`; views, no launch), `render_frame` and `pack_flags`
-    (the body of `tpu/render.py::_get_compiled`). Returns (fine output,
-    packed, (flag keys, stat keys))."""
-    fine_out, flags, stats = render_frame(scene, unpack_layout(layout), ramps, atlas, caps,
-                                          fine_impl)
-    packed, fkeys, skeys = pack_flags(flags, stats)
+    (`upload_layout`; views, no launch), `render_frame` under the stage
+    clock (on the card: a stamp at each stage's entry and one after the
+    last, `profiler.stage_clock`) and `pack_flags` (the body of
+    `tpu/render.py::_get_compiled`). Returns (fine output, packed flags,
+    stats and stamps, (flag keys, stat keys))."""
+    stamps = stamp_buffer(scene.device, len(STAGES) + 1)
+    with stage_clock(stamps, STAGES):
+        fine_out, flags, stats = render_frame(scene, unpack_layout(layout), ramps, atlas, caps,
+                                              fine_impl)
+    packed, fkeys, skeys = pack_flags(flags, stats, stamps)
     return fine_out, packed, (fkeys, skeys)
 
 
@@ -311,11 +342,23 @@ class Renderer:
         # its async frames are only enqueued.
         self._settled_key = None
         self._frame = None
-        # A `Profiler` (jello_tpu_torch.profiler): each render_surface and
-        # render_surface_async call is a group of it, with host spans for
-        # its parts (prepare, enqueue, flags, present, read, copy).
+        # A `Profiler` (jello_tpu_torch.profiler): each render call is a
+        # group of it, and each `Frame.result()` a `result` group, with
+        # host spans for their parts (module README: prepare and its
+        # resolve, layout and upload; enqueue and the frame's device times;
+        # flags, present, read, copy; wait, render_again).
         self.profiler = None
-        self._group = None
+        # The open groups of the current call, outermost first.
+        self._open: list = []
+        # The enqueue span of the last frame enqueued (None without a
+        # profiler): the frame's device times join it when read.
+        self._enqueue_span = None
+        # Running totals: render calls (`frames`, each call's index), the
+        # frames they enqueued as a program's replay or eagerly, the bytes
+        # copied to the device, and the stop tables and atlases whose
+        # upload the content digest skipped (`_upload`).
+        self.counters = {"frames": 0, "replays": 0, "eager": 0, "upload_bytes": 0,
+                         "uploads_skipped": 0}
         # jello_tpu's kill switch for the image tap (`tpu/render.py:58-65`),
         # read once: with JELLO_IMAGE_TAP=0 image paints take the
         # interpreter (kernel G).
@@ -324,6 +367,10 @@ class Renderer:
         # or an async frame): such a frame is never reported clean.
         self.last_flags: dict | None = {}
         self.last_stats: dict | None = {}
+        # The device ms by stage (`pipeline.render.STAGES`) of the last
+        # frame whose flags were read, from its stage clock; None for a
+        # frame with no clock (the CPU) and while flags are unread.
+        self.last_stage_ms: dict | None = None
         # What made each frame of the last render run again: the raised
         # flags of a grown class, ["calibrated"], or the reroute of an
         # `image_region_overflow` frame to the reference fine stage.
@@ -350,7 +397,7 @@ class Renderer:
         # {key of WALK_KEYS: bound}}.
         self._walks: dict = {}
         # {(kind, shape, dtype): (content digest, tensor on the device)}:
-        # `_cached_upload`.
+        # `_upload`.
         self._uploads: dict = {}
 
     @property
@@ -363,9 +410,10 @@ class Renderer:
 
     def render(self, scene, params: RenderParams, max_retries: int = 4) -> np.ndarray:
         """Render to a host [H, W, 4] float32 un-premultiplied image."""
-        prepared = self._prepare(scene, params)
-        fine_out = self._render_checked(prepared, params, max_retries)
-        return assemble(fine_out, output_layout(prepared[1], prepared[2][1])).cpu().numpy()
+        with self._call("render"):
+            prepared = self._prepare(scene, params)
+            fine_out = self._render_checked(prepared, params, max_retries)
+            return assemble(fine_out, output_layout(prepared[1], prepared[2][1])).cpu().numpy()
 
     def render_surface(self, scene, params: RenderParams, premul: bool = True,
                        srgb: bool = True, max_retries: int = 4) -> np.ndarray:
@@ -389,12 +437,13 @@ class Renderer:
         After that a call only enqueues: the frame, its present, and one
         asynchronous copy of the u8 surface and the packed flags into
         pinned host memory. The flags are read by `Frame.result()`."""
-        with self._call("render_surface_async"):
+        with self._call("render_surface_async") as index:
             prepared = self._prepare(scene, params)
-            unread = None
+            unread, span = None, None
             if self._settled_key == prepared[0] == self._est_key:
                 fine_out, unread = self._enqueue(prepared, params, self._caps)
-                self.last_flags = self.last_stats = None
+                span = self._enqueue_span
+                self.last_flags = self.last_stats = self.last_stage_ms = None
                 self.last_retries = []
             else:
                 fine_out = self._render_checked(prepared, params, max_retries)
@@ -402,7 +451,8 @@ class Renderer:
                 u8 = self._present(prepared, fine_out, premul, srgb)
             with self._span("copy"):
                 return Frame(self, prepared, params, dict(self._caps),
-                             (premul, srgb, max_retries), u8, unread, self.last_flags)
+                             (premul, srgb, max_retries), u8, unread, self.last_flags,
+                             index, span, self.last_stage_ms)
 
     def _present(self, prepared, fine_out, premul, srgb):
         """The u8 surface of a frame's fine output: through the present
@@ -419,24 +469,66 @@ class Renderer:
 
     @contextlib.contextmanager
     def _call(self, label):
-        """One call as a group of `profiler` (nothing without one), whose
-        parts `_span` times."""
+        """One render call: takes the next frame index (yielded), counts
+        it, and with a `profiler` is a group of it labeled `label` that
+        carries the index and the call's counts: `replayed` (whether the
+        frame it returns is a program's replay), `retries` (the length of
+        `last_retries`), `upload_bytes` and `uploads_skipped`."""
+        index = self.counters["frames"]
+        self.counters["frames"] += 1
+        before = dict(self.counters)
+        with self._group_of(label, index) as group:
+            yield index
+            if group is not None:
+                group.counts.update(
+                    replayed=int(self._program is not None), retries=len(self.last_retries),
+                    **{k: self.counters[k] - before[k] for k in ("upload_bytes",
+                                                                 "uploads_skipped")})
+
+    @contextlib.contextmanager
+    def _group_of(self, label, index):
+        """A top-level group of `profiler` for frame `index`, whose parts
+        `_span` times (yields None, and times nothing, without one)."""
         if self.profiler is None:
-            yield
+            yield None
             return
-        self._group = self.profiler.start(label)
+        outer = self._open
+        group = self.profiler.start(label, index)
+        self._open = [group]
         try:
-            yield
+            yield group
         finally:
-            self._group.end()
-            self._group = None
+            self._open = outer
+            group.end()
 
     def _span(self, label):
-        """A host span of the current `_call` group (none without one)."""
-        return contextlib.nullcontext() if self._group is None else self._group.nest(label)
+        """A host span nested in the innermost open span of the current
+        group (none without one); yields the span's group."""
+        return contextlib.nullcontext() if not self._open else self._nested(label)
+
+    @contextlib.contextmanager
+    def _nested(self, label):
+        group = self._open[-1].nest(label)
+        self._open.append(group)
+        try:
+            yield group
+        finally:
+            self._open.pop()
+            group.end()
+
+    def _read_clock(self, span, stamps):
+        """A checked frame's stamps, read with its flags: its device ms by
+        stage as `last_stage_ms`, and its `device` span under the enqueue
+        `span` that caused the work (with a profiler)."""
+        self.last_stage_ms = None if stamps is None else stage_ms(stamps, STAGES)
+        if span is not None and stamps is not None:
+            span.add(device_result(stamps, STAGES))
 
     def _prepare(self, scene, params):
-        """Resolve and upload (cached per scene revision and params)."""
+        """Resolve and upload (cached per scene revision and params), in
+        the spans `resolve`, `layout` (the layout dict, the estimate of a
+        new stream shape, the clip depth) and `upload` (the last scene's
+        frame released, then `_upload`)."""
         with self._span("prepare"):
             rev = getattr(scene, "_rev", None)
             key = None
@@ -446,50 +538,80 @@ class Renderer:
                 if self._frame is not None and self._frame[0] == key:
                     return self._frame[2]
             enc = scene.encoding if hasattr(scene, "encoding") else scene
-            layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
-            ld = build_layout_dict(layout, params)
-            est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
-                       params.width, params.height)
-            if self._est_key != est_key:
-                # A new stream shape starts from its own estimate, as
-                # jello_tpu's host calibration does: the class settled (or
-                # grown) for the previous shape says nothing about this one.
-                self._caps = estimate_caps_from_scene(
-                    scene_u32, layout, params.width, params.height)
-                self._est_key = est_key
-            # Size classes (`tpu/render.py:276-293`): the scene words padded
-            # with zeros to a power of two of at least 1024, the stop table
-            # to a power of two of rows.
+            with self._span("resolve"):
+                layout, ramps, images, scene_u32 = self._resolver.resolve(enc)
+            with self._span("layout"):
+                ld = build_layout_dict(layout, params)
+                est_key = (layout.n_path_tags, layout.n_paths, len(scene_u32),
+                           params.width, params.height)
+                if self._est_key != est_key:
+                    # A new stream shape starts from its own estimate, as
+                    # jello_tpu's host calibration does: the class settled
+                    # (or grown) for the previous shape says nothing about
+                    # this one.
+                    self._caps = estimate_caps_from_scene(
+                        scene_u32, layout, params.width, params.height)
+                    self._est_key = est_key
+                depth = clip_nesting_depth(scene_u32, layout)
+            with self._span("upload"):
+                with self._span("release"):
+                    # The last scene's uploaded frame goes before this one's
+                    # is made (and its Scene with it, once the caller has
+                    # let go of that).
+                    self._frame = None
+                inputs = self._upload(scene_u32, ld, ramps, images)
+            frame = (est_key, ld, inputs, depth)
+            if key is not None:
+                # Hold the scene so its id() stays unique while cached.
+                self._frame = (key, scene, frame)
+            return frame
+
+    def _upload(self, scene_u32, ld, ramps, images):
+        """A resolved scene's frame inputs on the device: (scene words,
+        packed layout, stop table, atlas or None), in the spans `pad`,
+        `digest`, `pin` and `copy` (after `_prepare`'s `release`).
+
+        Size classes (`tpu/render.py:276-293`): the scene words padded with
+        zeros to a power of two of at least 1024, the stop table to a power
+        of two of rows. The layout is the frame's data, one packed upload a
+        scene (`tpu/render.py:294`, `upload_layout`), not a part of its
+        program's key. The stop table and atlas are uploaded again only
+        when their content differs from the last of their kind, shape and
+        dtype (`tpu/render.py:510-523`; the digest is BLAKE2b's)."""
+        with self._span("pad"):
             words = np.zeros(_pow2(max(len(scene_u32), 1024)), dtype=np.uint32)
             words[:len(scene_u32)] = scene_u32
             stops = stops_table_or_empty(ramps)
             stops = np.concatenate([stops, np.zeros((_pow2(stops.shape[0]) - stops.shape[0],
                                                      stops.shape[1]), dtype=np.float32)])
             atlas = build_image_atlas(images)
-            # The layout is the frame's data, one packed upload a scene
-            # (`tpu/render.py:294`), not a part of its program's key.
-            inputs = (host_to_device(torch.from_numpy(words.view(np.int32)), self.device),
-                      upload_layout(ld, self.device), self._cached_upload("ramps", stops),
-                      None if atlas is None else self._cached_upload("atlas",
-                                                                     atlas_planar(atlas)))
-            frame = (est_key, ld, inputs, clip_nesting_depth(scene_u32, layout))
-            if key is not None:
-                # Hold the scene so its id() stays unique while cached.
-                self._frame = (key, scene, frame)
-            return frame
+            arrays = [words.view(np.int32), pack_layout(ld).view(np.int32), stops,
+                      None if atlas is None else atlas_planar(atlas)]
+        with self._span("digest"):
+            digests = {i: self._digest(kind, arrays[i])
+                       for i, kind in ((2, "ramps"), (3, "atlas")) if arrays[i] is not None}
+        kept = {i: d[2] for i, d in digests.items() if d[2] is not None}
+        with self._span("pin"):
+            host = {i: pinned(torch.from_numpy(np.ascontiguousarray(arr)), self.device)
+                    for i, arr in enumerate(arrays) if arr is not None and i not in kept}
+        with self._span("copy"):
+            out = {i: copy_to(t, self.device) for i, t in host.items()}
+        for i, (key, digest, _) in digests.items():
+            if i in out:
+                self._uploads[key] = (digest, out[i])
+        self.counters["upload_bytes"] += sum(t.nbytes for t in host.values())
+        self.counters["uploads_skipped"] += len(kept)
+        out.update(kept)
+        return tuple(out.get(i) for i in range(len(arrays)))
 
-    def _cached_upload(self, kind, arr):
-        """`arr` on the device, uploaded again only when its content
-        differs from the last array of its kind, shape and dtype
-        (`tpu/render.py:510-523`; the digest is BLAKE2b's)."""
+    def _digest(self, kind, arr):
+        """(key, BLAKE2b digest, the tensor on the device when the last
+        upload of `arr`'s kind, shape and dtype had that content, else
+        None) for a stop table or atlas."""
         key = (kind, arr.shape, str(arr.dtype))
         digest = hashlib.blake2b(np.ascontiguousarray(arr).data, digest_size=16).digest()
         kept = self._uploads.get(key)
-        if kept is not None and kept[0] == digest:
-            return kept[1]
-        t = host_to_device(torch.from_numpy(np.ascontiguousarray(arr)), self.device)
-        self._uploads[key] = (digest, t)
-        return t
+        return key, digest, kept[1] if kept is not None and kept[0] == digest else None
 
     def _route(self, prepared, params, caps, reroute=False):
         """A frame's class with its routing (`frame_routing`) and its fine
@@ -524,15 +646,18 @@ class Renderer:
         caps_f, fine_impl = self._route(prepared, params, caps, reroute)
         cls = self._class_of(prepared, params, caps)
         walk = self._walks.get(cls) if reroute else {}
-        with self._span("enqueue"):
+        with self._span("enqueue") as span:
+            self._enqueue_span = span
             if cls not in self._settled_classes or walk is None:
                 self._program = None
+                self.counters["eager"] += 1
                 fine_out, packed, keys = frame(*inputs, caps_f, fine_impl)
                 return fine_out, (packed,) + keys
             caps_f = dict(caps_f, **walk)
             key = program_key(inputs, caps_f, "fine_ref" if reroute else fine_impl.__name__)
             self._program = self._cache.get(key, lambda: FrameProgram(inputs, functools.partial(
                 frame, caps=caps_f, fine_impl=fine_impl)), key_summary(key))
+            self.counters["replays"] += 1
             fine_out, packed, keys = self._program.run(inputs)
             return fine_out, (packed,) + tuple(keys)
 
@@ -556,9 +681,11 @@ class Renderer:
         self.last_retries = []
         for _ in range(max_retries + 2):
             fine_out, packed = self._enqueue(prepared, params, caps, reroute)
+            span = self._enqueue_span
             with self._span("flags"):
-                flags, stats = fetch_flags(*packed)
+                flags, stats, stamps = fetch_frame(*packed)
             self.last_flags, self.last_stats = flags, stats
+            self._read_clock(span, stamps)
             raised = sorted(k for k, v in flags.items() if v)
             if raised:
                 self.flags_history.append(raised)
@@ -625,20 +752,23 @@ class Renderer:
 
         The fine output is the caller's: a frame of a program is copied
         out of the program's static outputs."""
-        prepared = self._prepare(scene, params)
-        if check_flags:
-            fine_out = self._render_checked(prepared, params, max_retries)
-        else:
-            fine_out, (packed, fkeys, skeys) = self._enqueue(prepared, params, self._caps)
-            keys = (tuple(fkeys), tuple(skeys))
-            kept = self.unread_flags.get(keys)
-            self.unread_flags[keys] = (packed.clone() if kept is None
-                                       else torch.maximum(kept, packed))
-            self.last_flags = self.last_stats = None
-            self.last_retries = []
-        if self._program is not None and fine_out is self._program.fine_out:
-            fine_out = map_tensors(fine_out, torch.clone)
-        return fine_out, prepared[1]
+        with self._call("render_device"):
+            prepared = self._prepare(scene, params)
+            if check_flags:
+                fine_out = self._render_checked(prepared, params, max_retries)
+            else:
+                fine_out, (packed, fkeys, skeys) = self._enqueue(prepared, params, self._caps)
+                keys = (tuple(fkeys), tuple(skeys))
+                # The flags and stats only: the stage clock is no flag.
+                packed = packed[:len(fkeys) + len(skeys)]
+                kept = self.unread_flags.get(keys)
+                self.unread_flags[keys] = (packed.clone() if kept is None
+                                           else torch.maximum(kept, packed))
+                self.last_flags = self.last_stats = self.last_stage_ms = None
+                self.last_retries = []
+            if self._program is not None and fine_out is self._program.fine_out:
+                fine_out = map_tensors(fine_out, torch.clone)
+            return fine_out, prepared[1]
 
     def read_flags(self) -> dict:
         """Read the flags of every frame rendered with check_flags=False
@@ -684,15 +814,22 @@ class Renderer:
 
 class Frame:
     """A frame in flight, from `Renderer.render_surface_async`: its u8
-    surface pixels and packed flags in one device buffer, copied to pinned
-    host memory behind a CUDA event (`tpu/render.py:526-547`; on the CPU
-    the frame is done when enqueued). `ready()` polls without blocking;
-    `result()` waits, reads the flags and, if one is raised, grows the
-    class and renders the frame again from the inputs it was enqueued with
-    (not from the Scene, which the caller may have changed since)."""
+    surface pixels and packed flags and stamps in one device buffer,
+    copied to pinned host memory behind a CUDA event (`tpu/render.py:
+    526-547`; on the CPU the frame is done when enqueued). `ready()` polls
+    without blocking; `result()` waits, reads the flags and the stage
+    clock and, if a flag is raised, grows the class and renders the frame
+    again from the inputs it was enqueued with (not from the Scene, which
+    the caller may have changed since). `index` is the frame index of the
+    call that made it, which its `result` group shares."""
 
-    def __init__(self, renderer, prepared, params, caps, present_args, u8, unread, flags):
+    def __init__(self, renderer, prepared, params, caps, present_args, u8, unread, flags,
+                 index=None, span=None, stage_times=None):
         self._renderer = renderer
+        self.index = index
+        # The call's enqueue span (with a profiler), which the frame's
+        # device times join when `result()` reads them.
+        self._span = span
         self._prepared = prepared
         self._params = params
         self._caps = caps
@@ -715,30 +852,43 @@ class Frame:
             buf = host
         self._host = buf
         self._pixels = None
-        # The frame's flags: read when the frame was rendered checked (the
-        # first of a shape), else None until `result()` reads them.
+        # The frame's flags, and its device ms by stage (None for a frame
+        # with no stage clock): read when the frame was rendered checked
+        # (the first of a shape), else None until `result()` reads them.
         self.flags = flags
+        self.stage_ms = stage_times
 
     def ready(self) -> bool:
         """Whether `result()` would not wait."""
         return self._pixels is not None or self._event is None or self._event.query()
 
     def result(self) -> np.ndarray:
-        """The frame's u8 [H, W, 4] surface pixels on the host."""
+        """The frame's u8 [H, W, 4] surface pixels on the host. With the
+        renderer's profiler, a `result` group of the frame's index, with
+        the spans `wait` and, for a frame rendered again, `render_again`."""
         if self._pixels is not None:
             return self._pixels
-        if self._event is not None:
-            self._event.synchronize()
-        pixels = self._host[:self._n].view(self._shape).numpy()
-        if self._keys is not None:
-            flags, _ = unpack_flags(self._host[self._n:].view(torch.int32).tolist(),
-                                    *self._keys)
-            self.flags = flags
-            if any(flags.values()):
-                r = self._renderer
-                premul, srgb, max_retries = self._present_args
-                fine_out = r._render_again(self._prepared, self._params, self._caps, flags,
-                                           max_retries)
-                pixels = r._present(self._prepared, fine_out, premul, srgb).cpu().numpy()
+        r = self._renderer
+        with r._group_of("result", self.index):
+            with r._span("wait"):
+                if self._event is not None:
+                    self._event.synchronize()
+            pixels = self._host[:self._n].view(self._shape).numpy()
+            if self._keys is not None:
+                values = self._host[self._n:].view(torch.int32).tolist()
+                flags, _ = unpack_flags(values, *self._keys)
+                stamps = unpack_stamps(values, *self._keys)
+                self.flags = flags
+                if stamps is not None:
+                    self.stage_ms = stage_ms(stamps, STAGES)
+                    if self._span is not None:
+                        self._span.add(device_result(stamps, STAGES))
+                if any(flags.values()):
+                    premul, srgb, max_retries = self._present_args
+                    with r._span("render_again"):
+                        fine_out = r._render_again(self._prepared, self._params, self._caps,
+                                                   flags, max_retries)
+                        pixels = r._present(self._prepared, fine_out, premul,
+                                            srgb).cpu().numpy()
         self._pixels = pixels
         return pixels

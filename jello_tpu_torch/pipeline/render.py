@@ -9,7 +9,9 @@ re-renders with a larger class.
 
 Stage order: flatten -> draw_leaf -> clip_leaf -> binning
 + tile_alloc -> path_count -> path_tiling -> coarse -> fine, each in a
-`profiler.named_scope` span of its name (`STAGES`).
+`profiler.named_scope` span of its name (`STAGES`), which also stamps
+the frame's stage clock where the caller set one (`profiler.stage_clock`,
+`cuda/render.py::frame`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from ..profiler import named_scope
 
 from . import clips, coarse, drawobjs, fine_ref, flatten, ops, tiling
 
-# The stage spans of a frame, in order (`xtrace.attribute` reads them).
+# The stage spans of a frame, in order (`xtrace.attribute` reads them; the
+# stage clock stamps at each one's entry and after the last).
 STAGES = ("flatten", "draw_leaf", "clip_leaf", "tile_alloc", "path_count", "path_tiling",
           "coarse", "fine")
 

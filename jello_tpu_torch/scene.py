@@ -19,6 +19,7 @@ from . import gfx
 from .curve import Affine, BezPath, LineTo, MoveTo, Pt, Rect, Stroke, dash
 from .encoding import Encoding, transform_from_affine
 from .gfx import BlendMode, Brush, Fill
+from .profiler import named_scope
 
 
 class Scene:
@@ -125,8 +126,9 @@ class Scene:
             self._encoding.encode_brush(brush, 1.0)
 
     def append(self, other: "Scene", transform: Affine):
-        self._rev += 1
-        self._encoding.append(other._encoding, transform_from_affine(transform))
+        with named_scope("jello.scene.append"):
+            self._rev += 1
+            self._encoding.append(other._encoding, transform_from_affine(transform))
 
     def apply_transform(self, transform: Affine):
         """Transform everything already drawn (e.g. HiDPI scaling)."""

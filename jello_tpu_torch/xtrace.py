@@ -21,8 +21,10 @@ Busy time is the union of the device events' intervals; the spans' own
 device-side annotation events are not device work and are left out (they
 cover whole stages).
 
-Used by `Profiler.device_trace(...)`/`collect()`
-(jello_tpu_torch/profiler.py) and by chip_smoke.py.
+Used by `Profiler.device_trace(...)` (jello_tpu_torch/profiler.py) and by
+chip_smoke.py. The device time of each stage of every frame, a replayed
+CUDA graph's too (whose launches all fall OUTSIDE the stage spans here),
+comes from the frames' own stage clock instead (`profiler.stage_clock`).
 """
 
 from __future__ import annotations
@@ -204,10 +206,3 @@ def attribute(logdir: str, frames: int = 1):
         "sites": per_frame(tab["sites"]),
     } for dev, tab in acc.items()}
 
-
-def stage_times(logdir: str, frames: int = 1) -> dict:
-    """Per-stage device ms/frame (first device)."""
-    tabs = attribute(logdir, frames)
-    for _, t in tabs.items():
-        return {k: v[0] for k, v in t["stages"].items()}
-    return {}

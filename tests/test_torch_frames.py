@@ -220,7 +220,8 @@ def test_torch_image_tap_off_routes_images_through_the_interpreter(monkeypatch):
 def test_torch_renderer_profiler_splits_a_call_into_host_spans():
     """`Renderer.profiler`: each render_surface and render_surface_async
     call is one group of host spans; a settled async call has no flags
-    span (it reads nothing) and a copy span (the Frame)."""
+    span (it reads nothing) and a copy span (the Frame), and its
+    `Frame.result()` is a `result` group of its own with a wait span."""
     from jello_tpu_torch.profiler import Profiler
 
     scene, params = GATE_SCENES[1]()
@@ -229,12 +230,13 @@ def test_torch_renderer_profiler_splits_a_call_into_host_spans():
     r.profiler = Profiler()
     r.render_surface(scene, params)
     r.render_surface_async(scene, params).result()
-    sync, flight = r.profiler.collect()
+    sync, flight, result = r.profiler.collect()
     assert sync.label == "render_surface" and flight.label == "render_surface_async"
     assert [c.label for c in sync.children] == ["prepare", "enqueue", "flags", "present", "read"]
     assert [c.label for c in flight.children] == ["prepare", "enqueue", "present", "copy"]
-    for res in (sync, flight):
+    assert result.label == "result" and [c.label for c in result.children] == ["wait"]
+    for res in (sync, flight, result):
         assert sum(c.duration for c in res.children) <= res.duration
     r.profiler = None
     r.render_surface(scene, params)
-    assert r._group is None
+    assert r._open == []

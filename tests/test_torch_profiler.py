@@ -1,5 +1,5 @@
 """Device-trace attribution of the port (jello_tpu_torch/xtrace.py and
-Profiler.device_trace/collect, jello_tpu_torch/profiler.py) on a
+Profiler.device_trace, jello_tpu_torch/profiler.py) on a
 synthetic Chrome-trace capture shaped as torch.profiler exports one from
 a CUDA run: a host thread with the pipeline's stage spans, the call-site
 spans of `profiler.source_spans` and the launches (`cuda_runtime`,
@@ -64,10 +64,10 @@ def _write_capture(tmp_path):
 
 def test_torch_attribute_and_stage_times(tmp_path):
     logdir = _write_capture(tmp_path)
-    st = tx.stage_times(logdir, frames=2)
-    assert st == pytest.approx({"flatten": 2.0, "fine": 1.0, tx.OUTSIDE: 0.25})
     (dev, t), = tx.attribute(logdir, frames=2).items()
     assert dev == "cuda:0"
+    assert {k: ms for k, (ms, _) in t["stages"].items()} == pytest.approx(
+        {"flatten": 2.0, "fine": 1.0, tx.OUTSIDE: 0.25})
     assert t["stages"]["flatten"] == pytest.approx((2.0, 1.0))
     assert t["kinds"]["at::native::tensor_kernel_scan_outer_dim"] == pytest.approx((2.0, 1.0))
     assert t["kinds"]["land_kernel"] == pytest.approx((1.0, 0.5))
@@ -116,28 +116,6 @@ def test_torch_attribute_of_a_replayed_frame(tmp_path):
     assert t["sources"] == pytest.approx({tx.NO_SOURCE: (5.001, 3.0)})
 
 
-def test_torch_profiler_collect_includes_device_stages(tmp_path):
-    logdir = _write_capture(tmp_path)
-    results = tp.device_stage_results(logdir, frames=2)
-    assert len(results) == 1
-    dev = results[0]
-    assert dev.label == "device:cuda:0"
-    by_label = {c.label: c for c in dev.children}
-    assert by_label["flatten"].duration == pytest.approx(2.0e-3)
-    assert by_label["fine"].duration == pytest.approx(1.0e-3)
-    assert dev.duration == pytest.approx(3.25e-3)
-    # collect() drains device results alongside host spans
-    p = tp.Profiler()
-    p._device_results += results
-    with p.start("frame"):
-        pass
-    got = p.collect()
-    labels = [r.label for r in got]
-    assert "frame" in labels and dev.label in labels
-    assert isinstance(got[0], tp.ProfilerResult)
-    assert p.collect() == []
-
-
 def test_torch_call_site_shim_reports_the_caller():
     """A torch call made inside `pipeline/ops.py` is attributed to the line
     of the package that called the helper, marked " (shim)"; a call made
@@ -155,7 +133,7 @@ def test_torch_call_site_shim_reports_the_caller():
 
 
 def test_torch_device_trace_on_the_cpu_records_call_sites(tmp_path):
-    """A capture around a frame on the CPU: no device, so no device result,
+    """A capture around a frame on the CPU: no device, so no device table,
     and every torch call of the package inside a span of its call site."""
     import torch
 
