@@ -88,7 +88,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      64x64 scene of clip layers nested 65 deep, one more than jello_tpu's
      clip walk takes (`clip_depth_cap` 64, printed), rendered on the card
      (kernel G must launch) and held to Renderer(device="cpu") (image
-     within 1e-4, flags equal and clear);
+     within 1e-4, flags equal and clear); then kernel I (the integer
+     column scan) at configs 5 and 4 (`_kernel_i`): its calls in a
+     settled program's graph (no torch outer-dimension scan may be left),
+     every call of one geometry pass held to its plain version bit for
+     bit and timed (wrapper, bare C entry, byte bound, plain version,
+     `torch.cumsum` of one column), and the SHA-256 of the geometry
+     stages' outputs;
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
      stroked and dashed paths, 512x512), config 5 and config 4, render()
@@ -240,8 +246,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      once, each output written once; for B, G and H only the rows this
      run's records touch) over 3.35 TB/s and its float operations, counted
      for this run's data, over 67 TFLOP/s (float32 outside the tensor
-     cores). D, E, E', E'', F, G and H also carry bare_ms, their bare C
-     entry's time (G's and H's in area mode).
+     cores). D, E, E', E'', F, G, H and I also carry bare_ms, their bare C
+     entry's time (G's and H's in area mode); I, which replaces no Pallas
+     kernel, its calls a replayed config 5 frame (`launches_a_replay`).
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -462,16 +469,20 @@ def _ptxas_summary(log):
 
 def _record_calls(wrappers, run):
     """Run `run()` with each (module, name) wrapper replaced by one that
-    records its arguments. Returns {name: [args, ...]}."""
+    records its arguments, keyword ones bound to their positions. Returns
+    {name: [args, ...]}."""
+    import inspect
+
     calls = {}
     saved = []
     for mod, name in wrappers:
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
-        def spy(*args, _fn=fn, _name=name):
-            calls.setdefault(_name, []).append(args)
-            return _fn(*args)
+        def spy(*args, _fn=fn, _name=name, _sig=inspect.signature(fn), **kw):
+            bound = _sig.bind(*args, **kw)
+            calls.setdefault(_name, []).append(bound.args)
+            return _fn(*bound.args)
 
         # A wrapper counts its launches on the module's name for itself.
         for attr in [a for a in vars(fn) if a.startswith("launches")]:
@@ -523,8 +534,10 @@ class _PlainKernels:
         from jello_tpu_torch.cuda import image_tap as ktap
         from jello_tpu_torch.cuda import land as kland
         from jello_tpu_torch.cuda import lockstep as kwalk
+        from jello_tpu_torch.cuda import scan as kscan
         from jello_tpu_torch.pipeline import coverage as plain_cov
         from jello_tpu_torch.pipeline import expand as px
+        from jello_tpu_torch.pipeline import ops as plain_ops
         from jello_tpu_torch.pipeline import fine_interp as plain_int
         from jello_tpu_torch.pipeline import image_tap as plain_tap
         from jello_tpu_torch.pipeline import land as plain_land
@@ -556,6 +569,7 @@ class _PlainKernels:
             (kx, "expand_euler", euler), (kx, "expand_crossings", crossings),
             (kx, "expand_rows", rows),
             (ktap, "tap_records", plain_tap.tap_records_plain),
+            (kscan, "column_scan", plain_ops.column_scan_plain),
         ]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -564,6 +578,185 @@ class _PlainKernels:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+# Kernel I's call sites, by (columns, op) (`cuda.scan.column_scan`).
+_SCAN_SITES = {(5, "sum"): "pathtag.tag_monoid_scan", (4, "sum"): "drawobjs.draw_monoid_scan",
+               (3, "sum"): "tiling._count_tail", (2, "max"): "flatten.expand_by_counts",
+               (1, "max"): "clips.clip_leaf_vectorized or coverage.coverage_rows_plain"}
+
+# The geometry stages' SHA-256 (integer and boolean tensors, float tensors;
+# `tools/torch_frame_times.py::geometry_digest`) of configs 5 and 4 on an
+# H100, as torch's own scans gave them before kernel I took their place:
+# kernel I leaves every output of the stages as it was.
+_GEOMETRY_SHA = {5: ("3e649f1b3b905cce", "71fe168fed50ed0c"),
+                 4: ("4db67c1a5b63490c", "100c6a7d8ffdec8c")}
+
+
+def _innermost_scan(cols, op="sum", exclusive=False, totals=False):
+    """Kernel I's contract through torch's innermost-dimension scans of the
+    stacked [k, N] columns: the library route kernel I is weighed against
+    (the port never calls it)."""
+    import torch
+
+    from jello_tpu_torch.pipeline.ops import INT32_MIN
+
+    s = torch.stack(cols)
+    if op == "sum":
+        incl = torch.cumsum(s, 1, dtype=torch.int32)
+        out = incl - s if exclusive else incl
+    else:
+        incl = torch.cummax(s, 1).values
+        out = (torch.cat([torch.full_like(s[:, :1], INT32_MIN), incl[:, :-1]], 1)
+               if exclusive else incl)
+    return (out, incl[:, -1]) if totals else out
+
+
+def _kernel_i(config, scene, params, smi):
+    """Kernel I (the integer column scan) at one scene's call sites: the
+    scene settled and its program built by a fresh renderer, kernel I's
+    launches a replayed frame read from the program's graph; one
+    geometry pass at the class on the renderer's route with every call
+    of `column_scan` recorded, each held to its plain version bit for bit
+    (output and totals) and timed: the wrapper, the bare C entry on
+    buffers allocated once, the byte bound (2 x 4 x k x N bytes over
+    3.35 TB/s) and its share, the plain version, and `torch.cumsum` of
+    one contiguous column of the same length as the library's yardstick
+    (the port never calls it), and torch's innermost-dimension scans of
+    the stacked columns (`_innermost_scan`, held to kernel I bit for bit);
+    the settled frame replayed with kernel I and with `_innermost_scan` in
+    its place, in alternated rounds; and the SHA-256 of the geometry
+    stages' outputs, held to `_GEOMETRY_SHA`. Returns the JSON line's
+    numbers for the call with the most elements: (max abs error over
+    every call, ms, plain ms, (bound ms, "bytes"), library ms, bare ms,
+    launches a replayed frame, innermost ms)."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.cuda import scan as kscan
+    from jello_tpu_torch.cuda.render import Renderer
+    from jello_tpu_torch.pipeline import ops
+    from jello_tpu_torch.pipeline.render import geometry
+    from tools.torch_frame_times import geometry_digest
+
+    tag = f"config {config}"
+    r = Renderer(device="cuda")
+    for _ in range(8):
+        r.render_surface(scene, params)
+        if r._program is not None:
+            break
+    torch.cuda.synchronize()
+    if r._program is None or r._program.graph is None:
+        _fail(f"{tag}: the settled frame is no captured program")
+    nodes = _graph_ops(r._program.graph)
+    applies = sum(v for k, v in nodes.items() if "colscan_apply" in k)
+    reduces = sum(v for k, v in nodes.items() if "colscan_reduce" in k)
+    outer = sum(v for k, v in nodes.items() if "scan_outer_dim" in k)
+    print(f"{tag}: kernel I in the settled program's graph: {applies} calls ({applies} scan "
+          f"and {reduces} reduce kernels) of {sum(nodes.values())} nodes; torch's "
+          f"outer-dimension scans {outer}")
+    if applies < 1 or outer:
+        _fail(f"{tag}: the settled frame does not scan its columns through kernel I alone")
+    prepared = _prepared(r, scene, params)
+    caps, _ = r._route(prepared, params, r._caps)
+    scene_t, layout_t = prepared[2][:2]
+    calls = _record_calls([(kscan, "column_scan")],
+                          lambda: geometry(scene_t, layout_t, caps))["column_scan"]
+    lib = build.kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, seen, best, err = [], set(), None, 0
+    for args in calls:
+        cols, op = args[0], args[1] if len(args) > 1 else "sum"
+        exclusive = args[2] if len(args) > 2 else False
+        totals = args[3] if len(args) > 3 else False
+        got = kscan.column_scan(*args)
+        want = ops.column_scan_plain(*args)
+        inner = _innermost_scan(*args)
+        got, want, inner = (got, want, inner) if totals else ((got,), (want,), (inner,))
+        err = max([err] + [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)
+                           if g.numel()])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            _fail(f"{tag}: kernel I differs from its plain version ({len(cols)} columns of "
+                  f"{cols[0].shape[0]}, {op}, exclusive {exclusive}, totals {totals})")
+        if not all(torch.equal(g, w) for g, w in zip(got, inner)):
+            _fail(f"{tag}: torch's innermost-dimension scans differ from kernel I")
+        key = (len(cols), op, exclusive, totals, cols[0].shape[0])
+        if key in seen:
+            continue
+        seen.add(key)
+        k, N = len(cols), cols[0].shape[0]
+        stride = cols[0].stride(0) if N > 1 else 1
+        out = torch.empty((k, N), dtype=torch.int32, device=cols[0].device)
+        tot = torch.empty(k, dtype=torch.int32, device=cols[0].device)
+        tiles = -(-N // kscan.TILE)
+        part = torch.empty(k * tiles, dtype=torch.int32, device=cols[0].device)
+        ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
+
+        def bare():
+            build.check("jello_column_scan", lib.jello_column_scan(
+                ptrs, stride, k, N, 0 if op == "sum" else 1, int(exclusive), out.data_ptr(),
+                tot.data_ptr() if totals else None, part.data_ptr() if tiles > 1 else None,
+                stream))
+
+        bare()
+        if not torch.equal(out, got[0]):
+            _fail(f"{tag}: kernel I's bare entry differs from its wrapper")
+        column = cols[0].contiguous()
+        ms = _time_ms(lambda: kscan.column_scan(*args), 20)
+        bare_ms = _time_ms(bare, 20)
+        plain_ms = _time_ms(lambda: ops.column_scan_plain(*args), 5)
+        library_ms = _time_ms(lambda: torch.cumsum(column, 0, dtype=torch.int32), 20)
+        inner_ms = _time_ms(lambda: _innermost_scan(*args), 20)
+        bound = (2 * 4 * k * N / HBM_BYTES_PER_S * 1e3, "bytes")
+        n_calls = sum(1 for a in calls if (len(a[0]), a[0][0].shape[0]) == (k, N)
+                      and (a[1] if len(a) > 1 else "sum") == op)
+        site = _SCAN_SITES.get((k, op), "?")
+        print(f"{tag}: kernel I at {site}: {k} columns of {N}, {op}, exclusive {exclusive}, "
+              f"totals {totals}, x{n_calls} a frame: {ms:.4f} ms (bare {bare_ms:.4f} ms) vs "
+              f"plain {plain_ms:.3f} ms, library cumsum of one column {library_ms:.4f} ms, "
+              f"torch's innermost scans of the stacked columns {inner_ms:.4f} ms, bound "
+              f"{bound[0]:.5f} ms by bytes ({100 * bound[0] / bare_ms:.1f}% of the bare "
+              f"entry), on {smi}")
+        rows.append((ms, bare_ms, plain_ms, inner_ms, n_calls))
+        if best is None or k * N > best[0]:
+            best = (k * N, (ms, plain_ms, bound, library_ms, bare_ms, applies, inner_ms))
+    ms, bare_ms, plain_ms, inner_ms = (sum(row[i] * row[4] for row in rows) for i in range(4))
+    print(f"{tag}: kernel I, {len(calls)} calls a geometry pass: {ms:.3f} ms through the "
+          f"wrapper (bare {bare_ms:.3f}) vs plain {plain_ms:.3f} ms, torch's innermost scans "
+          f"{inner_ms:.3f} ms; max abs error {err}, on {smi}")
+
+    saved = kscan.column_scan
+    kscan.column_scan = _innermost_scan
+    try:
+        r_inner = Renderer(device="cuda")
+        for _ in range(8):
+            r_inner.render_surface(scene, params)
+            if r_inner._program is not None:
+                break
+    finally:
+        kscan.column_scan = saved
+    if r_inner._program is None:
+        _fail(f"{tag}: the settled frame with torch's innermost scans is no captured program")
+    prep_i, prep_t = r._prepare(scene, params), r_inner._prepare(scene, params)
+    frame_ms, _ = _alternated(lambda: r._enqueue(prep_i, params, r._caps),
+                              lambda: r_inner._enqueue(prep_t, params, r_inner._caps),
+                              rounds=5, frames=20)
+    med_i, med_t = (statistics.median(frame_ms[k]) for k in ("replayed", "eager"))
+    print(f"{tag}: settled frame replayed, one in flight, ms/frame in alternated rounds: kernel "
+          f"I {[round(v, 3) for v in frame_ms['replayed']]} (median {med_i:.3f}), torch's "
+          f"innermost scans {[round(v, 3) for v in frame_ms['eager']]} (median {med_t:.3f}): "
+          f"kernel I {100 * (med_t - med_i) / med_t:+.2f}% of the frame, on {smi}")
+    ints, floats, n = geometry_digest(config)
+    print(f"{tag}: geometry outputs: {n} tensors, integer sha256 {ints}, float sha256 "
+          f"{floats} (before kernel I: {' / '.join(_GEOMETRY_SHA[config])})")
+    if (ints, floats) != _GEOMETRY_SHA[config]:
+        _fail(f"{tag}: the geometry stages' outputs differ from the stages' before kernel I")
+    del r, r_inner
+    torch.cuda.empty_cache()
+    return (err,) + best[1]
 
 
 def _counters():
@@ -575,6 +768,7 @@ def _counters():
     from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda import land as kland
     from jello_tpu_torch.cuda import lockstep as kwalk
+    from jello_tpu_torch.cuda import scan as kscan
 
     return {
         "coverage_area": (kcov.coverage_rows, "launches"),
@@ -588,15 +782,17 @@ def _counters():
         "image_tap": (ktap.tap_records, "launches"),
         "fine_interp": (kint.interpret_tiles, "launches"),
         "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
+        "column_scan": (kscan.column_scan, "launches"),
     }
 
 
 def _sharded_kernels(path, aa, has_atlas):
     """The kernels a sharded frame must launch: the geometry's (C, D, E,
-    E', E''); with `path` "19a" kernel A in its mode and G over the stripe;
+    E', E'', I); with `path` "19a" kernel A in its mode and G over the stripe;
     with "19b" A, B and G (fine_hybrid runs G even without a legacy tile)
     and F with an atlas; with "19a_fine_ref" nothing more."""
-    out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows"}
+    out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows",
+           "column_scan"}
     coverage = "coverage_area" if aa == "area" else "coverage_msaa"
     if path == "19a":
         out |= {coverage, "fine_interp"}
@@ -909,6 +1105,7 @@ _KERNEL_NAMES = {
     "image_tap": ("image_tap_kernel",),
     "fine_interp": ("interp_tile_kernel",),
     "fine_interp_b8": ("interp_batch_kernel",),
+    "column_scan": ("colscan_apply",),
 }
 
 
@@ -1695,7 +1892,7 @@ def main():
     # (resident CTAs a multiprocessor times the multiprocessors, from
     # those registers and its shared memory).
     for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu", "image_tap.cu",
-                "fine_interp.cu"):
+                "fine_interp.cu", "scan.cu"):
         for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B, static shared memory {smem} B")
@@ -2584,6 +2781,10 @@ def main():
     del r_deep, r_cpu, img_d, want_d
     torch.cuda.empty_cache()
 
+    # ---- 8b. kernel I at configs 5 and 4 ------------------------------------
+    res["I"] = _kernel_i(5, scene5, params5, smi)
+    _kernel_i(4, scene4, params4, smi)
+
     # ---- 9. main path ----------------------------------------------------
     counters = _counters()
     def on_path(kernel, name):
@@ -3188,6 +3389,12 @@ def main():
         entry("image_tap", "image_tap.cu", "image_tap.py:248", *res["F"]),
         entry("fine_interp", "fine_interp.cu", "fine_pallas.py:567", *res["G"]),
         entry("fine_interp_b8", "fine_interp.cu", "fine_pallas.py:1079", *res["H"]),
+        # Kernel I replaces no Pallas kernel (jello_tpu leaves its scans to
+        # XLA); its numbers at config 5's largest call, launches the calls a
+        # replayed frame of config 5, innermost_ms torch's innermost scans
+        # of the same call's stacked columns.
+        dict(entry("column_scan", "scan.cu", "", *res["I"][:6]), replaces=None,
+             launches_a_replay=res["I"][6], innermost_ms=res["I"][7]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

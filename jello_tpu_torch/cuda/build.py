@@ -12,8 +12,9 @@ source is newer; a failed build raises with nvcc's stderr.
 Each exported C function launches its kernel on the stream it is given
 (kernel C's entry also zeroes its output there, kernel D's its
 iteration count and kernel F's its region flag, with one memset each;
-kernel E's entries launch the prefix scan before the expansion) and
-returns `cudaGetLastError()`;
+kernel E's entries launch the prefix scan before the expansion, kernel
+I's a reduce kernel before its scan when the columns span more than one
+tile) and returns `cudaGetLastError()`;
 `check` raises if that is not 0.
 """
 
@@ -103,6 +104,11 @@ SIGNATURES = {
     # slots [n] i64, slot, stream: the card's %globaltimer (ns) into
     # slots[slot] (the stage clock's stamp, `profiler.named_scope`)
     "jello_stamp": [P, I, P],
+    # a host array of k column pointers (int32, N each, one stride),
+    # stride, k, N, op (0 sum, 1 max), exclusive, out [k, N] i32, totals
+    # [k] i32 or null, partial [k * ceil(N / cuda.scan.TILE)] i32 or null
+    # (one tile), stream
+    "jello_column_scan": [P, I, I, I, I, I, P, P, P, P],
 }
 
 

@@ -39,6 +39,8 @@ def clip_leaf_vectorized(clip_idx_arr, clip_path_idx_arr, path_bbox, dm_path, dm
     """clip_idx_arr, clip_path_idx_arr [NC] i32 from `draw_leaf`; path_bbox
     [P, 4] f32; dm_path, dm_scene [D] i32 draw monoid columns.
     Returns (clip_bboxes [NC, 4] f32, dm_path, dm_scene patched)."""
+    from ..cuda.scan import column_scan
+
     NC = caps["n_clips_cap"]
     depth_cap = caps.get("clip_depth_cap", MAX_CLIP_DEPTH)
     dev = path_bbox.device
@@ -60,7 +62,7 @@ def clip_leaf_vectorized(clip_idx_arr, clip_path_idx_arr, path_bbox, dm_path, dm
     match_begin = torch.full((NC,), -1, dtype=I32, device=dev)
     for lv in range(depth_cap):
         at_l = is_begin & (level == lv)
-        last_begin = ops.cummax(torch.where(at_l, i_idx, -1))
+        last_begin = column_scan([torch.where(at_l, i_idx, -1)], "max")[0]
         lb_path = ops.gather_guarded(clip_path_idx_arr, torch.clamp(last_begin, min=0))
         pb = ops.gather_guarded(path_bbox, torch.clamp(lb_path, min=0))
         inter = torch.cat([torch.maximum(running[:, :2], pb[:, :2]),

@@ -203,6 +203,8 @@ def coverage_rows_plain(stream, row_start, row_end, row_bd, offsets=None, row_eo
     sample the summed exact winding + row_bd[r], rounded half to even,
     inside by the row's rule (odd under even-odd, else nonzero); out[r] =
     the mean over the samples, in [0, 1]."""
+    from ..cuda.scan import column_scan
+
     dev = stream.device
     R = row_start.shape[0]
     SC = stream.shape[0]
@@ -212,7 +214,7 @@ def coverage_rows_plain(stream, row_start, row_end, row_bd, offsets=None, row_eo
     marks = ops.scatter_max(torch.full((SC,), -1, dtype=I32, device=dev),
                             torch.where(row_end > row_start, row_start, SC),
                             ops.iota(R, dev))
-    seg_row = ops.cummax(marks)
+    seg_row = column_scan([marks], "max")[0]
     inside = (seg_row >= 0) & (pos < ops.gather_guarded(row_end, seg_row))
     idx = torch.where(inside, seg_row, R).to(I64)
     # Segments past the last row's end add into the dropped row R only,

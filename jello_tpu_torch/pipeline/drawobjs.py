@@ -41,13 +41,14 @@ GRADIENT_EPSILON = 1.0 / (1 << 12)
 
 
 def draw_monoid_scan(draw_tags):
-    """Exclusive draw monoid prefix per draw object (int32 columns)."""
+    """Exclusive draw monoid prefix per draw object (int32 columns, one
+    column scan: kernel I)."""
+    from ..cuda.scan import column_scan
+
     t = draw_tags
-    d = torch.stack([(t != DRAW_TAG_NOP).to(I32), t & 1, (t >> 2) & 0x7,
-                     (t >> 6) & 0xF], dim=1)
-    c = torch.cumsum(d, dim=0, dtype=I32) - d
-    return {"path_idx": c[:, 0], "clip_idx": c[:, 1],
-            "scene_offset": c[:, 2], "info_offset": c[:, 3]}
+    c = column_scan([(t != DRAW_TAG_NOP).to(I32), t & 1, (t >> 2) & 0x7, (t >> 6) & 0xF],
+                    "sum", exclusive=True)
+    return {"path_idx": c[0], "clip_idx": c[1], "scene_offset": c[2], "info_offset": c[3]}
 
 
 def _inverse(t):

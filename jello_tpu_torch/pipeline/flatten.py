@@ -143,11 +143,14 @@ def expand_by_counts(counts, out_cap, total=None, land=False):
 
     Every nonzero record marks (its index, its exclusive offset) at its
     exclusive offset (offsets of nonzero records are distinct and
-    increasing), and a cummax fills both forward across the record's
-    run. The marks are a scatter, or with `land` they land through kernel
-    C, as on jello_tpu's `_expand_pallas` route (`flatten.py:396-415`);
-    both give the same result.
+    increasing), and a running max (one column scan of both, kernel I)
+    fills both forward across the record's run. The marks are a scatter,
+    or with `land` they land through kernel C, as on jello_tpu's
+    `_expand_pallas` route (`flatten.py:396-415`); both give the same
+    result.
     Returns (rec, within, valid, excl, total)."""
+    from ..cuda.scan import column_scan
+
     dev = counts.device
     counts = counts.to(I32)
     R = counts.shape[0]
@@ -161,15 +164,15 @@ def expand_by_counts(counts, out_cap, total=None, land=False):
         from ..cuda.land import monotone_land
 
         m0, m1 = monotone_land(excl, counts > 0, [r_ids, excl], out_cap)
-        rec = ops.cummax(m0.to(I32))
-        return rec, j - ops.cummax(m1.to(I32)), j < total, excl, total
-    marks = ops.scatter_max(
-        torch.zeros((out_cap, 2), dtype=I32, device=dev),
-        torch.where(counts > 0, excl, out_cap),
-        torch.stack([r_ids, excl], dim=1),
-    )
-    m = ops.cummax(marks, dim=0)
-    return m[:, 0], j - m[:, 1], j < total, excl, total
+        m = column_scan([m0.to(I32), m1.to(I32)], "max")
+    else:
+        marks = ops.scatter_max(
+            torch.zeros((out_cap, 2), dtype=I32, device=dev),
+            torch.where(counts > 0, excl, out_cap),
+            torch.stack([r_ids, excl], dim=1),
+        )
+        m = column_scan([marks[:, 0], marks[:, 1]], "max")
+    return m[0], j - m[1], j < total, excl, total
 
 
 def _normalize_vec(vx, vy):

@@ -1,8 +1,10 @@
 """Tensor helpers shared by the torch pipeline stages.
 
 Counterpart of `jello_tpu/pipeline/ops.py`: the scatters with drop
-semantics, the stable multi-operand sort, `cummax`, the u32 <-> f32
-bitcasts, `trailing_zeros32` and `gather_guarded`.
+semantics, the stable multi-operand sort, the u32 <-> f32 bitcasts,
+`trailing_zeros32` and `gather_guarded`; and the plain version of kernel
+I, the integer column scan (`column_scan_plain`), which takes the place
+of `cummax` (the stages call `cuda.scan.column_scan`).
 
 u32 convention: torch has no `>>`, `+` or `<` on `torch.uint32` on the
 CPU, so scene and record words travel as int32 tensors holding the u32
@@ -19,6 +21,7 @@ I32 = torch.int32
 I64 = torch.int64
 F32 = torch.float32
 F64 = torch.float64
+INT32_MIN = -(1 << 31)
 
 
 def s32(v: int) -> int:
@@ -106,8 +109,22 @@ def exclusive_cumsum(v, dim=0):
     return torch.cumsum(v, dim=dim, dtype=v.dtype) - v
 
 
-def cummax(v, dim=0):
-    return torch.cummax(v, dim=dim).values
+def column_scan_plain(cols, op="sum", exclusive=False, totals=False):
+    """Plain version of kernel I (`cuda.scan.column_scan`, its contract):
+    torch's scan over dim 0 of the stacked columns, read back a column a
+    row."""
+    d = torch.stack(cols, dim=1)
+    if op == "sum":
+        incl = torch.cumsum(d, dim=0, dtype=I32)
+        c = incl - d if exclusive else incl
+    else:
+        incl = torch.cummax(d, dim=0).values
+        c = torch.cat([torch.full_like(d[:1], INT32_MIN), incl[:-1]]) if exclusive else incl
+    if not totals:
+        return c.t()
+    tot = incl[-1] if d.shape[0] else torch.full(
+        (len(cols),), 0 if op == "sum" else INT32_MIN, dtype=I32, device=d.device)
+    return c.t(), tot
 
 
 def trailing_zeros32(v: torch.Tensor) -> torch.Tensor:

@@ -44,15 +44,16 @@ def tag_monoid_deltas(tags: torch.Tensor) -> dict:
 
 def tag_monoid_scan(tags: torch.Tensor, base=None) -> dict:
     """Exclusive prefix monoid per tag byte: all five fields ride one
-    column cumsum. `base` (int32 [5] in FIELDS order), for a tag-range
-    shard, adds the deltas of every tag before the range
+    column scan (kernel I). `base` (int32 [5] in FIELDS order), for a
+    tag-range shard, adds the deltas of every tag before the range
     (`jello_tpu/pipeline/flatten.py:106-125`, `exclusive_monoids`)."""
+    from ..cuda.scan import column_scan
+
     deltas = tag_monoid_deltas(tags)
-    d = torch.stack([deltas[k] for k in FIELDS], dim=1)
-    c = torch.cumsum(d, dim=0, dtype=torch.int32) - d
+    c = column_scan([deltas[k] for k in FIELDS], "sum", exclusive=True)
     if base is not None:
-        c = c + base
-    return {k: c[:, i] for i, k in enumerate(FIELDS)}
+        c = c + base[:, None]
+    return {k: c[i] for i, k in enumerate(FIELDS)}
 
 
 def monoid_delta_totals(tags: torch.Tensor) -> torch.Tensor:

@@ -439,24 +439,25 @@ def _count_tail(sorted_out, binc, backdrop, paths, c_total, r_total, overflow, s
     """Per-tile segment starts, the backdrop row prefix and the compact
     area-row ids, from the sorted stream, the per-slot counts and the
     per-slot backdrop deltas ([T + 1], the last the dump bin)."""
+    from ..cuda.scan import column_scan
+
     sorted_slot = sorted_out[0]
     T = binc.shape[0] - 1
     seg_count = binc[:T]
     bd = backdrop[:T]
     has = (seg_count > 0).to(I32)
-    c3in = torch.stack([seg_count, bd, has], dim=1)
-    c3 = torch.cumsum(c3in, dim=0, dtype=I32) - c3in
-    cume = c3[:, 1]
-    row_of_slot = c3[:, 2]
+    c3, tot = column_scan([seg_count, bd, has], "sum", exclusive=True, totals=True)
+    cume = c3[1]
+    row_of_slot = c3[2]
     bd_prefix = cume - ops.gather_guarded(cume, paths["tile_row_start"]) + bd
     return {
         "sorted_slot": sorted_slot,
         "segs": dict(zip(SEG_KEYS, sorted_out[1:6])),
-        "seg_start": c3[:, 0],
+        "seg_start": c3[0],
         "seg_count": seg_count,
         "backdrop": bd_prefix,
         "row_of_slot": row_of_slot,
-        "n_rows": row_of_slot[-1] + has[-1],
+        "n_rows": tot[2],
         "n_segs": c_total,
         "r_total": r_total,
         "overflow": overflow,

@@ -21,6 +21,7 @@ from jello_tpu_torch.cuda import fine_interp as kint
 from jello_tpu_torch.cuda import fine_v2 as kfine
 from jello_tpu_torch.cuda import land as kland
 from jello_tpu_torch.cuda import lockstep as kwalk
+from jello_tpu_torch.cuda import scan as kscan
 from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
 from jello_tpu_torch.cuda.fine_v2 import (
     assemble_compact,
@@ -37,6 +38,7 @@ from jello_tpu_torch.pipeline import fine_interp as plain_int
 from jello_tpu_torch.pipeline import image_tap as plain_tap
 from jello_tpu_torch.pipeline import land as plain_land
 from jello_tpu_torch.pipeline import lockstep as plain_walk
+from jello_tpu_torch.pipeline import ops as plain_ops
 from jello_tpu_torch.pipeline.render import geometry
 
 from .torch_reference import (
@@ -442,6 +444,75 @@ def test_torch_land_kernel_synthetic(cuda, K, dtype, out_len):
     assert bool((pos < 0)[keep].any()) and bool((pos >= n)[keep].any()) == (out_len == "below")
 
 
+def _scan_columns(rng, N, k, op):
+    """[N, k] int32 column data: for sums values over the whole int32
+    range (the sums wrap); for max mostly negatives, with -1 fills and
+    INT32_MIN."""
+    i32 = np.iinfo(np.int32)
+    if op == "sum":
+        x = rng.integers(i32.min, i32.max, (N, k), dtype=np.int64, endpoint=True)
+        return x.astype(np.int32)
+    x = rng.integers(-(1 << 30), 1 << 20, (N, k), dtype=np.int64)
+    x[rng.random((N, k)) < 0.3] = -1
+    x[rng.random((N, k)) < 0.05] = i32.min
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("N", [1, 31, 8191, 8192, 8193, 3 * 8192 + 5, (1 << 20) + 3])
+def test_torch_column_scan_kernel_matches_plain(cuda, N, k, op):
+    """Kernel I against its plain version, bit for bit, on the card's
+    tensors and on CPU copies: inclusive and exclusive, with and without
+    totals, the columns separate vectors or strided views of one [N, k]
+    tensor (as expand_by_counts' marks are); one launch a call."""
+    x = torch.from_numpy(_scan_columns(np.random.default_rng(N * 16 + k), N, k, op))
+    xc = x.to(cuda)
+    for cols in ([c.contiguous() for c in xc.unbind(1)], list(xc.unbind(1))):
+        cpu = [c.cpu() for c in cols]
+        for exclusive in (False, True):
+            for totals in (False, True):
+                n0 = kscan.column_scan.launches
+                got = kscan.column_scan(cols, op, exclusive, totals)
+                assert kscan.column_scan.launches == n0 + 1
+                want = plain_ops.column_scan_plain(cols, op, exclusive, totals)
+                want_cpu = kscan.column_scan(cpu, op, exclusive, totals)
+                got, want, want_cpu = ((got, want, want_cpu) if totals
+                                       else ((got,), (want,), (want_cpu,)))
+                assert got[0].shape == (k, N) and got[0].is_contiguous()
+                for g, w, wc in zip(got, want, want_cpu):
+                    assert g.dtype == torch.int32
+                    assert torch.equal(g, w) and torch.equal(g.cpu(), wc)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_torch_column_scan_kernel_replays_in_a_captured_graph(cuda, op):
+    """Kernel I captured into a CUDA graph (its scratch from the graph's
+    pool) and replayed on new column data equals the eager call on that
+    data; a replay counts no launch."""
+    rng = np.random.default_rng(23)
+    N, k = 3 * 8192 + 5, 3
+    first, second = (torch.from_numpy(_scan_columns(rng, N, k, op)).to(cuda) for _ in range(2))
+    static = [c.contiguous() for c in first.unbind(1)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kscan.column_scan(static, op, True, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, tot = kscan.column_scan(static, op, True, True)
+    for st, c in zip(static, second.unbind(1)):
+        st.copy_(c)
+    n0 = kscan.column_scan.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kscan.column_scan.launches == n0
+    want_out, want_tot = kscan.column_scan([c.contiguous() for c in second.unbind(1)], op,
+                                           True, True)
+    assert torch.equal(out, want_out) and torch.equal(tot, want_tot)
+
+
 def test_torch_fine_kernel_resolved_matches_plain(cuda):
     """Kernel B's resolved branch on an MSAA frame's resolved rows, and on
     rows made negative wherever a path covers: a row in [0, 1] reads the
@@ -802,6 +873,12 @@ def test_torch_kernel_wrappers_reject_bad_inputs(cuda):
         kland.monotone_land(pos, valid, [valid], 64)
     with pytest.raises(ValueError):  # at most three value vectors
         kland.monotone_land(pos, valid, [pos] * 4, 64)
+    with pytest.raises(ValueError):  # int32 columns only
+        kscan.column_scan([pos.long()], "sum")
+    with pytest.raises(ValueError):  # at most eight columns, all on one device
+        kscan.column_scan([pos] * 9, "sum")
+    with pytest.raises(ValueError):
+        kscan.column_scan([pos, pos.cpu()], "max")
     args = list(interpret_args(hand_built_slab(), cuda))
     with pytest.raises(ValueError):
         kint.interpret_tiles(*args[:4], args[4].cpu(), *args[5:])

@@ -304,3 +304,113 @@ def test_torch_stages_make_no_tensor_from_host_data():
     box = ops.unbounded_bboxes(3, torch.device("cpu"), 1e9)
     assert box.dtype == torch.float32
     assert box.tolist() == [[-1e9, -1e9, 1e9, 1e9]] * 3
+
+
+def _numpy_column_scan(cols, op="sum", exclusive=False, totals=False):
+    """Kernel I's contract computed apart from torch, in its layout: the
+    prefixes in int64, wrapped to int32, a contiguous row a column."""
+    x = np.stack([c.numpy() for c in cols]).astype(np.int64)
+    ident = 0 if op == "sum" else ops.INT32_MIN
+    incl = np.cumsum(x, axis=1) if op == "sum" else np.maximum.accumulate(x, axis=1)
+    incl = (incl + 2**31) % 2**32 - 2**31
+    if exclusive:
+        incl_before = np.concatenate([np.full((len(cols), 1), ident), incl], axis=1)
+        out = incl_before[:, :x.shape[1]]
+    else:
+        out = incl
+    out = torch.from_numpy(np.ascontiguousarray(out.astype(np.int32)))
+    if not totals:
+        return out
+    tot = incl[:, -1] if x.shape[1] else np.full(len(cols), ident)
+    return out, torch.from_numpy(tot.astype(np.int32))
+
+
+def _replaced_expression(cols, op, exclusive):
+    """What the call sites computed before kernel I, [N, k]: the stacked
+    columns' `torch.cumsum(d, 0) - d` or `torch.cummax(d, 0).values`."""
+    d = torch.stack(cols, dim=1)
+    if op == "sum":
+        return torch.cumsum(d, dim=0, dtype=torch.int32) - (d if exclusive else 0)
+    assert not exclusive
+    return torch.cummax(d, dim=0).values
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_torch_column_scan_sites_match_replaced_expressions(name, monkeypatch):
+    """Every call of kernel I's wrapper in a geometry pass, on the plain
+    route and on the accelerator's: its result equals the expression the
+    call site ran before (the stacked columns' cumsum minus the deltas,
+    or cummax), bit for bit, the totals the old `[-1] + d[-1]`; and the
+    stages fed kernel I's layout (a contiguous row a column, computed in
+    numpy) give every output the plain run gives."""
+    from jello_tpu_torch.cuda import scan as kscan
+    from jello_tpu_torch.cuda.render import frame_routing
+    from tools.torch_frame_times import stage_tensors
+
+    _, scene_t, layout_t, caps = _both(name)
+    for routed in (caps, dict(caps, **frame_routing(0, False, 0))):
+        want = stage_tensors(geometry(scene_t, layout_t, routed))
+        calls = []
+
+        def spy(cols, op="sum", exclusive=False, totals=False):
+            calls.append((cols, op, exclusive, totals))
+            return _numpy_column_scan(cols, op, exclusive, totals)
+
+        monkeypatch.setattr(kscan, "column_scan", spy)
+        got = stage_tensors(geometry(scene_t, layout_t, routed))
+        monkeypatch.undo()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        sites = {(len(c[0]), c[1], c[2], c[3]) for c in calls}
+        assert {(5, "sum", True, False), (4, "sum", True, False), (3, "sum", True, True),
+                (2, "max", False, False)} <= sites
+        for cols, op, exclusive, totals in calls:
+            old = _replaced_expression(cols, op, exclusive)
+            new = _numpy_column_scan(cols, op, exclusive, totals)
+            assert torch.equal((new[0] if totals else new).t(), old)
+            if totals:
+                d = torch.stack(cols, dim=1)
+                assert torch.equal(new[1], old[-1] + d[-1])
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_torch_column_scan_keeps_cpu_tensors_on_the_plain_version(op, monkeypatch):
+    """On CPU tensors the wrapper takes the plain version (torch's own
+    scans): no kernel library is loaded and no launch is counted; the
+    plain version keeps the contract (sums wrap, max from INT32_MIN,
+    totals, N = 0) and the wrapper rejects what the kernel would not
+    take."""
+    from jello_tpu_torch.cuda import scan as kscan
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(kscan, "kernels", no_library)
+    rng = np.random.default_rng(19)
+    i32 = np.iinfo(np.int32)
+    before = kscan.column_scan.launches
+    for k in (1, 3, 8):
+        for N in (0, 1, 37, 9000):
+            raw = rng.integers(i32.min, i32.max, (N, k), dtype=np.int64, endpoint=True)
+            raw[rng.random((N, k)) < 0.2] = -1
+            raw[rng.random((N, k)) < 0.05] = i32.min
+            x = torch.from_numpy(raw.astype(np.int32))
+            cols = list(x.unbind(1))  # strided views, as the marks' columns are
+            for exclusive in (False, True):
+                out, tot = kscan.column_scan(cols, op, exclusive, totals=True)
+                want_out, want_tot = _numpy_column_scan(cols, op, exclusive, True)
+                assert torch.equal(out, want_out) and torch.equal(tot, want_tot)
+                assert torch.equal(kscan.column_scan(cols, op, exclusive), want_out)
+                if op == "sum" or not exclusive:
+                    assert torch.equal(out.t(), _replaced_expression(cols, op, exclusive))
+    v = torch.from_numpy(rng.integers(-50, 50, 500).astype(np.int32))
+    assert torch.equal(kscan.column_scan([v], "max")[0], torch.cummax(v, 0).values)
+    assert kscan.column_scan.launches == before
+    good = torch.zeros(4, dtype=torch.int32)
+    bad = [([], op), ([good] * 9, op), ([good.long()], op), ([good, good[:3]], op),
+           ([good, torch.zeros((4, 2), dtype=torch.int32)[:, 0]], op),
+           ([good.reshape(2, 2)], op), ([good], "min")]
+    for cols, bad_op in bad:
+        with pytest.raises(ValueError):
+            kscan.column_scan(cols, bad_op)

@@ -51,6 +51,13 @@ trees) or device data (a pointer for B and F, the counts' last word for
 G and H).
 `--configs ""` times no frames.
 
+With --geometry-sha it prints a SHA-256 of the geometry stages' outputs
+(`pipeline.render.geometry`) of one pass of configs 4 and 5 at their
+calibrated classes, on the renderer's route: one over the integer and
+boolean tensors, one over the float tensors, each in key order
+(`geometry_digest`), so that two trees' stages can be compared bit for
+bit.
+
 With --h-sweep it runs kernel H at every point of its design space (a
 build of `cuda.fine_interp.H_BUILDS`, W warps a slot and the CTAs a
 multiprocessor its register cap is set for; shared stack levels a slot
@@ -89,6 +96,8 @@ def main():
                     help="also time kernel F on config 5's inputs, G and H on config 4's")
     ap.add_argument("--h-sweep", action="store_true",
                     help="also run kernel H at every (W, levels) on config 4's legacy slots")
+    ap.add_argument("--geometry-sha", action="store_true",
+                    help="also digest the geometry stages' outputs of configs 4 and 5")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
@@ -108,6 +117,11 @@ def main():
             kernels_de_times(opts.tag, smi, k)
     if opts.kernels_fg:
         kernels_fg_times(opts.tag, smi)
+    if opts.geometry_sha:
+        for k in (4, 5):
+            ints, floats, n = geometry_digest(k)
+            print(f"{opts.tag}: config{k} geometry outputs: {n} tensors, integer sha256 {ints}, "
+                  f"float sha256 {floats}, on {smi}")
     if opts.h_sweep:
         from jello_tpu_torch.cuda import build
 
@@ -202,6 +216,50 @@ def record_geometry_calls(k):
     layout_t = prepared_layout(layout_t)
     caps = dict(r._caps, **frame_routing(0, atlas_t is not None, 0))
     return spy_calls(GEOMETRY_WRAPPERS, lambda: geometry(scene_t, layout_t, caps))
+
+
+def geometry_digest(k):
+    """(SHA-256 of the integer and boolean tensors, SHA-256 of the float
+    tensors, tensors digested) of the stage dict `geometry` returns for
+    one pass of config k at its calibrated class on the card, each tensor
+    as C-order bytes, nested dicts in key order."""
+    import hashlib
+
+    import torch
+    from jello_tpu_torch.cuda import Renderer
+    from jello_tpu_torch.cuda.render import frame_routing
+    from jello_tpu_torch.pipeline.render import geometry
+    from jello_tpu_torch.scenes import GATE_SCENES
+
+    scene, params = GATE_SCENES[k]()
+    r = Renderer(device="cuda")
+    r.render(scene, params)
+    _, ld, (scene_t, layout_t, _, atlas_t), depth = r._prepare(scene, params)
+    layout_t = prepared_layout(layout_t)
+    caps = dict(r._caps, **frame_routing(int(ld["n_clips"]), atlas_t is not None, depth))
+    stages = stage_tensors(geometry(scene_t, layout_t, caps)[0])
+    torch.cuda.synchronize()
+    hashes = {False: hashlib.sha256(), True: hashlib.sha256()}
+    for t in stages:
+        hashes[t.is_floating_point()].update(t.detach().cpu().numpy().tobytes())
+    return hashes[False].hexdigest()[:16], hashes[True].hexdigest()[:16], len(stages)
+
+
+def stage_tensors(v, out=None):
+    """The tensors of a nest of dicts, lists and tuples (a stage dict), in
+    order: dicts in key order, sequences in theirs."""
+    import torch
+
+    out = [] if out is None else out
+    if isinstance(v, dict):
+        for key in sorted(v):
+            stage_tensors(v[key], out)
+    elif isinstance(v, (list, tuple)):
+        for x in v:
+            stage_tensors(x, out)
+    elif isinstance(v, torch.Tensor):
+        out.append(v)
+    return out
 
 
 def prepared_layout(layout_t):
