@@ -229,6 +229,23 @@ def copy_to(t, device):
     return t.to(device, non_blocking=device.type == "cuda")
 
 
+def device_to_host(t):
+    """A tensor's values as a host numpy array. From a CUDA device, one
+    copy into page-locked memory from torch's host cache, which the array
+    keeps until it is dropped: a pageable read (`.cpu()`) stages through
+    the driver into memory the host allocates afresh, and how long that
+    takes varies by process (on an H100's host, 5.3 ms for an 8.3 MB
+    1080p surface in some processes, about 1 ms in others)."""
+    import torch
+
+    if not t.is_cuda:
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
+
+
 def host_to_device(t, device):
     """A host tensor on `device` (`pinned`, then `copy_to`)."""
     return copy_to(pinned(t, device), device)

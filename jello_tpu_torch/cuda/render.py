@@ -100,7 +100,7 @@ from ..renderer.estimate import (
 )
 from ..renderer.params import RenderParams
 from ..renderer.resolve import Resolver
-from .build import copy_to, host_to_device, pinned
+from .build import copy_to, device_to_host, host_to_device, pinned
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
 from .program import FrameProgram, Programs, caps_key, key_summary, map_tensors, program_key
@@ -111,6 +111,15 @@ WALK_KEYS = ("ref_slots_cap", "ref_chunks_cap")
 # The layout fields that fix the shape of the assembled image: the present
 # keeps them as host ints and is keyed on them (`tpu/render.py:196-200`).
 OUTPUT_FIELDS = ("width_in_tiles", "height_in_tiles", "target_width", "target_height")
+
+
+def frame_counts(stats) -> dict:
+    """The counts a profiled call carries of the frame it returned, from
+    the frame's stats as read with its flags (host ints): `lines` (euler,
+    simple and arc lines together), `cmds` and `max_tile_cmds` (the
+    deepest tile's commands)."""
+    return {"lines": stats["euler_lines"] + stats["simple_lines"] + stats["arc_lines"],
+            "cmds": stats["cmds"], "max_tile_cmds": stats["max_cmds"]}
 
 
 def walk_bounds(stats) -> dict:
@@ -425,7 +434,7 @@ class Renderer:
             with self._span("present"):
                 u8 = self._present(prepared, fine_out, premul, srgb)
             with self._span("read"):
-                return u8.cpu().numpy()
+                return device_to_host(u8)
 
     def render_surface_async(self, scene, params: RenderParams, premul: bool = True,
                              srgb: bool = True, max_retries: int = 4) -> "Frame":
@@ -452,7 +461,8 @@ class Renderer:
             with self._span("copy"):
                 return Frame(self, prepared, params, dict(self._caps),
                              (premul, srgb, max_retries), u8, unread, self.last_flags,
-                             index, span, self.last_stage_ms)
+                             index, span, self.last_stage_ms,
+                             self._open[0] if unread is not None and self._open else None)
 
     def _present(self, prepared, fine_out, premul, srgb):
         """The u8 surface of a frame's fine output: through the present
@@ -473,7 +483,9 @@ class Renderer:
         it, and with a `profiler` is a group of it labeled `label` that
         carries the index and the call's counts: `replayed` (whether the
         frame it returns is a program's replay), `retries` (the length of
-        `last_retries`), `upload_bytes` and `uploads_skipped`."""
+        `last_retries`), `upload_bytes` and `uploads_skipped`, and, once
+        the frame's stats are read with its flags (here for a checked
+        frame, in `Frame.result()` for one in flight), `frame_counts`."""
         index = self.counters["frames"]
         self.counters["frames"] += 1
         before = dict(self.counters)
@@ -484,6 +496,8 @@ class Renderer:
                     replayed=int(self._program is not None), retries=len(self.last_retries),
                     **{k: self.counters[k] - before[k] for k in ("upload_bytes",
                                                                  "uploads_skipped")})
+                if self.last_stats:
+                    group.counts.update(frame_counts(self.last_stats))
 
     @contextlib.contextmanager
     def _group_of(self, label, index):
@@ -824,9 +838,13 @@ class Frame:
     call that made it, which its `result` group shares."""
 
     def __init__(self, renderer, prepared, params, caps, present_args, u8, unread, flags,
-                 index=None, span=None, stage_times=None):
+                 index=None, span=None, stage_times=None, group=None):
         self._renderer = renderer
         self.index = index
+        # The call's group (with a profiler, for a frame whose flags are
+        # unread), which gets the frame's counts (`frame_counts`) when
+        # `result()` reads its stats.
+        self._group = group
         # The call's enqueue span (with a profiler), which the frame's
         # device times join when `result()` reads them.
         self._span = span
@@ -876,7 +894,7 @@ class Frame:
             pixels = self._host[:self._n].view(self._shape).numpy()
             if self._keys is not None:
                 values = self._host[self._n:].view(torch.int32).tolist()
-                flags, _ = unpack_flags(values, *self._keys)
+                flags, stats = unpack_flags(values, *self._keys)
                 stamps = unpack_stamps(values, *self._keys)
                 self.flags = flags
                 if stamps is not None:
@@ -888,7 +906,10 @@ class Frame:
                     with r._span("render_again"):
                         fine_out = r._render_again(self._prepared, self._params, self._caps,
                                                    flags, max_retries)
-                        pixels = r._present(self._prepared, fine_out, premul,
-                                            srgb).cpu().numpy()
+                        pixels = device_to_host(r._present(self._prepared, fine_out,
+                                                           premul, srgb))
+                    stats = r.last_stats
+                if self._group is not None:
+                    self._group.counts.update(frame_counts(stats))
         self._pixels = pixels
         return pixels

@@ -240,3 +240,29 @@ def test_torch_renderer_profiler_splits_a_call_into_host_spans():
     r.profiler = None
     r.render_surface(scene, params)
     assert r._open == []
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+
+
+@pytest.mark.cuda
+def test_torch_surface_reads_stay_the_callers_on_the_card(cuda):
+    """`build.device_to_host` reads into page-locked memory that the
+    returned array keeps: a later read does not overwrite it, and
+    `render_surface` returns the frame the CPU renders."""
+    from jello_tpu_torch.cuda.build import device_to_host
+
+    a_dev = torch.arange(1920 * 1080 * 4, device="cuda").to(torch.uint8).reshape(1080, 1920, 4)
+    a = device_to_host(a_dev)
+    b = device_to_host(255 - a_dev)
+    assert a.dtype == np.uint8 and a.shape == (1080, 1920, 4)
+    assert torch.from_numpy(a).is_pinned()
+    assert np.array_equal(a, a_dev.cpu().numpy()) and np.array_equal(b, 255 - a)
+    scene, params = GATE_SCENES[1]()
+    r = Renderer(device="cuda")
+    frames = [r.render_surface(scene, params) for _ in range(3)]
+    plain = Renderer(device="cpu").render_surface(scene, params)
+    assert all(np.abs(f.astype(int) - plain.astype(int)).max() <= 1 for f in frames)

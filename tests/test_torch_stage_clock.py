@@ -91,7 +91,8 @@ def test_torch_a_call_and_its_result_share_the_frame_index():
 
 def test_torch_counts_on_the_spans_and_the_running_totals():
     """A call counts whether its frame replayed, its retries, the bytes it
-    uploaded and the uploads the digest skipped; `counters` keeps the
+    uploaded, the uploads the digest skipped, and its frame's lines,
+    commands and deepest tile (`frame_counts`); `counters` keeps the
     running totals."""
     r = Renderer(device="cpu")
     r.profiler = tp.Profiler()
@@ -108,7 +109,11 @@ def test_torch_counts_on_the_spans_and_the_running_totals():
     assert second.counts["uploads_skipped"] == 1
     prepared = r._frame[2][2]
     assert second.counts["upload_bytes"] == prepared[0].nbytes + prepared[1].nbytes
-    assert cached.counts == dict(replayed=1, retries=0, upload_bytes=0, uploads_skipped=0)
+    frame = render_mod.frame_counts(r.last_stats)
+    assert frame["lines"] > 0 and frame["cmds"] >= frame["max_tile_cmds"] > 0
+    assert first.counts.items() >= frame.items() and second.counts.items() >= frame.items()
+    assert cached.counts == dict(replayed=1, retries=0, upload_bytes=0, uploads_skipped=0,
+                                 **frame)
     assert r.counters == {"frames": 3, "replays": 2, "eager": 1 + retries,
                           "upload_bytes": first.counts["upload_bytes"]
                           + second.counts["upload_bytes"], "uploads_skipped": 1}
