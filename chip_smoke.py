@@ -15,10 +15,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once, and prints ptxas's registers, spills
      and static shared memory for kernels A, C, D, E (E's three bodies),
-     F, G and H (each of H's builds), and kernel A's persistent grid;
+     F, G, H (each of H's builds), I and J, and kernel A's persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
-     kernel wrappers C, D, E, E' and E'' recorded;
+     kernel wrappers C, D, E, E', E'' and J recorded;
   4. kernel A (coverage) vs its plain version on config 3's coverage
      inputs (max abs diff <= 1e-5; the MSAA body's rows equal), each of
      its three modes timed beside its bound;
@@ -39,12 +39,16 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      its device operations a call (D: one kernel and one 4-byte memset;
      E: one or two prefix-scan kernels and the expansion) and D's lane
      efficiency (iterations entered, over 32 times each warp's largest);
+     then J (the per-line DDA table, `_kernel_j`) vs its plain version bit
+     for bit (counts and row table on every line, P on every line with a
+     crossing or a row) and timed: wrapper, bare C entry, plain version,
+     bound, device operations a call (one kernel, nothing else);
   7. config 5 (10,000 paths at 1920x1080: long fills, thin round-capped
      strokes, even-odd glyphs, gradients, image fills) at its calibrated
-     class: kernels C, D, E, E', E'' (now with stroke offsets) and A held
-     to their plain versions on this frame's recorded inputs as in 4 and
-     6 and timed (D, E, E', E'' as in 6 and A's three modes, beside their
-     bounds),
+     class: kernels C, D, E, E', E'' (now with stroke offsets), J and A
+     held to their plain versions on this frame's recorded inputs as in 4
+     and 6 and timed (D, E, E', E'', J as in 6 and A's three modes, beside
+     their bounds),
      with the histogram of the coverage rows' run lengths; kernel F
      (image tap) vs its plain version on the frame's
      real image records, recorded from the tap stage (max abs diff <= 1e-6:
@@ -246,9 +250,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      once, each output written once; for B, G and H only the rows this
      run's records touch) over 3.35 TB/s and its float operations, counted
      for this run's data, over 67 TFLOP/s (float32 outside the tensor
-     cores). D, E, E', E'', F, G, H and I also carry bare_ms, their bare C
+     cores). D, E, E', E'', F, G, H, I and J also carry bare_ms, their bare C
      entry's time (G's and H's in area mode); I, which replaces no Pallas
-     kernel, its calls a replayed config 5 frame (`launches_a_replay`).
+     kernel, its calls a replayed config 5 frame (`launches_a_replay`); J,
+     which replaces none either, its numbers at config 5.
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -533,6 +538,7 @@ class _PlainKernels:
         from jello_tpu_torch.cuda import fine_v2 as kfine
         from jello_tpu_torch.cuda import image_tap as ktap
         from jello_tpu_torch.cuda import land as kland
+        from jello_tpu_torch.cuda import line_dda as kline
         from jello_tpu_torch.cuda import lockstep as kwalk
         from jello_tpu_torch.cuda import scan as kscan
         from jello_tpu_torch.pipeline import coverage as plain_cov
@@ -542,6 +548,7 @@ class _PlainKernels:
         from jello_tpu_torch.pipeline import image_tap as plain_tap
         from jello_tpu_torch.pipeline import land as plain_land
         from jello_tpu_torch.pipeline import lockstep as plain_walk
+        from jello_tpu_torch.pipeline import tiling as plain_tiling
 
         def euler(table, rec, counts, EC, sentinel):
             incl, total = px.expand_prefix(counts)
@@ -570,6 +577,7 @@ class _PlainKernels:
             (kx, "expand_rows", rows),
             (ktap, "tap_records", plain_tap.tap_records_plain),
             (kscan, "column_scan", plain_ops.column_scan_plain),
+            (kline, "line_tables", plain_tiling.line_tables_plain),
         ]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -759,6 +767,81 @@ def _kernel_i(config, scene, params, smi):
     return (err,) + best[1]
 
 
+def _kernel_j(calls, tag, smi, n_plain):
+    """Kernel J (the per-line DDA table) on one geometry pass's recorded
+    calls of `line_tables`: each held to its plain version
+    (`tiling.line_tables_plain` on the card) bit for bit, the counts and
+    the row table on every line and P on every line with a crossing or a
+    row; then the last call timed: the wrapper, the bare C entry on
+    buffers allocated once (outputs equal to the wrapper's), the plain
+    version (n_plain calls), the bound (the lines, their paths' rows and
+    every output once over 3.35 TB/s), and the device operations a call
+    (more than one kernel, or any memset or copy, fails). Returns the
+    JSON line's numbers: (max abs error, ms, plain ms, (bound ms, by),
+    None, bare ms)."""
+    import torch
+
+    from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.cuda import line_dda as kline
+    from jello_tpu_torch.pipeline.tiling import line_tables_plain
+
+    if not calls:
+        _fail(f"{tag}: kernel J was not called in a geometry pass")
+    err = 0.0
+    for lines, paths in calls:
+        got = kline.line_tables(lines, paths)
+        want = line_tables_plain(lines, paths)
+        live = (got[2] > 0) | (got[3] > 0)
+        pairs = [(got[0][live], want[0][live])] + list(zip(got[1:], want[1:]))
+        err = max([err] + [_max_diff(g, w) for g, w in pairs])
+        if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs):
+            _fail(f"{tag}: kernel J differs from its plain version ({got[0].shape[0]} lines)")
+        whole = torch.equal(got[0].view(torch.int64), want[0].view(torch.int64))
+        print(f"{tag}: kernel J equals its plain version: {got[0].shape[0]} lines, "
+              f"{int(live.sum())} with a crossing or a row, {int(got[2].sum())} crossings, "
+              f"{int(got[3].sum())} rows; P bit-equal on every line, dead ones too: {whole}")
+    lines, paths = calls[-1]
+    L, D = lines["line_x0"].shape[0], paths["rect_x0"].shape[0]
+    lib = build.kernels()
+    outs = (torch.empty((L, kline.N_COLS), dtype=torch.float64, device="cuda"),
+            torch.empty((L, kline.N_ROW_COLS), dtype=torch.float64, device="cuda"),
+            torch.empty(L, dtype=torch.int32, device="cuda"),
+            torch.empty(L, dtype=torch.int32, device="cuda"))
+    ins = ([lines[k].data_ptr() for k in kline.LINE_KEYS + ("line_valid", "line_path")]
+           + [paths[k].data_ptr() for k in kline.PATH_KEYS])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        build.check("jello_line_dda", lib.jello_line_dda(
+            *ins, *[o.data_ptr() for o in outs], L, D, stream))
+
+    bare()
+    got = kline.line_tables(lines, paths)
+    if not all(torch.equal(g.view(torch.int64) if g.dtype == torch.float64 else g,
+                           o.view(torch.int64) if o.dtype == torch.float64 else o)
+               for g, o in zip(got, outs)):
+        _fail(f"{tag}: kernel J's bare entry differs from its wrapper")
+    # Bound: each line's ends, flag and path read, its path's five words
+    # (at most D rows), P, the row table and both counts written; ~120
+    # float operations a line.
+    bound = _bound(_nbytes(*[lines[k] for k in kline.LINE_KEYS + ("line_valid", "line_path")],
+                           *[paths[k] for k in kline.PATH_KEYS], *outs), L * 120)
+    ms = _time_ms(lambda: kline.line_tables(lines, paths), 20)
+    bare_ms = _time_ms(bare, 20)
+    plain_ms = _time_ms(lambda: line_tables_plain(lines, paths), n_plain)
+    n_k, n_c = _device_ops(lambda: kline.line_tables(lines, paths))
+    us = _device_us(bare)
+    print(f"kernel J, {tag}: {L} lines of {D} paths: {ms:.4f} ms (the bare C entry "
+          f"{bare_ms:.4f} ms; device "
+          + ("; ".join(f"{k} {v:.1f} us" for k, v in us.items()) or "no event captured")
+          + f") vs plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({100 * bound[0] / bare_ms:.1f}% of the bare entry), {n_k:g} kernels and {n_c:g} "
+          f"memsets or copies a call, on {smi}")
+    if n_k > 1 or n_c > 0:
+        _fail(f"{tag}: kernel J: {n_k:g} kernels and {n_c:g} memsets or copies a call")
+    return err, ms, plain_ms, bound, None, bare_ms
+
+
 def _counters():
     """{kernel: (wrapper, the attribute that counts its launches)}."""
     from jello_tpu_torch.cuda import coverage as kcov
@@ -767,6 +850,7 @@ def _counters():
     from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda import land as kland
+    from jello_tpu_torch.cuda import line_dda as kline
     from jello_tpu_torch.cuda import lockstep as kwalk
     from jello_tpu_torch.cuda import scan as kscan
 
@@ -783,16 +867,17 @@ def _counters():
         "fine_interp": (kint.interpret_tiles, "launches"),
         "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
         "column_scan": (kscan.column_scan, "launches"),
+        "line_dda": (kline.line_tables, "launches"),
     }
 
 
 def _sharded_kernels(path, aa, has_atlas):
     """The kernels a sharded frame must launch: the geometry's (C, D, E,
-    E', E'', I); with `path` "19a" kernel A in its mode and G over the stripe;
+    E', E'', I, J); with `path` "19a" kernel A in its mode and G over the stripe;
     with "19b" A, B and G (fine_hybrid runs G even without a legacy tile)
     and F with an atlas; with "19a_fine_ref" nothing more."""
     out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows",
-           "column_scan"}
+           "column_scan", "line_dda"}
     coverage = "coverage_area" if aa == "area" else "coverage_msaa"
     if path == "19a":
         out |= {coverage, "fine_interp"}
@@ -1106,6 +1191,7 @@ _KERNEL_NAMES = {
     "fine_interp": ("interp_tile_kernel",),
     "fine_interp_b8": ("interp_batch_kernel",),
     "column_scan": ("colscan_apply",),
+    "line_dda": ("line_dda_kernel",),
 }
 
 
@@ -1838,6 +1924,7 @@ def main():
     from jello_tpu_torch.cuda import fine_v2 as kfine
     from jello_tpu_torch.cuda import image_tap as ktap
     from jello_tpu_torch.cuda import land as kland
+    from jello_tpu_torch.cuda import line_dda as kline
     from jello_tpu_torch.cuda import lockstep as kwalk
     from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
     from jello_tpu_torch.cuda.fine_v2 import (
@@ -1892,7 +1979,7 @@ def main():
     # (resident CTAs a multiprocessor times the multiprocessors, from
     # those registers and its shared memory).
     for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu", "image_tap.cu",
-                "fine_interp.cu", "scan.cu"):
+                "fine_interp.cu", "scan.cu", "line_dda.cu"):
         for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B, static shared memory {smem} B")
@@ -2017,7 +2104,7 @@ def main():
     out = {}
     calls = _record_calls(
         [(kland, "monotone_land"), (kwalk, "lockstep_walk"), (kx, "expand_euler"),
-         (kx, "expand_crossings"), (kx, "expand_rows")],
+         (kx, "expand_crossings"), (kx, "expand_rows"), (kline, "line_tables")],
         lambda: out.update(stages=geometry(scene_t, layout_t, caps)[0]))
     stages = out["stages"]
     cmds, counted = stages["cmds"], stages["counted"]
@@ -2135,7 +2222,8 @@ def main():
         return held
 
     geometry_wrappers = [(kland, "monotone_land"), (kwalk, "lockstep_walk"),
-                         (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows")]
+                         (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows"),
+                         (kline, "line_tables")]
     held3 = hold_geometry_kernels(calls, "config 3")
     res = {}
     # C, at all three call sites; timed at the sorted-run landing (K = 3).
@@ -2298,6 +2386,7 @@ def main():
         return out
 
     res.update(time_geometry_kernels(calls, held3, "config 3", 1))
+    j3 = _kernel_j(calls["line_tables"], "config 3", smi, 5)
     del calls, held3, got, warm
 
     # ---- 7. config 5: kernel F, and kernel B with the tap's table --------
@@ -2354,6 +2443,8 @@ def main():
     for k, v in held5.items():
         res[k] = (max(res[k][0], v[0]),) + res[k][1:]
     time_geometry_kernels(calls5, held5, "config 5", 0)
+    res["J"] = _kernel_j(calls5["line_tables"], "config 5", smi, 3)
+    res["J"] = (max(res["J"][0], j3[0]),) + res["J"][1:]
     del calls5, held5, stream, rs, re_, bd, eo, lens
     area5, ids5, _ = compute_area_rows(cmds, counted, caps)
     rec5 = build_records(dict(cmds, area_row=ids5), caps)
@@ -3395,6 +3486,9 @@ def main():
         # of the same call's stacked columns.
         dict(entry("column_scan", "scan.cu", "", *res["I"][:6]), replaces=None,
              launches_a_replay=res["I"][6], innermost_ms=res["I"][7]),
+        # Kernel J replaces no Pallas kernel either (jello_tpu leaves the
+        # per-line half of path_count to XLA); its numbers at config 5.
+        dict(entry("line_dda", "line_dda.cu", "", *res["J"]), replaces=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

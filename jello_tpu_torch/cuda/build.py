@@ -109,6 +109,10 @@ SIGNATURES = {
     # [k] i32 or null, partial [k * ceil(N / cuda.scan.TILE)] i32 or null
     # (one tile), stream
     "jello_column_scan": [P, I, I, I, I, I, P, P, P, P],
+    # line x0, y0, x1, y1 [L] f32, valid [L] bool, path [L] i32, the paths'
+    # rect x0, y0, x1, y1 and tile offset [D] i32, P [L, 21] f64, the row
+    # table [L, 5] f64, n_cross, n_rows [L] i32, L, D, stream
+    "jello_line_dda": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, P],
 }
 
 

@@ -43,7 +43,8 @@ from ..pipeline.flatten import decode_tag_stream, finalize_path_bbox, flatten_st
 from ..pipeline.ops import F32, I32
 from ..pipeline.pathtag import monoid_delta_totals
 from ..pipeline.render import draw_stages
-from ..pipeline.tiling import SEG_KEYS, path_count_expansions, path_count_params
+from ..pipeline.tiling import SEG_KEYS, path_count_expansions
+from . import line_dda
 from .collectives import all_gather, all_to_all, pmax, psum
 from .fine_hybrid import fine_hybrid
 from .program import FrameProgram, Programs, caps_key, key_summary, program_key
@@ -184,9 +185,9 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None, grown=
         dm, info, tag, dtab, draw_bbox, paths = draw_stages(scene, layout, fl, caps)
 
         # ---- path_count on the rank's lines ----------------------------
-        P, n_cross, n_rows, _ = path_count_params(fl, paths, caps_l)
+        P, PRT, n_cross, n_rows = line_dda.line_tables(fl, paths)
         (tile_slot, seg_pre, bump_slot, bump_delta, c_total, r_slot, r_delta, r_total,
-         compact_overflow) = path_count_expansions(P, n_cross, n_rows, caps_l)
+         compact_overflow) = path_count_expansions(P, PRT, n_cross, n_rows, caps_l)
         bd = torch.zeros(T + 1, dtype=I32, device=dev)
         bd = ops.scatter_add(ops.scatter_add(bd, r_slot, r_delta), bump_slot, bump_delta)
         bd = psum(group, bd[:T])

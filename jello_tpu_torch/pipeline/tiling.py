@@ -8,7 +8,9 @@ scatter/cummax and counts per tile by scatter-add; the `_expand_pallas`
 branch (`tiling.py:389-490` and `_sort_count_tail`'s sorted runs)
 compacts nonzero lines through kernel C, expands through kernels E' and
 E'' and counts per tile from the sorted stream's run boundaries. Both
-share the per-output bodies (`crossings`, `backdrop_rows`). Every line
+share the per-output bodies (`crossings`, `backdrop_rows`) and the
+per-line tables, built on the card by kernel J (`cuda/line_dda.py`; its
+plain version `line_tables_plain`). Every line
 is rasterized across tiles by the reference's closed-form DDA; a stable
 sort of crossings by tile slot replaces the atomic slice allocation.
 All integer outputs match the oracle exactly.
@@ -185,12 +187,12 @@ def line_dda_clip(x0, y0, x1, y1, lvalid, bb0, bb1, bb2, bb3):
     }
 
 
-def path_count_params(lines, paths, caps):
-    """The per-line half of path_count: each line's DDA and bbox-clip
-    parameters (`jello_tpu/pipeline/tiling.py:259-341`). Returns (P [L,
-    21] f64 table, n_cross [L] i32, n_rows_per_line [L] i32, the five
-    backdrop-row columns (ymin f32, tiles_base i32, bb1 f32, stride i32,
-    delta i32))."""
+def line_tables_plain(lines, paths):
+    """The per-line half of path_count in torch: kernel J's plain version
+    (`cuda/line_dda.py::line_tables`) and its CPU route. Each line's DDA
+    and bbox-clip parameters (`jello_tpu/pipeline/tiling.py:259-341`).
+    Returns (P [L, 21] f64 table, its ROW_COLS columns [L, 5] f64,
+    n_cross [L] i32, n_rows_per_line [L] i32)."""
     pidx = torch.clamp(lines["line_path"], max=paths["rect_x0"].shape[0] - 1)
     ptab = torch.stack([paths["rect_x0"], paths["rect_y0"], paths["rect_x1"],
                         paths["rect_y1"], paths["tile_offset"]], dim=1).to(F32)
@@ -205,9 +207,21 @@ def path_count_params(lines, paths, caps):
         prow[:, 0], prow[:, 1], prow[:, 2], d["stride"], prow[:, 4], d["s0y"],
         d["delta"], d["ymin"], d["xy0x"], d["xy0y"], d["xy1x"], d["xy1y"],
         d["is_down"], d["count"], d["is_positive"])], dim=1)
-    prt = (d["ymin"], prow[:, 4].to(I32), prow[:, 1], d["stride"].to(I32),
-           d["delta"].to(I32))
-    return P, d["n_cross"].to(I32), d["n_rows"].to(I32), prt
+    return P, row_table(P), d["n_cross"].to(I32), d["n_rows"].to(I32)
+
+
+def path_count_params(lines, paths, caps):
+    """The per-line half of path_count (`jello_tpu/pipeline/tiling.py:
+    259-341`), through kernel J on the card. Returns (P [L, 21] f64 table,
+    n_cross [L] i32, n_rows_per_line [L] i32, the five backdrop-row
+    columns (ymin f64, tiles_base i32, bb1 f32, stride i32, delta
+    i32))."""
+    from ..cuda.line_dda import line_tables
+
+    P, PRT, n_cross, n_rows = line_tables(lines, paths)
+    prt = (PRT[:, 0], PRT[:, 1].to(I32), PRT[:, 2].to(F32), PRT[:, 3].to(I32),
+           PRT[:, 4].to(I32))
+    return P, n_cross, n_rows, prt
 
 
 def path_count(lines, paths, caps):
@@ -220,7 +234,9 @@ def path_count(lines, paths, caps):
     SC = caps["seg_cap"]
     RC = caps["row_cap"]
 
-    P, n_cross, n_rows_per_line, _ = path_count_params(lines, paths, caps)
+    from ..cuda.line_dda import line_tables
+
+    P, PRT, n_cross, n_rows_per_line = line_tables(lines, paths)
     stats = {
         "real_cross": n_cross.sum(),
         "real_bd_rows": n_rows_per_line.sum(),
@@ -228,12 +244,12 @@ def path_count(lines, paths, caps):
         "real_bd_lines": (n_rows_per_line > 0).to(I32).sum(),
     }
     if caps.get("_expand_pallas"):
-        return _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats)
+        return _path_count_expand(P, PRT, n_cross, n_rows_per_line, paths, caps, stats)
     zeros_t1 = torch.zeros(T + 1, dtype=I32, device=dev)
 
     # Backdrop row deltas (column 0 of each path row).
     r_rec, r_within, r_valid, _, r_total = expand_by_counts(n_rows_per_line, RC)
-    PR = ops.gather_guarded(row_table(P), r_rec)
+    PR = ops.gather_guarded(PRT, r_rec)
     r_slot, r_delta = backdrop_rows(PR, r_within, r_valid, T)
     backdrop = ops.scatter_add(zeros_t1, r_slot, r_delta)
 
@@ -258,9 +274,9 @@ ROW_COLS = [13, 10, 7, 9, 12]
 
 
 def row_table(P):
-    """P's ROW_COLS columns, [L, 5]. Taken column by column: indexing with
-    the list copies it to the device, which makes the host wait for the
-    queue."""
+    """P's ROW_COLS columns, [L, 5] (kernel J writes them beside P on the
+    card). Taken column by column: indexing with the list copies it to
+    the device, which makes the host wait for the queue."""
     return torch.stack([P[:, c] for c in ROW_COLS], dim=1)
 
 
@@ -318,14 +334,15 @@ def crossings(PC, within, valid, T):
     return tile_slot, seg, bump_slot, bump_delta
 
 
-def path_count_expansions(P, n_cross, n_rows_per_line, caps):
+def path_count_expansions(P, PRT, n_cross, n_rows_per_line, caps):
     """The lines' crossings and backdrop rows on jello_tpu's
     `_expand_pallas` route: both nonzero-line compactions land through
     kernel C, and the crossing and row expansions run as kernels E' and
     E'' on the compacted tables (`jello_tpu/pipeline/tiling.py:389-448`
     with `tpu/expand_pallas.py::path_count_expansions(assume_compact=
-    True)`). Returns (tile_slot, segments dict of f64, bump_slot,
-    bump_delta, c_total, r_slot, r_delta, r_total, compact_overflow)."""
+    True)`) on `line_tables`' P and row table (PRT). Returns (tile_slot,
+    segments dict of f64, bump_slot, bump_delta, c_total, r_slot,
+    r_delta, r_total, compact_overflow)."""
     from ..cuda import expand as kx
     from ..cuda.land import monotone_land
 
@@ -352,7 +369,7 @@ def path_count_expansions(P, n_cross, n_rows_per_line, caps):
     # (ROADMAP queue 3 rule 5); jello_tpu's kernel reads it as float32.
     Pc = ops.gather_guarded(P, idx_c)
     ncc = torch.where(ops.iota(LCC, dev) < n_nz_c, ops.gather_guarded(n_cross, idx_c), 0)
-    PRTc = ops.gather_guarded(row_table(P), idx_r)
+    PRTc = ops.gather_guarded(PRT, idx_r)
     nrr = torch.where(ops.iota(RLC, dev) < n_nz_r,
                       ops.gather_guarded(n_rows_per_line, idx_r), 0)
 
@@ -361,7 +378,7 @@ def path_count_expansions(P, n_cross, n_rows_per_line, caps):
     return crossings + rows + (compact_overflow,)
 
 
-def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
+def _path_count_expand(P, PRT, n_cross, n_rows_per_line, paths, caps, stats):
     """path_count on jello_tpu's `_expand_pallas` route
     (`jello_tpu/pipeline/tiling.py:389-490`): `path_count_expansions`,
     with the top-edge bumps riding the slot sort (`_sort_count_tail`'s
@@ -373,7 +390,7 @@ def _path_count_expand(P, n_cross, n_rows_per_line, paths, caps, stats):
     SC = caps["seg_cap"]
     RC = caps["row_cap"]
     (tile_slot, seg_pre, bump_slot, bump_delta, c_total, r_slot, r_delta, r_total,
-     compact_overflow) = path_count_expansions(P, n_cross, n_rows_per_line, caps)
+     compact_overflow) = path_count_expansions(P, PRT, n_cross, n_rows_per_line, caps)
     backdrop = ops.scatter_add(torch.zeros(T + 1, dtype=I32, device=dev), r_slot, r_delta)
 
     # Top-edge bumps ride the sort as a sixth payload where the bump

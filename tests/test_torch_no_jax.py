@@ -120,7 +120,7 @@ def test_torch_port_sources_do_not_import_jax_or_jello_tpu():
     for path in files + [REPO / "chip_smoke.py", REPO / "tools" / "torch_frame_times.py",
                          REPO / "tools" / "sharded_frames.py", REPO / "tools" / "nccl_one_card.py",
                          REPO / "tools" / "compiled_frames.py", REPO / "tools" / "replay_crash.py",
-                         REPO / "tools" / "graph_kernels.py",
+                         REPO / "tools" / "graph_kernels.py", REPO / "tools" / "path_count_ops.py",
                          REPO / "examples" / "render_demo_torch.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
