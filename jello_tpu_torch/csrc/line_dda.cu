@@ -14,7 +14,7 @@
 // offset as float32; every step of line_dda_clip in its own precision,
 // float32 up to the robustness nudge of `a` and float64 from there, at
 // the same promotion points; outputs P [L, 21] float64 (the columns of
-// tiling.py::path_count_params, in order), the row table [L, 5] float64
+// tiling.py::line_tables_plain, in order), the row table [L, 5] float64
 // (P's columns ymin, tiles_base, bb1, stride, delta) and the crossing
 // and backdrop-row counts, int32.
 //
@@ -41,7 +41,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 21;    // P's columns (tiling.py::path_count_params)
+constexpr int kCols = 21;    // P's columns (tiling.py::line_tables_plain)
 constexpr int kRowCols = 5;  // the row table's (tiling.py::ROW_COLS)
 constexpr float kTileScale = 1.0f / 16.0f;
 constexpr float kOneMinusUlp = 0.99999994f;
@@ -89,7 +89,7 @@ __device__ __forceinline__ double row_index(float e, float y0i, float b, double 
   return (double)y0i + f - floor(a * f + (double)b) < (double)e ? f + 1.0 : f;
 }
 
-// One line's P row (v) and counts: line_dda_clip and path_count_params
+// One line's P row (v) and counts: line_dda_clip and line_tables_plain
 // for line i.
 __device__ __forceinline__ void line_row(
     int i, const float* __restrict__ lx0, const float* __restrict__ ly0,

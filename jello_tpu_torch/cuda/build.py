@@ -233,20 +233,33 @@ def copy_to(t, device):
     return t.to(device, non_blocking=device.type == "cuda")
 
 
-def device_to_host(t):
-    """A tensor's values as a host numpy array. From a CUDA device, one
-    copy into page-locked memory from torch's host cache, which the array
-    keeps until it is dropped: a pageable read (`.cpu()`) stages through
-    the driver into memory the host allocates afresh, and how long that
-    takes varies by process (on an H100's host, 5.3 ms for an 8.3 MB
-    1080p surface in some processes, about 1 ms in others)."""
+def pinned_read(t):
+    """Enqueue the read of a tensor's values to the host: (host tensor,
+    CUDA event or None). From a CUDA device, one copy on the device's
+    current stream into page-locked memory from torch's host cache,
+    behind an event that must complete before the host tensor is read;
+    the host tensor keeps that memory until it is dropped. A pageable
+    read (`.cpu()`) stages through CUDA's own bounce buffer into memory
+    the host allocates afresh, and how long that takes varies by process
+    (on an H100's host, 5.3 ms for an 8.3 MB 1080p surface in some
+    processes, about 1 ms in others). From any other device the values,
+    and no event."""
     import torch
 
     if not t.is_cuda:
-        return t.cpu().numpy()
+        return t.cpu(), None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
+def device_to_host(t):
+    """A tensor's values as a host numpy array: `pinned_read`, waited for."""
+    host, event = pinned_read(t)
+    if event is not None:
+        event.synchronize()
     return host.numpy()
 
 

@@ -100,7 +100,7 @@ from ..renderer.estimate import (
 )
 from ..renderer.params import RenderParams
 from ..renderer.resolve import Resolver
-from .build import copy_to, device_to_host, host_to_device, pinned
+from .build import copy_to, device_to_host, host_to_device, pinned, pinned_read
 from .fine_hybrid import fine_hybrid
 from .fine_v2 import assemble_compact, fine_v2
 from .program import FrameProgram, Programs, caps_key, key_summary, map_tensors, program_key
@@ -206,20 +206,18 @@ def frame_routing(n_clips: int, has_atlas: bool, clip_depth: int,
     """jello_tpu's routing on its accelerator (`tpu/render.py:332-365`),
     set per frame and never kept in the class that calibrate_caps and
     grow_caps see: the antialiasing mode ("area", "msaa8", "msaa16"), read
-    by the coverage and fine stages; the streaming expansions (kernels C,
-    D, E) always; for
-    a scene with an atlas the image tap (kernel F) unless `image_tap` is
-    off (JELLO_IMAGE_TAP=0); for a clip-free frame the dense coarse
-    branch; the 8-tile
-    interpreter (kernel H) under JELLO_INTERP_BATCH=1, the reference's own
-    switch. `clip_depth_cap`, the clip walk's trip count, is the scene's
+    by the coverage and fine stages; for a scene with an atlas the image
+    tap (kernel F) unless `image_tap` is off (JELLO_IMAGE_TAP=0); for a
+    clip-free frame the dense coarse branch; the 8-tile interpreter
+    (kernel H) under JELLO_INTERP_BATCH=1, the reference's own switch.
+    `clip_depth_cap`, the clip walk's trip count, is the scene's
     own nesting depth rounded up to a power of two, so that scenes of
     nearby depths share a class (a level past the deepest begin changes
     nothing), and at most `clips.MAX_CLIP_DEPTH` = 64: jello_tpu's
     accelerator route walks `caps.get("clip_depth_cap", MAX_CLIP_DEPTH)`
     levels for every scene (`jello_tpu/pipeline/clips.py:117`), so a
     begin nested deeper matches no level there, nor here."""
-    routing = {"_expand_pallas": True, "aa_mode": aa_mode}
+    routing = {"aa_mode": aa_mode}
     if has_atlas and image_tap:
         routing["_image_tap"] = True
     if n_clips == 0:
@@ -259,15 +257,10 @@ def unpack_stamps(values, fkeys, skeys):
     return np.asarray(tail, dtype=np.int32).view(np.int64).tolist() if tail else None
 
 
-def fetch_flags(packed, fkeys, skeys):
-    """Read a `pack_flags` vector to the host (one copy; the host waits
-    for the frame) -> (flags, stats)."""
-    return fetch_frame(packed, fkeys, skeys)[:2]
-
-
 def fetch_frame(packed, fkeys, skeys):
-    """`fetch_flags` with the frame's stamps (`unpack_stamps`), from the
-    same read -> (flags, stats, stamps)."""
+    """Read a `pack_flags` vector to the host (one copy; the host waits
+    for the frame) -> (flags, stats, the frame's stamps or None,
+    `unpack_stamps`)."""
     values = packed.cpu().tolist()
     return unpack_flags(values, fkeys, skeys) + (unpack_stamps(values, fkeys, skeys),)
 
@@ -794,7 +787,7 @@ class Renderer:
             raise RuntimeError("read_flags: no frame rendered with check_flags=False is unread")
         flags, stats = {}, {}
         for (fkeys, skeys), packed in self.unread_flags.items():
-            f, s = fetch_flags(packed, fkeys, skeys)
+            f, s, _ = fetch_frame(packed, fkeys, skeys)
             raised = sorted(k for k, v in f.items() if v)
             if raised:
                 self.flags_history.append(raised)
@@ -860,15 +853,7 @@ class Frame:
             packed, fkeys, skeys = unread
             parts.append(packed.view(torch.uint8))
             self._keys = (fkeys, skeys)
-        buf = torch.cat(parts)
-        self._event = None
-        if buf.is_cuda:
-            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-            buf = host
-        self._host = buf
+        self._host, self._event = pinned_read(torch.cat(parts))
         self._pixels = None
         # The frame's flags, and its device ms by stage (None for a frame
         # with no stage clock): read when the frame was rendered checked

@@ -23,10 +23,10 @@ collectives copy through the host, and on the CPU it runs the frame
 function into the program's static outputs: the group's backend decides.
 
 Also the helpers the multi-GPU paths share: the host inputs of a frame
-as the ranks take them (`frame_inputs`, `sharded_caps`), the flags of a
-frame packed as a program returns them and read (`packed_frame`,
-`read_flags`), and a rank's part of a list of frames (`rank_frames`, a
-`collectives.run_ranks` target).
+as the ranks take them (`frame_inputs`, `sharded_caps`), a frame as a
+program returns it, its flags packed (`packed_frame`; read with
+`render.fetch_frame`), and a rank's part of a list of frames
+(`rank_frames`, a `collectives.run_ranks` target).
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from .render import (
     WALK_KEYS,
     build_layout_dict,
     clip_nesting_depth,
+    fetch_frame,
     frame_routing,
     pack_flags,
     upload,
@@ -142,11 +143,6 @@ def packed_frame(run):
     return frame_fn
 
 
-def read_flags(packed, fkeys):
-    """{name: bool} of a packed frame's flags (one read to the host)."""
-    return dict(zip(fkeys, (bool(v) for v in packed.cpu().tolist())))
-
-
 class StripeFrames:
     """This rank's stripe-sharded frames, one program a settled class
     (module docstring): kernel G over the stripe with `pallas_fine`, else
@@ -195,7 +191,7 @@ class StripeFrames:
                     inputs, self.frame_fn(caps, *inputs), capture=self.capture),
                     key_summary(key))
                 fine_out, packed, fkeys, stats = self.last_program.run(inputs)
-            flags = read_flags(packed, fkeys)
+            flags = fetch_frame(packed, fkeys, ())[0]
             if walk and flags.get("ref_walk_overflow"):
                 grown = grow_caps(dict(caps, **walk), flags)
                 self._settled[cls] = {k: grown[k] for k in WALK_KEYS}

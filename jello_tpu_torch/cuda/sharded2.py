@@ -48,7 +48,8 @@ from . import line_dda
 from .collectives import all_gather, all_to_all, pmax, psum
 from .fine_hybrid import fine_hybrid
 from .program import FrameProgram, Programs, caps_key, key_summary, program_key
-from .sharded import packed_frame, read_flags
+from .render import fetch_frame
+from .sharded import packed_frame
 
 
 def _align(v, q):
@@ -160,7 +161,7 @@ def make_sharded_render(group, caps_global, debug=False, seg_ex_cap=None, grown=
     # the exchange [n, seg_ex_cap, 8], the stripes [GRID / n, 4, 256], the
     # flags and loads [K + len(LOAD_KEYS)]), and tag_lo and the exchange
     # read n_tag_slots and seg_ex_cap, which are the same on every rank.
-    caps_l = dict(rank_caps(caps, n, d, grown, seg_ex_cap), _expand_pallas=True)
+    caps_l = rank_caps(caps, n, d, grown, seg_ex_cap)
     N_l = caps_l["n_tag_slots"]
     PEX = caps_l["seg_ex_cap"]
     CC_l = caps_l["cmd_cap"]
@@ -456,7 +457,7 @@ class RetryingRender:
                 fine_out, packed, keys, rep = self.last_program.run(inputs)
             else:
                 fine_out, packed, keys, rep = self.frame_fn(caps, *inputs)(*inputs)
-            flags = read_flags(packed, keys)
+            flags = fetch_frame(packed, keys, ())[0]
             raised = [k for k in keys if flags[k]]
             if not raised:
                 self._settled.add(key)

@@ -2,19 +2,16 @@
 
 Counterpart of `jello_tpu/pipeline/flatten.py::flatten_stage` and its
 helpers (`decode_tag_stream`, `slot_geometry`, `expand_by_counts`,
-`euler_line_points`, `finalize_path_bbox`) on both of its routes. With
-`_expand_pallas` in caps (what the renderer sets, as jello_tpu's does
-on its accelerator) the worklist marks land through kernel C, the
-adaptive subdivision walk is kernel D and the Euler lines come from
-kernel E. Without it, the walk runs as a fixed-length masked loop over
-all work items at once (`lockstep.lockstep_walk`) and every expansion
-is count -> exclusive scan -> scatter of record ids -> cummax.
+`euler_line_points`, `finalize_path_bbox`) on jello_tpu's accelerator
+route: the worklist marks land through kernel C, the adaptive
+subdivision walk is kernel D and the Euler lines come from kernel E (on
+CPU tensors, their plain versions).
 
 One slot per path tag byte. Fills are flattened in device space with
 zero offset; the stroke families (offsets, caps, joins, round arcs)
-share the per-slot geometry and come along, though the renderer refuses
-strokes for now. Line end points are computed independently per line
-and chained watertight by shifting within each (work item, pass) group.
+share the per-slot geometry. Line end points are computed independently
+per line and chained watertight by shifting within each (work item,
+pass) group.
 """
 
 from __future__ import annotations
@@ -145,9 +142,9 @@ def expand_by_counts(counts, out_cap, total=None, land=False):
     exclusive offset (offsets of nonzero records are distinct and
     increasing), and a running max (one column scan of both, kernel I)
     fills both forward across the record's run. The marks are a scatter,
-    or with `land` they land through kernel C, as on jello_tpu's
-    `_expand_pallas` route (`flatten.py:396-415`); both give the same
-    result.
+    or with `land` they land through kernel C, as jello_tpu's worklist
+    marks do on its accelerator (`flatten.py:396-415`); both give the
+    same result.
     Returns (rec, within, valid, excl, total)."""
     from ..cuda.scan import column_scan
 
@@ -403,6 +400,9 @@ def flatten_stage(scene, layout, caps, shard=None):
     (`jello_tpu/pipeline/flatten.py:728-780`). Either way it returns the
     raw per-path bbox accumulator `bb_acc` too, for the caller to combine
     across shards by maximum before `finalize_path_bbox`."""
+    from ..cuda import expand as kx
+    from ..cuda.lockstep import lockstep_walk
+
     dev = scene.device
     N = caps["n_tag_slots"]
     IT = caps["max_iters"]
@@ -470,31 +470,22 @@ def flatten_stage(scene, layout, caps, shard=None):
     act_a32 = g["act_a"].to(I32)
     act_b32 = g["act_b"].to(I32)
     counts2 = torch.cat([act_a32, act_b32])
-    # jello_tpu's `_expand_pallas` route (`flatten.py:900-954`): the
-    # worklist marks land through kernel C, the walk is kernel D and
-    # the Euler lines come from kernel E.
-    expand_route = bool(caps.get("_expand_pallas"))
-    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB, land=expand_route)
+    # jello_tpu's accelerator route (`flatten.py:900-954`): the worklist
+    # marks land through kernel C, the walk is kernel D and the Euler
+    # lines come from kernel E.
+    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB, land=True)
     na = act_a32.sum()
     nb = act_b32.sum()
 
     tab2 = torch.cat([torch.stack(g["tabA"], dim=1), torch.stack(g["tabB"], dim=1)])
     rows = ops.gather_guarded(tab2, wl)
     EC = caps["euler_line_cap"]
-    if expand_route:
-        from ..cuda import expand as kx
-        from ..cuda.lockstep import lockstep_walk
-
-        rec, count, not_done, lockstep_iters = lockstep_walk(rows, wl_valid, IT)
-        # e_total counts one dead slot per zero-count work row (the
-        # expansion's clamp): it sizes the stream; e_real is the lines.
-        e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = kx.expand_euler(
-            rows, rec, count.to(I32), EC, n_paths_cap)
-        e_real = count.sum().to(I32)
-    else:
-        rec, _, not_done, lockstep_iters = lockstep.lockstep_walk(rows, wl_valid, IT)
-        e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = _euler_lines_xla(rows, rec, EC)
-        e_real = e_total
+    rec, count, not_done, lockstep_iters = lockstep_walk(rows, wl_valid, IT)
+    # e_total counts one dead slot per zero-count work row (the
+    # expansion's clamp): it sizes the stream; e_real is the lines.
+    e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = kx.expand_euler(
+        rows, rec, count.to(I32), EC, n_paths_cap)
+    e_real = count.sum().to(I32)
     overflow_euler = not_done.any() | (nab > NWAB)
 
     # Simple lines + arc lines: one merged per-slot expansion over the
@@ -592,37 +583,6 @@ def flatten_stage(scene, layout, caps, shard=None):
         "path_trans_idx": path_trans_idx,
         "overflow": overflow,
     }
-
-
-def _euler_lines_xla(rows, rec, EC):
-    """Euler records -> lines by scatter/cummax over the records,
-    flattened work-item-major so each item's records are contiguous in
-    emission order; a line starts where the item's previous line ends.
-    Returns (x0, y0, x1, y1, path, valid, total)."""
-    IT = rec.shape[1]
-    rec_t0, rec_t1, rec_n = (r.t().reshape(-1) for r in rec)
-    rec_idx, within, e_valid, excl, e_total = expand_by_counts(rec_n, EC)
-    e_work = rec_idx // IT
-    row = ops.gather_guarded(rows, e_work)
-    P8l = tuple(row[:, i] for i in range(8))
-    Tl = [row[:, 14 + i] for i in range(6)]
-    recs_pack = torch.stack([rec_t0, rec_t1, rec_n, excl.to(F32)], dim=1)
-    rrow = ops.gather_guarded(recs_pack, rec_idx)
-    lp1x, lp1y = euler_line_points(
-        P8l, rrow[:, 0], rrow[:, 1], within, rrow[:, 2], row[:, 8], row[:, 9],
-        row[:, 12], row[:, 13])
-    group_start = ops.gather_guarded(recs_pack, e_work * IT)[:, 3].to(I32)
-    is_first = ops.iota(EC, rows.device) == group_start
-    prev1x = torch.cat([lp1x[:1] * 0, lp1x[:-1]])
-    prev1y = torch.cat([lp1y[:1] * 0, lp1y[:-1]])
-    lp0x = torch.where(is_first, row[:, 10], prev1x)
-    lp0y = torch.where(is_first, row[:, 11], prev1y)
-    swap = row[:, 8] < 0.0
-    e_x0, e_y0 = apply_transform(Tl, torch.where(swap, lp1x, lp0x),
-                                 torch.where(swap, lp1y, lp0y))
-    e_x1, e_y1 = apply_transform(Tl, torch.where(swap, lp0x, lp1x),
-                                 torch.where(swap, lp0y, lp1y))
-    return e_x0, e_y0, e_x1, e_y1, row[:, 20].to(I32), e_valid, e_total
 
 
 def finalize_path_bbox(bb_acc):

@@ -185,8 +185,7 @@ def image_tap(rec, cmds, atlas, layout, caps):
     IRC = caps.get("img_recs_cap", IMG_RECS_CAP_DEFAULT)
     tile = cmds["tile"]
     P = (cmds["kind"] == CMD_IMAGE) & (tile < grid) & (tile >= 0)
-    irec, _, ivalid, _, n_img = expand_by_counts(
-        P.to(I32), IRC, land=bool(caps.get("_expand_pallas")))
+    irec, _, ivalid, _, n_img = expand_by_counts(P.to(I32), IRC, land=True)
     tap_rec = torch.where(ivalid[:, None], ops.gather_guarded(rec, irec), 0).contiguous()
     fg_tab, region_ovf = tap_records(tap_rec, atlas, layout["width_in_tiles"], grid)
     return fg_tab, region_ovf, n_img > IRC

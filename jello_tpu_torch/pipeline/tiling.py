@@ -2,18 +2,16 @@
 clipping, backdrop propagation.
 
 Counterpart of `jello_tpu/pipeline/tiling.py`: `tile_alloc`,
-`path_count` on both of its branches and `path_tiling`. The plain-array
-branch (`tiling.py:491-570`) expands rows and crossings by
-scatter/cummax and counts per tile by scatter-add; the `_expand_pallas`
-branch (`tiling.py:389-490` and `_sort_count_tail`'s sorted runs)
-compacts nonzero lines through kernel C, expands through kernels E' and
-E'' and counts per tile from the sorted stream's run boundaries. Both
-share the per-output bodies (`crossings`, `backdrop_rows`) and the
-per-line tables, built on the card by kernel J (`cuda/line_dda.py`; its
-plain version `line_tables_plain`). Every line
-is rasterized across tiles by the reference's closed-form DDA; a stable
-sort of crossings by tile slot replaces the atomic slice allocation.
-All integer outputs match the oracle exactly.
+`path_count` on jello_tpu's accelerator route (`tiling.py:389-490` and
+`_sort_count_tail`'s sorted runs) and `path_tiling`. The per-line tables
+are built by kernel J (`cuda/line_dda.py`; its plain version
+`line_tables_plain`); nonzero lines are compacted through kernel C,
+expanded into crossings and backdrop rows through kernels E' and E''
+(their bodies `crossings` and `backdrop_rows`), and counted per tile
+from the sorted stream's run boundaries. Every line is rasterized across
+tiles by the reference's closed-form DDA; a stable sort of crossings by
+tile slot replaces the atomic slice allocation. All integer outputs
+match the oracle exactly.
 """
 
 from __future__ import annotations
@@ -210,64 +208,6 @@ def line_tables_plain(lines, paths):
     return P, row_table(P), d["n_cross"].to(I32), d["n_rows"].to(I32)
 
 
-def path_count_params(lines, paths, caps):
-    """The per-line half of path_count (`jello_tpu/pipeline/tiling.py:
-    259-341`), through kernel J on the card. Returns (P [L, 21] f64 table,
-    n_cross [L] i32, n_rows_per_line [L] i32, the five backdrop-row
-    columns (ymin f64, tiles_base i32, bb1 f32, stride i32, delta
-    i32))."""
-    from ..cuda.line_dda import line_tables
-
-    P, PRT, n_cross, n_rows = line_tables(lines, paths)
-    prt = (PRT[:, 0], PRT[:, 1].to(I32), PRT[:, 2].to(F32), PRT[:, 3].to(I32),
-           PRT[:, 4].to(I32))
-    return P, n_cross, n_rows, prt
-
-
-def path_count(lines, paths, caps):
-    """Per-line crossings and backdrop rows -> slot-sorted segments,
-    per-tile counts/starts and the backdrop prefix (cpu.go PathCount +
-    PathTiling). With `_expand_pallas` in caps the expansions run on
-    jello_tpu's streaming route (`_path_count_expand`)."""
-    dev = lines["line_x0"].device
-    T = caps["tiles_cap"]
-    SC = caps["seg_cap"]
-    RC = caps["row_cap"]
-
-    from ..cuda.line_dda import line_tables
-
-    P, PRT, n_cross, n_rows_per_line = line_tables(lines, paths)
-    stats = {
-        "real_cross": n_cross.sum(),
-        "real_bd_rows": n_rows_per_line.sum(),
-        "real_cross_lines": (n_cross > 0).to(I32).sum(),
-        "real_bd_lines": (n_rows_per_line > 0).to(I32).sum(),
-    }
-    if caps.get("_expand_pallas"):
-        return _path_count_expand(P, PRT, n_cross, n_rows_per_line, paths, caps, stats)
-    zeros_t1 = torch.zeros(T + 1, dtype=I32, device=dev)
-
-    # Backdrop row deltas (column 0 of each path row).
-    r_rec, r_within, r_valid, _, r_total = expand_by_counts(n_rows_per_line, RC)
-    PR = ops.gather_guarded(PRT, r_rec)
-    r_slot, r_delta = backdrop_rows(PR, r_within, r_valid, T)
-    backdrop = ops.scatter_add(zeros_t1, r_slot, r_delta)
-
-    # Crossings, with their top-edge bumps.
-    c_rec, c_within, c_valid, _, c_total = expand_by_counts(n_cross, SC)
-    tile_slot, seg_pre, bump_slot, bump_delta = crossings(
-        ops.gather_guarded(P, c_rec), c_within, c_valid, T)
-    backdrop = ops.scatter_add(backdrop, bump_slot, bump_delta)
-
-    # Stable slot sort replaces the atomic slice allocation.
-    sorted_out = ops.sort_multi(tile_slot, tuple(seg_pre[k] for k in SEG_KEYS))
-    binc = ops.scatter_add(
-        zeros_t1, torch.where((tile_slot >= 0) & (tile_slot < T), tile_slot, T),
-        torch.ones(SC, dtype=I32, device=dev))
-    return _count_tail(sorted_out, binc, backdrop, paths, c_total, r_total,
-                       (c_total > SC) | (r_total > RC), stats)
-
-
 # Columns of the P table that the backdrop-row expansion reads: ymin,
 # tiles_base, bb1, stride, delta (jello_tpu's PRT table).
 ROW_COLS = [13, 10, 7, 9, 12]
@@ -335,8 +275,8 @@ def crossings(PC, within, valid, T):
 
 
 def path_count_expansions(P, PRT, n_cross, n_rows_per_line, caps):
-    """The lines' crossings and backdrop rows on jello_tpu's
-    `_expand_pallas` route: both nonzero-line compactions land through
+    """The lines' crossings and backdrop rows as jello_tpu expands them on
+    its accelerator: both nonzero-line compactions land through
     kernel C, and the crossing and row expansions run as kernels E' and
     E'' on the compacted tables (`jello_tpu/pipeline/tiling.py:389-448`
     with `tpu/expand_pallas.py::path_count_expansions(assume_compact=
@@ -378,17 +318,27 @@ def path_count_expansions(P, PRT, n_cross, n_rows_per_line, caps):
     return crossings + rows + (compact_overflow,)
 
 
-def _path_count_expand(P, PRT, n_cross, n_rows_per_line, paths, caps, stats):
-    """path_count on jello_tpu's `_expand_pallas` route
-    (`jello_tpu/pipeline/tiling.py:389-490`): `path_count_expansions`,
-    with the top-edge bumps riding the slot sort (`_sort_count_tail`'s
-    sorted-run branch)."""
+def path_count(lines, paths, caps):
+    """Per-line crossings and backdrop rows -> slot-sorted segments,
+    per-tile counts/starts and the backdrop prefix (cpu.go PathCount +
+    PathTiling), as jello_tpu runs it on its accelerator
+    (`jello_tpu/pipeline/tiling.py:389-490`): kernel J's per-line
+    tables, `path_count_expansions`, and the top-edge bumps riding the
+    slot sort (`_sort_count_tail`'s sorted-run branch)."""
     from ..cuda.land import monotone_land
+    from ..cuda.line_dda import line_tables
 
-    dev = P.device
+    dev = lines["line_x0"].device
     T = caps["tiles_cap"]
     SC = caps["seg_cap"]
     RC = caps["row_cap"]
+    P, PRT, n_cross, n_rows_per_line = line_tables(lines, paths)
+    stats = {
+        "real_cross": n_cross.sum(),
+        "real_bd_rows": n_rows_per_line.sum(),
+        "real_cross_lines": (n_cross > 0).to(I32).sum(),
+        "real_bd_lines": (n_rows_per_line > 0).to(I32).sum(),
+    }
     (tile_slot, seg_pre, bump_slot, bump_delta, c_total, r_slot, r_delta, r_total,
      compact_overflow) = path_count_expansions(P, PRT, n_cross, n_rows_per_line, caps)
     backdrop = ops.scatter_add(torch.zeros(T + 1, dtype=I32, device=dev), r_slot, r_delta)

@@ -26,7 +26,7 @@ import pytest
 import jello_tpu
 import jello_tpu_torch
 from jello_tpu.cpu import render_numpy
-from jello_tpu_torch.cuda.render import Renderer, assemble, fetch_flags
+from jello_tpu_torch.cuda.render import Renderer, assemble, fetch_frame
 from jello_tpu_torch.renderer.estimate import estimate_caps
 
 from .torch_reference import both, full_scene
@@ -80,14 +80,14 @@ def test_torch_cmd_cap_live_prefix_slice(full):
     prepared = r._prepare(scene, params)
     caps = dict(r._caps)
     _, packed = r._enqueue(prepared, params, caps)
-    nc = fetch_flags(*packed)[1]["cmds"]
+    nc = fetch_frame(*packed)[1]["cmds"]
     assert 0 < nc + 3 < caps["pair_cap"]
     out, packed = r._enqueue(prepared, params, dict(caps, cmd_cap=nc + 3))
-    flags, _ = fetch_flags(*packed)
+    flags, _, _ = fetch_frame(*packed)
     assert not any(flags.values()), flags
     assert np.abs(assemble(out, prepared[1]).numpy() - sized).max() < SCENE_TOL
     _, packed = r._enqueue(prepared, params, dict(caps, cmd_cap=max(nc // 2, 1)))
-    assert fetch_flags(*packed)[0]["pairs_overflow"]
+    assert fetch_frame(*packed)[0]["pairs_overflow"]
 
 
 def frame_scene(jt, t: float, n_base: int = 24):

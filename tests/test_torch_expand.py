@@ -1,7 +1,7 @@
 """The expand route of jello_tpu_torch (kernels D and E/E'/E'' through
 their plain versions, what the wrappers run on CPU tensors) vs
 jello_tpu's Pallas kernels in interpret mode, and the route at stage
-level vs the port's plain-array route and the numpy oracle.
+level (the one route of the port's geometry stages) vs the numpy oracle.
 
 Tolerances: the expansion contract, line counts, paths, tile slots and
 bumps are exact. Euler line end points: 2e-3, the JAX package's own
@@ -134,7 +134,7 @@ def _work_table(nw=128):
 
     kwalk.lockstep_walk = spy
     try:
-        flatten.flatten_stage(scene_t, layout_t, dict(caps_t, _expand_pallas=True))
+        flatten.flatten_stage(scene_t, layout_t, caps_t)
     finally:
         kwalk.lockstep_walk = walk
     rows, valid, _ = seen[0]
@@ -260,35 +260,56 @@ def test_torch_tile_crossings_and_rows_match_jax():
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_torch_flatten_expand_route_matches_plain_route(name):
-    """flatten_stage with `_expand_pallas` gives the same valid lines, in
-    the same order and bit for bit, as without it; its e_total adds one
-    dead slot per zero-count work row, its e_real does not."""
-    _, scene_t, layout_t, caps = _both(name)
-    a = flatten.flatten_stage(scene_t, layout_t, caps)
-    b = flatten.flatten_stage(scene_t, layout_t, dict(caps, _expand_pallas=True))
-    va, vb = a["line_valid"], b["line_valid"]
-    for k in ("line_x0", "line_y0", "line_x1", "line_y1", "line_path"):
-        assert torch.equal(a[k][va], b[k][vb]), k
-    for k in ("path_bbox", "path_draw_flags", "path_trans_idx"):
-        assert torch.equal(a[k], b[k]), k
-    assert int(a["lockstep_iters"]) == int(b["lockstep_iters"])
-    assert int(b["e_real"]) == int(a["e_total"]) == int(a["e_real"])
-    assert int(b["e_total"]) > int(b["e_real"])
-    assert not bool(a["overflow"]) and not bool(b["overflow"])
+def test_torch_flatten_expand_route_matches_plain_route(name, monkeypatch):
+    """The line stream flatten_stage lays out (the route every frame
+    takes) against the oracle's (jello_tpu's plain-array route): the
+    Euler block's valid lines and then the simple and arc block's, each
+    in the oracle's order and on the oracle's paths; the Euler block's
+    e_total is the oracle's plus one dead slot per zero-count work row
+    (the expansion's clamp), all inside it, and e_real is the oracle's;
+    no overflow, and the walk's iterations equal."""
+    ref, scene_t, layout_t, caps = _both(name)
+    fl = ref["fl"]
+    counts = []
+    euler = kx.expand_euler
+
+    def spy(table, rec, count, *args):
+        counts.append(count)
+        return euler(table, rec, count, *args)
+
+    monkeypatch.setattr(kx, "expand_euler", spy)
+    g = flatten.flatten_stage(scene_t, layout_t, caps)
+    (count,) = counts
+    EC = caps["euler_line_cap"]
+    dead = int((count == 0).sum())
+    assert dead > 0
+    assert int(g["e_real"]) == int(count.sum()) == int(fl["e_total"])
+    assert int(g["e_total"]) == int(fl["e_total"]) + dead
+    v, gv = fl["line_valid"], as_np(g["line_valid"])
+    assert not gv[int(g["e_total"]):EC].any()
+    for lo, hi in ((0, EC), (EC, None)):
+        np.testing.assert_array_equal(as_np(g["line_path"])[lo:hi][gv[lo:hi]],
+                                      fl["line_path"][lo:hi][v[lo:hi]])
+        for k in ("line_x0", "line_y0", "line_x1", "line_y1"):
+            np.testing.assert_allclose(as_np(g[k])[lo:hi][gv[lo:hi]], fl[k][lo:hi][v[lo:hi]],
+                                       rtol=1e-5, atol=LINE_TOL, err_msg=k)
+    assert int(gv[:EC].sum()) == int(fl["e_total"])
+    assert int(g["lockstep_iters"]) == int(fl["lockstep_iters"])
+    assert not bool(fl["overflow"]) and not bool(g["overflow"])
 
 
 @pytest.mark.parametrize("force_resid", [False, True])
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_torch_path_count_expand_route_matches_numpy(name, force_resid):
-    """path_count on the expand route lands on the oracle exactly, and
-    the same again when the residual bump branch is forced."""
+    """path_count (jello_tpu's expand route, the port's one) lands on the
+    oracle exactly, and the same again when the residual bump branch is
+    forced."""
     ref, _, _, caps = _both(name)
     lines = tree_to_torch({k: ref["fl"][k] for k in (
         "line_x0", "line_y0", "line_x1", "line_y1", "line_path", "line_valid")})
     c = ref["counted"]
     gc = tiling.path_count(lines, tree_to_torch(ref["paths"]),
-                           dict(caps, _expand_pallas=True, _pc_force_resid=force_resid))
+                           dict(caps, _pc_force_resid=force_resid))
     T = caps["tiles_cap"]
     s_want, s_got = c["sorted_slot"], as_np(gc["sorted_slot"])
     n = int((s_want < T).sum())
@@ -308,11 +329,11 @@ def test_torch_path_count_expand_route_matches_numpy(name, force_resid):
 
 def test_torch_euler_lines_stat_counts_real_lines():
     """stats["euler_lines"] feeds calibrate_caps' euler_line_cap, which
-    adds the work rows itself: on the expand route it is the real line
-    count, not e_total with its dead slots."""
-    _, scene_t, layout_t, caps = _both("curvy")
-    real = int(flatten.flatten_stage(scene_t, layout_t, caps)["e_total"])
-    stages, flags, stats = geometry(scene_t, layout_t, dict(caps, _expand_pallas=True))
+    adds the work rows itself: it is the oracle's Euler line count, not
+    e_total with its dead slots."""
+    ref, scene_t, layout_t, caps = _both("curvy")
+    real = int(ref["fl"]["e_total"])
+    stages, flags, stats = geometry(scene_t, layout_t, caps)
     assert not any(bool(v) for v in flags.values())
     assert stats["euler_lines"].item() == real
     assert int(stages["fl"]["e_total"]) > real

@@ -161,7 +161,7 @@ def test_torch_fine_interp_full_grid_matches_oracle(name):
     with np.errstate(all="ignore"):
         ref, _, _ = render_numpy(scene_j, params_j)
     s, ld, ramps, atlas, caps = prepare_with_atlas(scene_j, params_j)
-    caps = dict(caps, _expand_pallas=True, cmds_per_tile=16)
+    caps = dict(caps, cmds_per_tile=16)
     scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, caps, "cpu")
     atlas_t = upload_atlas(atlas, "cpu")
     stages, flags, _ = geometry(scene_t, layout_t, caps)
@@ -222,8 +222,7 @@ def test_torch_fine_interp_full_grid_msaa_matches_oracle(aa):
 
     def render(scene, params, batch=False):
         s, ld, ramps, atlas, caps = prepare_with_atlas(scene, params)
-        caps = dict(caps, _expand_pallas=True, cmds_per_tile=16, aa_mode=aa,
-                    _interp_batch=batch)
+        caps = dict(caps, cmds_per_tile=16, aa_mode=aa, _interp_batch=batch)
         scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, caps, "cpu")
         stages, flags, _ = geometry(scene_t, layout_t, caps)
         out, fl = fine_interp(stages["cmds"], stages["counted"], ramps_t,

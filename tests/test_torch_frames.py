@@ -113,8 +113,8 @@ def test_torch_render_device_unchecked_leaves_the_flags_on_the_device(monkeypatc
     r = Renderer(device="cpu")
     fine_want, _ = r.render_device(scene, params)
     reads = []
-    real_fetch = render_mod.fetch_flags
-    monkeypatch.setattr(render_mod, "fetch_flags", lambda *a: reads.append(a) or real_fetch(*a))
+    real_fetch = render_mod.fetch_frame
+    monkeypatch.setattr(render_mod, "fetch_frame", lambda *a: reads.append(a) or real_fetch(*a))
     fine_out, ld = r.render_device(scene, params, check_flags=False)
     assert reads == []
     assert r.last_flags is None and r.last_stats is None

@@ -133,7 +133,7 @@ def _image_inputs(cuda):
     """Stages, records and the image-tap table of `_image_scene` on the
     card, with the tap's compacted records as recorded from the stage."""
     s, ld, ramps, atlas, caps = prepare_with_atlas(*_image_scene())
-    caps = dict(caps, _expand_pallas=True, _image_tap=True)
+    caps = dict(caps, _image_tap=True)
     scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, {}, cuda)
     atlas_t = upload_atlas(atlas, cuda)
     stages, flags, stats = geometry(scene_t, layout_t, caps)
@@ -174,7 +174,7 @@ def _route_calls(cuda, monkeypatch):
 
         spy.launches = 0
         monkeypatch.setattr(mod, name, spy)
-    _, flags, _ = geometry(scene_t, layout_t, dict(caps, _expand_pallas=True))
+    _, flags, _ = geometry(scene_t, layout_t, caps)
     assert not any(bool(v) for v in flags.values())
     monkeypatch.undo()
     return calls
@@ -746,7 +746,7 @@ def _clip_inputs(cuda, build):
     """Stages of a clip scene on the card, with the calls of the two fine
     kernels recorded from one pass of the hybrid fine stage."""
     s, ld, ramps, atlas, caps = prepare_with_atlas(*build(jello_tpu))
-    caps = dict(caps, _expand_pallas=True, clip_depth_cap=4)
+    caps = dict(caps, clip_depth_cap=4)
     if atlas is not None:
         caps["_image_tap"] = True
     scene_t, layout_t, ramps_t, _ = upload(s, ld, ramps, {}, cuda)

@@ -116,7 +116,7 @@ def test_torch_land_call_sites_pass_monotone_positions(monkeypatch):
 
     spy.launches = 0
     monkeypatch.setattr(kland, "monotone_land", spy)
-    _, flags, _ = geometry(scene_t, layout_t, dict(caps, _expand_pallas=True))
+    _, flags, _ = geometry(scene_t, layout_t, caps)
     monkeypatch.undo()
     assert not any(bool(v) for v in flags.values())
     assert [len(a[2]) for a in calls] == [2, 1, 1, 3]  # worklist, compactions, runs

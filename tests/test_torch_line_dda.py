@@ -156,17 +156,29 @@ def test_torch_line_tables_cpu_route_matches_oracle(seed):
 
 
 def test_torch_path_count_params_returns_the_tables_columns():
-    """path_count_params: line_tables' P and counts, and the five
-    backdrop-row columns in their own dtypes, equal to the row table's."""
+    """line_tables' P, counts and row table against jello_tpu's numpy
+    path_count_params: the five backdrop-row columns, read in the
+    oracle's own dtypes (ymin f64, tiles_base i32, bb1 f32, stride i32,
+    delta i32, as the row expansion reads them), equal the oracle's and
+    lose nothing to the cast."""
+    from jello_tpu.pipeline import tiling as np_tiling
+
+    lines_np, paths_np = adversarial_set(0)
+    with np.errstate(all="ignore"):
+        P_j, nc_j, nr_j, prt_j = np_tiling.path_count_params(np, lines_np, paths_np, {})
     lines, paths = _torch_set()
-    P, n_cross, n_rows, prt = tiling.path_count_params(lines, paths, {})
-    P2, PRT, n_cross2, n_rows2 = line_dda.line_tables(lines, paths)
-    assert torch.equal(P, P2) and torch.equal(n_cross, n_cross2)
-    assert torch.equal(n_rows, n_rows2)
-    assert [c.dtype for c in prt] == [torch.float64, torch.int32, torch.float32, torch.int32,
-                                      torch.int32]
-    for i, c in enumerate(prt):
-        assert torch.equal(c.double(), PRT[:, i])
+    P, PRT, n_cross, n_rows = line_dda.line_tables(lines, paths)
+    np.testing.assert_array_equal(as_np(n_cross), np.asarray(nc_j))
+    np.testing.assert_array_equal(as_np(n_rows), np.asarray(nr_j))
+    live = lines_np["line_valid"]
+    np.testing.assert_array_equal(as_np(P)[live], np.asarray(P_j, dtype=np.float64)[live])
+    assert [np.asarray(c).dtype for c in prt_j] == [np.float64, np.int32, np.float32, np.int32,
+                                                  np.int32]
+    for i, c in enumerate(prt_j):
+        c = np.asarray(c)
+        got = as_np(PRT[:, i])
+        np.testing.assert_array_equal(got.astype(c.dtype), c)
+        np.testing.assert_array_equal(got.astype(c.dtype).astype(np.float64), got)
 
 
 # ---- on the card --------------------------------------------------------
@@ -282,11 +294,10 @@ def test_torch_line_dda_kernel_replays_in_a_captured_graph(cuda):
 @pytest.mark.cuda
 def test_torch_path_count_launches_kernel_j_once(cuda):
     """A geometry pass on the card runs path_count's per-line half as one
-    launch of kernel J, on either expansion route."""
+    launch of kernel J."""
     from jello_tpu_torch.scenes import GATE_SCENES
 
     scene_t, layout_t, caps = _settled(*GATE_SCENES[3]())
-    for expand in (False, True):
-        n0 = line_dda.line_tables.launches
-        geometry(scene_t, layout_t, dict(caps, _expand_pallas=expand))
-        assert line_dda.line_tables.launches == n0 + 1
+    n0 = line_dda.line_tables.launches
+    geometry(scene_t, layout_t, caps)
+    assert line_dda.line_tables.launches == n0 + 1

@@ -53,8 +53,10 @@ def test_torch_renderer_config1_matches_oracle():
 
 
 def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
-    """Every frame runs jello_tpu's accelerator routing: `_expand_pallas`
-    in the caps render_frame is given, never in the kept class."""
+    """Every frame runs jello_tpu's accelerator routing, set in the caps
+    render_frame is given and never in the kept class: `_coarse_dense`
+    on a clip-free frame. The geometry stages have one route and no
+    routing key."""
     from jello_tpu_torch.cuda import render as render_mod
 
     seen = []
@@ -67,9 +69,10 @@ def test_torch_renderer_frames_take_the_expand_route(monkeypatch):
     monkeypatch.setattr(render_mod, "render_frame", spy)
     r = Renderer(device="cpu")
     _check(r, _gradient_blobs, seed=9, n=6)
-    assert seen and all(c.get("_expand_pallas") is True for c in seen)
-    assert all(c.get("_coarse_dense") is True for c in seen)  # a clip-free frame
-    assert "_expand_pallas" not in r._caps and "_coarse_dense" not in r._caps
+    assert seen and all(c.get("_coarse_dense") is True for c in seen)  # a clip-free frame
+    assert all(c.get("aa_mode") == "area" for c in seen)
+    routing = {"_coarse_dense", "_image_tap", "_interp_batch", "aa_mode", "clip_depth_cap"}
+    assert not routing & set(r._caps)
 
 
 def test_torch_renderer_gradient_blobs_match_oracle():

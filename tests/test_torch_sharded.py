@@ -3,10 +3,11 @@
 The stage entry points of the sharded paths against jello_tpu's under
 numpy, in this process: the two-level tag monoid scan and the tag-range
 flatten for every shard at n = 2 and 4 (integer fields exact, lines as
-tests/test_torch_stages.py holds them), `shard_caps`, `path_count_params`
-and the reference fine stage over one stripe. Then both paths, stripes
-(`cuda/sharded.py`) and geometry (`cuda/sharded2.py`), at world size 4
-over gloo in spawned ranks, one spawn for every frame of the file: 19a
+tests/test_torch_stages.py holds them), `shard_caps`, `line_tables`
+against the oracle's `path_count_params` and the reference fine stage
+over one stripe. Then both paths, stripes (`cuda/sharded.py`) and
+geometry (`cuda/sharded2.py`), at world size 4 over gloo in spawned
+ranks, one spawn for every frame of the file: 19a
 frames within 1e-3 of the numpy oracle, 19b frames within 8e-3 of it (under
 MSAA of the oracle on float32 segments, as the port's MSAA tests hold it), and
 each within 1e-3 of the port's single-device frame, with no flag raised;
@@ -41,9 +42,9 @@ from jello_tpu.pipeline import flatten as np_flatten
 from jello_tpu.pipeline import tiling as np_tiling
 from jello_tpu.tpu import sharded2 as jax_sharded2
 
-from jello_tpu_torch.cuda import collectives, sharded, sharded2
+from jello_tpu_torch.cuda import collectives, line_dda, sharded, sharded2
 from jello_tpu_torch.cuda.render import Renderer, assemble, upload, upload_atlas
-from jello_tpu_torch.pipeline import fine_ref, flatten, pathtag, tiling
+from jello_tpu_torch.pipeline import fine_ref, flatten, pathtag
 from jello_tpu_torch.pipeline.render import geometry
 from jello_tpu_torch.renderer.estimate import estimate_caps_from_scene
 from jello_tpu_torch.renderer.resolve import Resolver
@@ -52,6 +53,7 @@ from jello_tpu_torch.scenes import GATE_SCENES
 from .torch_reference import (
     as_np,
     both,
+    check_flatten_lines,
     full_scene,
     numpy_geometry,
     oracle_cbrt,
@@ -133,7 +135,8 @@ def _line_rows(fl):
 @pytest.mark.parametrize("n", [2, 4])
 def test_torch_flatten_shards_match_numpy(n):
     """Every shard's delta totals, rebased monoid scan and tag-range
-    flatten equal jello_tpu's; the shards' lines together are the
+    flatten equal jello_tpu's (the valid lines in its order,
+    `check_flatten_lines`); the shards' lines together are the
     unsharded flatten's, and their bbox accumulators and marker fields
     combine into its per-path outputs."""
     _, s, ld, ramps, caps = _fills()
@@ -159,18 +162,9 @@ def test_torch_flatten_shards_match_numpy(n):
         with oracle_cbrt():
             ft = flatten.flatten_stage(scene_t, layout_t, caps_l,
                                        shard={"tag_lo": d * N, "monoid_base": base_t})
-        for k in ("n_lines", "e_total", "s_total", "a_total", "n_work_a", "n_work_b",
-                  "overflow"):
-            assert int(fj[k]) == int(ft[k]), (d, k)
-        assert int(ft["n_lines"]) > 0 and not bool(ft["overflow"])
-        _exact(fj["line_valid"], ft["line_valid"])
-        _exact(fj["line_path"], ft["line_path"])
-        v = fj["line_valid"]
-        for k in ("line_x0", "line_y0", "line_x1", "line_y1"):
-            np.testing.assert_allclose(as_np(ft[k])[v], fj[k][v], rtol=RTOL, atol=ATOL)
+        check_flatten_lines(fj, ft, ATOL, rtol=RTOL)
+        assert int(fj["n_lines"]) > 0
         np.testing.assert_allclose(as_np(ft["bb_acc"]), fj["bb_acc"], rtol=RTOL, atol=ATOL)
-        for k in ("path_draw_flags", "path_trans_idx"):
-            _exact(u32(fj[k]), u32(as_np(ft[k])))
         # The next shard's base: this shard's delta totals added (the
         # cross-shard level of the scan, an all_gather in the ranks).
         tot_j = np_flatten.monoid_delta_totals(np, tags_j[:N])
@@ -207,20 +201,22 @@ def check_shard_caps(scene, params):
 
 
 def test_torch_path_count_params_match_numpy():
-    """The per-line half of path_count on the oracle's lines: counts and
-    the backdrop-row columns exact, the P table equal."""
+    """The per-line half of path_count (`line_tables`) on the oracle's
+    lines: counts and the row table's backdrop-row columns exact, the P
+    table equal."""
     _, s, ld, _, caps = _fills()
     ref = numpy_geometry(s, ld, caps)
     with np.errstate(all="ignore"):
         P_j, nc_j, nr_j, prt_j = np_tiling.path_count_params(np, ref["fl"], ref["paths"], caps)
     lines = tree_to_torch({k: ref["fl"][k] for k in (
         "line_x0", "line_y0", "line_x1", "line_y1", "line_path", "line_valid")})
-    P_t, nc_t, nr_t, prt_t = tiling.path_count_params(lines, tree_to_torch(ref["paths"]), caps)
+    P_t, PRT_t, nc_t, nr_t = line_dda.line_tables(lines, tree_to_torch(ref["paths"]))
     assert int(nc_t.sum()) > 0 and int(nr_t.sum()) > 0
     _exact(nc_j, nc_t)
     _exact(nr_j, nr_t)
-    for a, b in zip(prt_j, prt_t):
-        np.testing.assert_array_equal(np.asarray(a), as_np(b).astype(np.asarray(a).dtype))
+    for i, a in enumerate(prt_j):
+        a = np.asarray(a)
+        np.testing.assert_array_equal(a, as_np(PRT_t[:, i]).astype(a.dtype))
     live = as_np(lines["line_valid"])
     np.testing.assert_array_equal(as_np(P_t)[live], np.asarray(P_j, dtype=np.float64)[live])
 

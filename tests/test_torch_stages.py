@@ -22,7 +22,15 @@ from jello_tpu_torch.pipeline import coarse, drawobjs, flatten, ops, tiling
 from jello_tpu_torch.pipeline.pathtag import tag_monoid_scan
 from jello_tpu_torch.pipeline.render import geometry
 
-from .torch_reference import as_np, numpy_geometry, prepare, to_torch, tree_to_torch, u32
+from .torch_reference import (
+    as_np,
+    check_flatten_lines,
+    numpy_geometry,
+    prepare,
+    to_torch,
+    tree_to_torch,
+    u32,
+)
 
 IDENT = jt.Affine.identity()
 RTOL = ATOL = 1e-5
@@ -184,22 +192,10 @@ def test_torch_flatten_own_cbrt_matches_numpy(name):
 
 def _check_flatten(name, line_atol):
     ref, scene_t, layout_t, caps = _both(name)
-    fl = ref["fl"]
-    gfl = flatten.flatten_stage(scene_t, layout_t, caps)
     # Line counts guard the pmath transcendentals: a flipped ceil of the
     # subdivision count moves whole lines.
-    for k in ("n_lines", "e_total", "s_total", "a_total", "n_work_a", "n_work_b",
-              "lockstep_iters"):
-        assert int(fl[k]) == int(gfl[k]), k
-    assert not bool(fl["overflow"]) and not bool(gfl["overflow"])
-    _exact(fl["line_valid"], gfl["line_valid"])
-    _exact(fl["line_path"], gfl["line_path"])
-    v = fl["line_valid"]
-    for k in ("line_x0", "line_y0", "line_x1", "line_y1"):
-        np.testing.assert_allclose(as_np(gfl[k])[v], fl[k][v], rtol=RTOL, atol=line_atol)
-    _exact(fl["path_bbox"], gfl["path_bbox"])
-    _exact(u32(fl["path_draw_flags"]), u32(as_np(gfl["path_draw_flags"])))
-    _exact(u32(fl["path_trans_idx"]), u32(as_np(gfl["path_trans_idx"])))
+    check_flatten_lines(ref["fl"], flatten.flatten_stage(scene_t, layout_t, caps), line_atol,
+                        rtol=RTOL)
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

@@ -2,9 +2,10 @@
 
 The flatten stage on stroked scenes (butt, square and round caps; bevel,
 miter and round joins; open and closed subpaths; a dash; thin and wide)
-against jello_tpu's stage under numpy on the same inputs: line counts
-and every integer field equal, end points within 1e-5 when the port is
-fed the oracle's cbrt values (as in test_torch_stages.py; with its own
+against jello_tpu's stage under numpy on the same inputs: the valid
+lines in the oracle's order (`torch_reference.check_flatten_lines`),
+line counts and every integer field equal, end points within 1e-5 when
+the port is fed the oracle's cbrt values (as in test_torch_stages.py; with its own
 cbrt they move by up to 2e-3 px). Then stroked frames against the numpy
 oracle within 2e-3.
 
@@ -35,7 +36,7 @@ from jello_tpu_torch.pipeline import flatten
 from .test_torch_host import check_host_half
 from .test_torch_program import check_pack_layout
 from .test_torch_sharded import check_shard_caps
-from .torch_reference import as_np, check_frame, config2_both, prepare, u32
+from .torch_reference import check_flatten_lines, check_frame, config2_both, prepare
 
 ATOL = 1e-5
 FRAME_TOL = 2e-3
@@ -110,18 +111,8 @@ def test_torch_stroke_flatten_matches_numpy(name, monkeypatch):
         fl = np_flatten.flatten_stage(np, s, ld, caps)
     scene_t, layout_t, _, caps_t = upload(s, ld, ramps, caps, "cpu")
     gfl = flatten.flatten_stage(scene_t, layout_t, caps_t)
-    for k in ("n_lines", "e_total", "s_total", "a_total", "n_work_a", "n_work_b",
-              "lockstep_iters"):
-        assert int(fl[k]) == int(gfl[k]), k
     assert int(fl["n_work_b"]) > 0  # the stroke offsets' side of the worklist
-    assert not bool(fl["overflow"]) and not bool(gfl["overflow"])
-    np.testing.assert_array_equal(fl["line_valid"], as_np(gfl["line_valid"]))
-    np.testing.assert_array_equal(fl["line_path"], as_np(gfl["line_path"]))
-    v = fl["line_valid"]
-    for k in ("line_x0", "line_y0", "line_x1", "line_y1"):
-        np.testing.assert_allclose(as_np(gfl[k])[v], fl[k][v], rtol=1e-5, atol=ATOL, err_msg=k)
-    np.testing.assert_array_equal(fl["path_bbox"], as_np(gfl["path_bbox"]))
-    np.testing.assert_array_equal(u32(fl["path_draw_flags"]), u32(as_np(gfl["path_draw_flags"])))
+    check_flatten_lines(fl, gfl, ATOL)
 
 
 FRAMES = ["butt_caps", "round_caps", "miter_join", "round_joins_zigzag", "closed_no_caps",

@@ -254,6 +254,27 @@ def u32(a):
     return np.asarray(a).astype(np.int64) & 0xFFFFFFFF
 
 
+def check_flatten_lines(fl, gfl, line_atol, rtol=1e-5):
+    """The port's flatten output `gfl` against the oracle's `fl`: the
+    counts exact (the port's e_real is the oracle's e_total; the port's
+    e_total also counts a dead slot per zero-count work row), the valid
+    lines in the oracle's order with their paths equal and their end
+    points within `line_atol`, and the per-path tables exact."""
+    for k in ("s_total", "a_total", "n_work_a", "n_work_b", "lockstep_iters"):
+        assert int(fl[k]) == int(gfl[k]), k
+    assert int(gfl["e_real"]) == int(fl["e_total"])
+    assert not bool(fl["overflow"]) and not bool(gfl["overflow"])
+    v, gv = np.asarray(fl["line_valid"]), as_np(gfl["line_valid"])
+    assert int(gv.sum()) == int(v.sum()) == int(fl["n_lines"])
+    np.testing.assert_array_equal(as_np(gfl["line_path"])[gv], fl["line_path"][v])
+    for k in ("line_x0", "line_y0", "line_x1", "line_y1"):
+        np.testing.assert_allclose(as_np(gfl[k])[gv], fl[k][v], rtol=rtol, atol=line_atol,
+                                   err_msg=k)
+    np.testing.assert_array_equal(fl["path_bbox"], as_np(gfl["path_bbox"]))
+    for k in ("path_draw_flags", "path_trans_idx"):
+        np.testing.assert_array_equal(u32(fl[k]), u32(as_np(gfl[k])), err_msg=k)
+
+
 def to_torch(v):
     """numpy -> CPU tensor the way the port carries it: u32 as int32 bit
     patterns, other integers as int32, floats and bools unchanged."""
