@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once, and prints ptxas's registers, spills
      and static shared memory for kernels A, C, D, E (E's three bodies),
-     F, G, H (each of H's builds), I and J, and kernel A's persistent grid;
+     F, G, H (each of H's builds), I, J and K, and kernel A's persistent
+     grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
      kernel wrappers C, D, E, E', E'' and J recorded;
@@ -98,7 +99,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      every call of one geometry pass held to its plain version bit for
      bit and timed (wrapper, bare C entry, byte bound, plain version,
      `torch.cumsum` of one column), and the SHA-256 of the geometry
-     stages' outputs;
+     stages' outputs; then kernel K (the drop scatter, `_kernel_k`) in
+     the same settled frames: no torch scatter left in the program's
+     graph, one K launch there and in an eager frame for each
+     `ops.scatter_*` call, each call held to its plain version, the
+     largest timed (wrapper, bare C entry, byte bound, plain version);
   9. main path: Renderer(device="cuda") on config 1 (one cubic fill,
      256x256), config 3 (1,000 gradient blobs, 1024x1024), config 2 (100
      stroked and dashed paths, 512x512), config 5 and config 4, render()
@@ -250,10 +255,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      once, each output written once; for B, G and H only the rows this
      run's records touch) over 3.35 TB/s and its float operations, counted
      for this run's data, over 67 TFLOP/s (float32 outside the tensor
-     cores). D, E, E', E'', F, G, H, I and J also carry bare_ms, their bare C
-     entry's time (G's and H's in area mode); I, which replaces no Pallas
-     kernel, its calls a replayed config 5 frame (`launches_a_replay`); J,
-     which replaces none either, its numbers at config 5.
+     cores). D, E, E', E'', F, G, H, I, J and K also carry bare_ms, their
+     bare C entry's time (G's and H's in area mode); I, which replaces no
+     Pallas kernel, its calls a replayed config 5 frame
+     (`launches_a_replay`); J, which replaces none either, its numbers at
+     config 5; K, nor it, its numbers at config 5's largest call, its
+     launches in config 5's program and its calls a frame.
 
 Imports only the port, torch and numpy; importing JAX or the JAX package
 (jello_tpu) is made to fail, and the run fails if either was loaded.
@@ -541,6 +548,7 @@ class _PlainKernels:
         from jello_tpu_torch.cuda import line_dda as kline
         from jello_tpu_torch.cuda import lockstep as kwalk
         from jello_tpu_torch.cuda import scan as kscan
+        from jello_tpu_torch.cuda import scatter as kscatter
         from jello_tpu_torch.pipeline import coverage as plain_cov
         from jello_tpu_torch.pipeline import expand as px
         from jello_tpu_torch.pipeline import ops as plain_ops
@@ -578,6 +586,7 @@ class _PlainKernels:
             (ktap, "tap_records", plain_tap.tap_records_plain),
             (kscan, "column_scan", plain_ops.column_scan_plain),
             (kline, "line_tables", plain_tiling.line_tables_plain),
+            (kscatter, "drop_scatter", plain_ops.drop_scatter_plain),
         ]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -634,10 +643,11 @@ def _kernel_i(config, scene, params, smi):
     the stacked columns (`_innermost_scan`, held to kernel I bit for bit);
     the settled frame replayed with kernel I and with `_innermost_scan` in
     its place, in alternated rounds; and the SHA-256 of the geometry
-    stages' outputs, held to `_GEOMETRY_SHA`. Returns the JSON line's
-    numbers for the call with the most elements: (max abs error over
-    every call, ms, plain ms, (bound ms, "bytes"), library ms, bare ms,
-    launches a replayed frame, innermost ms)."""
+    stages' outputs, held to `_GEOMETRY_SHA`; then kernel K on the same
+    settled renderer (`_kernel_k`). Returns the JSON line's numbers for
+    the call with the most elements: (max abs error over every call, ms,
+    plain ms, (bound ms, "bytes"), library ms, bare ms, launches a
+    replayed frame, innermost ms), and K's (`_kernel_k`)."""
     import ctypes
     import statistics
 
@@ -762,9 +772,10 @@ def _kernel_i(config, scene, params, smi):
           f"{floats} (before kernel I: {' / '.join(_GEOMETRY_SHA[config])})")
     if (ints, floats) != _GEOMETRY_SHA[config]:
         _fail(f"{tag}: the geometry stages' outputs differ from the stages' before kernel I")
+    k = _kernel_k(tag, r, nodes, scene, params, smi)
     del r, r_inner
     torch.cuda.empty_cache()
-    return (err,) + best[1]
+    return (err,) + best[1], k
 
 
 def _kernel_j(calls, tag, smi, n_plain):
@@ -842,6 +853,122 @@ def _kernel_j(calls, tag, smi, n_plain):
     return err, ms, plain_ms, bound, None, bare_ms
 
 
+def _scatter_rows_equal(got, want, idx, op):
+    """Kernel K's output against the plain version's on the card: integer
+    words bit for bit, float words by value (which of +0 and -0 a max
+    keeps is open) with NaN where NaN; rows that more than one in-range
+    entry sets are left out for a set (one of the values wins). Returns
+    (equal, rows left out)."""
+    import torch
+
+    n = got.shape[0]
+    live = idx[(idx >= 0) & (idx < n)].long()
+    hits = torch.bincount(live, minlength=n) if live.numel() else torch.zeros(
+        n, dtype=torch.int64, device=got.device)
+    keep = hits <= 1 if op == "set" else torch.ones(n, dtype=torch.bool, device=got.device)
+    g, w = got[keep], want[keep]
+    if got.dtype == torch.float32:
+        same = bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+    else:
+        same = torch.equal(g, w)
+    return same, int((~keep).sum())
+
+
+def _kernel_k(tag, r, nodes, scene, params, smi):
+    """Kernel K (the drop scatter) in a settled frame of renderer r: the
+    program's graph (`nodes`) holds no torch scatter
+    (`_scatter_gather_elementwise_kernel`) and one K launch for each
+    `ops.scatter_*` call of an eager frame at the class, whose launches of
+    K equal those calls; each of those calls held to its plain version
+    (`ops.drop_scatter_plain` on the card; `_scatter_rows_equal`), and the
+    call with the most entries timed: the wrapper, the bare C entry on an
+    output allocated once, the plain version, the bound (the index, the
+    values of the entries in range, and the target copied: read and
+    written once over 3.35 TB/s), and the device operations a call (one
+    kernel and one copy). Returns the JSON line's numbers: (0, ms, plain
+    ms, (bound ms, by), None, bare ms, K's launches a replayed frame, calls
+    a frame)."""
+    import torch
+
+    from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.cuda import scatter as kscatter
+    from jello_tpu_torch.pipeline import ops
+
+    torch_scatters = sum(v for k, v in nodes.items() if "scatter_gather" in k)
+    in_graph = sum(v for k, v in nodes.items() if "drop_scatter_kernel" in k)
+    calls = []
+    scatter = ops._scatter
+
+    def spy(target, idx, values, op):
+        calls.append((target, idx, values, op))
+        return scatter(target, idx, values, op)
+
+    prepared = r._prepare(scene, params)
+    ops._scatter = spy
+    n0 = kscatter.drop_scatter.launches
+    try:
+        _eager_frame(r, prepared, params)
+        torch.cuda.synchronize()
+    finally:
+        ops._scatter = scatter
+    launched = kscatter.drop_scatter.launches - n0
+    print(f"{tag}: kernel K: {in_graph} launches in the settled program's graph of "
+          f"{sum(nodes.values())} nodes, torch scatters {torch_scatters}; an eager frame at the "
+          f"class: {len(calls)} ops.scatter_* calls ({', '.join(sorted({c[3] for c in calls}))}), "
+          f"K launched {launched} times")
+    if torch_scatters or not calls or launched != len(calls) or in_graph != len(calls):
+        _fail(f"{tag}: the settled frame's scatters do not all run through kernel K, once each")
+    multi = 0
+    for target, idx, values, op in calls:
+        got = kscatter.drop_scatter(target, idx, values, op)
+        want = ops.drop_scatter_plain(target, idx, values, op)
+        same, left = _scatter_rows_equal(got, want, idx, op)
+        multi += left
+        if not same:
+            _fail(f"{tag}: kernel K differs from its plain version ({op} of {idx.shape[0]} "
+                  f"entries onto {tuple(target.shape)} {target.dtype})")
+    print(f"{tag}: kernel K equals its plain version at all {len(calls)} calls (a set's rows "
+          f"named more than once, {multi}, left out)")
+    target, idx, values, op = max(calls, key=lambda c: c[1].shape[0])
+    n, m = target.shape[0], idx.shape[0]
+    w = target[0].numel()
+    values_c = torch.broadcast_to(values, (m,) + target.shape[1:]).to(target.dtype).contiguous()
+    out = torch.empty_like(target)
+    code = kscatter._CODES[(op, target.dtype)]
+    lib = build.kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    align = kscatter._VEC_ALIGN.get(w, 0)
+    vec = int(align > 0 and values_c.data_ptr() % align == 0 and out.data_ptr() % align == 0)
+
+    def bare():
+        build.check("jello_drop_scatter", lib.jello_drop_scatter(
+            target.data_ptr(), out.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+            values_c.data_ptr(), m, n, w, code, vec, stream))
+
+    bare()
+    if not _scatter_rows_equal(out, kscatter.drop_scatter(target, idx, values, op), idx, op)[0]:
+        _fail(f"{tag}: kernel K's bare entry differs from its wrapper")
+    in_range = int(((idx >= 0) & (idx < n)).sum())
+    nbytes = m * idx.element_size() + in_range * w * 4 + 2 * n * w * 4
+    bound = _bound(nbytes, 0)
+    ms = _time_ms(lambda: kscatter.drop_scatter(target, idx, values, op), 20)
+    bare_ms = _time_ms(bare, 20)
+    plain_ms = _time_ms(lambda: ops.drop_scatter_plain(target, idx, values, op), 20)
+    n_k, n_c = _device_ops(lambda: kscatter.drop_scatter(target, idx, values, op))
+    us = _device_us(bare)
+    print(f"kernel K, {tag}: the largest call, {op} of {m} entries ({in_range} in range) onto "
+          f"{tuple(target.shape)} {target.dtype}: {ms:.4f} ms (the bare C entry {bare_ms:.4f} "
+          f"ms; device " + ("; ".join(f"{k} {v:.1f} us" for k, v in us.items())
+                            or "no event captured")
+          + f") vs plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({100 * bound[0] / bare_ms:.1f}% of the bare entry), {n_k:g} kernels and {n_c:g} "
+          f"memsets or copies a call, on {smi}")
+    if n_k > 1 or n_c > 1:
+        _fail(f"{tag}: kernel K: {n_k:g} kernels and {n_c:g} memsets or copies a call")
+    return 0.0, ms, plain_ms, bound, None, bare_ms, in_graph, len(calls)
+
+
 def _counters():
     """{kernel: (wrapper, the attribute that counts its launches)}."""
     from jello_tpu_torch.cuda import coverage as kcov
@@ -853,6 +980,7 @@ def _counters():
     from jello_tpu_torch.cuda import line_dda as kline
     from jello_tpu_torch.cuda import lockstep as kwalk
     from jello_tpu_torch.cuda import scan as kscan
+    from jello_tpu_torch.cuda import scatter as kscatter
 
     return {
         "coverage_area": (kcov.coverage_rows, "launches"),
@@ -868,16 +996,17 @@ def _counters():
         "fine_interp_b8": (kint.interpret_tiles, "launches_batch"),
         "column_scan": (kscan.column_scan, "launches"),
         "line_dda": (kline.line_tables, "launches"),
+        "drop_scatter": (kscatter.drop_scatter, "launches"),
     }
 
 
 def _sharded_kernels(path, aa, has_atlas):
     """The kernels a sharded frame must launch: the geometry's (C, D, E,
-    E', E'', I, J); with `path` "19a" kernel A in its mode and G over the stripe;
+    E', E'', I, J, K); with `path` "19a" kernel A in its mode and G over the stripe;
     with "19b" A, B and G (fine_hybrid runs G even without a legacy tile)
     and F with an atlas; with "19a_fine_ref" nothing more."""
     out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows",
-           "column_scan", "line_dda"}
+           "column_scan", "line_dda", "drop_scatter"}
     coverage = "coverage_area" if aa == "area" else "coverage_msaa"
     if path == "19a":
         out |= {coverage, "fine_interp"}
@@ -1192,6 +1321,7 @@ _KERNEL_NAMES = {
     "fine_interp_b8": ("interp_batch_kernel",),
     "column_scan": ("colscan_apply",),
     "line_dda": ("line_dda_kernel",),
+    "drop_scatter": ("drop_scatter_kernel",),
 }
 
 
@@ -1979,7 +2109,7 @@ def main():
     # (resident CTAs a multiprocessor times the multiprocessors, from
     # those registers and its shared memory).
     for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu", "image_tap.cu",
-                "fine_interp.cu", "scan.cu", "line_dda.cu"):
+                "fine_interp.cu", "scan.cu", "line_dda.cu", "scatter.cu"):
         for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B, static shared memory {smem} B")
@@ -2872,8 +3002,8 @@ def main():
     del r_deep, r_cpu, img_d, want_d
     torch.cuda.empty_cache()
 
-    # ---- 8b. kernel I at configs 5 and 4 ------------------------------------
-    res["I"] = _kernel_i(5, scene5, params5, smi)
+    # ---- 8b. kernels I and K at configs 5 and 4 ------------------------------
+    res["I"], res["K"] = _kernel_i(5, scene5, params5, smi)
     _kernel_i(4, scene4, params4, smi)
 
     # ---- 9. main path ----------------------------------------------------
@@ -3489,6 +3619,12 @@ def main():
         # Kernel J replaces no Pallas kernel either (jello_tpu leaves the
         # per-line half of path_count to XLA); its numbers at config 5.
         dict(entry("line_dda", "line_dda.cu", "", *res["J"]), replaces=None),
+        # Kernel K replaces no Pallas kernel (jello_tpu's scatters are
+        # XLA's); its numbers at config 5's largest call, launches_a_replay
+        # its launches in config 5's program, calls_a_frame the
+        # ops.scatter_* calls of an eager frame there.
+        dict(entry("drop_scatter", "scatter.cu", "", *res["K"][:6]), replaces=None,
+             launches_a_replay=res["K"][6], calls_a_frame=res["K"][7]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

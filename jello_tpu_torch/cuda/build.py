@@ -14,7 +14,8 @@ Each exported C function launches its kernel on the stream it is given
 iteration count and kernel F's its region flag, with one memset each;
 kernel E's entries launch the prefix scan before the expansion, kernel
 I's a reduce kernel before its scan when the columns span more than one
-tile) and returns `cudaGetLastError()`;
+tile, kernel K's copies the target into its output with one memcpy) and
+returns `cudaGetLastError()`;
 `check` raises if that is not 0.
 """
 
@@ -39,6 +40,7 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 # C signatures of the exported launchers (all return cudaError_t as int).
 SIGNATURES = {
     # seg stream [SC, 8] f32, row_start [R] i32, row_end [R] i32,
@@ -113,6 +115,11 @@ SIGNATURES = {
     # rect x0, y0, x1, y1 and tile offset [D] i32, P [L, 21] f64, the row
     # table [L, 5] f64, n_cross, n_rows [L] i32, L, D, stream
     "jello_line_dda": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, P],
+    # target [n, w] words, out [n, w] (the entry copies target into it,
+    # then scatters), idx [m], idx64 (0 int32, 1 int64), vals [m, w], m,
+    # n, w, op (0 set, 1 int32 add, 2 int32 max, 3 int32 min, 4 float32
+    # max), vec (1: vals and out aligned for w-word vectors), stream
+    "jello_drop_scatter": [P, P, P, I, P, L, L, I, I, I, P],
 }
 
 

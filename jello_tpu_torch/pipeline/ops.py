@@ -1,10 +1,12 @@
 """Tensor helpers shared by the torch pipeline stages.
 
 Counterpart of `jello_tpu/pipeline/ops.py`: the scatters with drop
-semantics, the stable multi-operand sort, the u32 <-> f32 bitcasts,
-`trailing_zeros32` and `gather_guarded`; and the plain version of kernel
-I, the integer column scan (`column_scan_plain`), which takes the place
-of `cummax` (the stages call `cuda.scan.column_scan`).
+semantics (through kernel K, `cuda.scatter.drop_scatter`, whose plain
+version `drop_scatter_plain` is here), the stable multi-operand sort, the
+u32 <-> f32 bitcasts, `trailing_zeros32` and `gather_guarded`; and the
+plain version of kernel I, the integer column scan (`column_scan_plain`),
+which takes the place of `cummax` (the stages call
+`cuda.scan.column_scan`).
 
 u32 convention: torch has no `>>`, `+` or `<` on `torch.uint32` on the
 CPU, so scene and record words travel as int32 tensors holding the u32
@@ -64,38 +66,46 @@ def _expand_idx(idx, values, target):
     return idx, values
 
 
+def drop_scatter_plain(target, idx, values, op):
+    """Plain version of kernel K (`cuda.scatter.drop_scatter`, its
+    contract): torch's scatter onto a copy of the target with a dump row
+    appended, where every out-of-range index lands and is cut off."""
+    n = target.shape[0]
+    out = _with_dump_row(target)
+    i, v = _expand_idx(_drop_index(idx, n), values, out)
+    if op == "set":
+        out.scatter_(0, i, v)
+    elif op == "add":
+        out.scatter_add_(0, i, v)
+    else:
+        out.scatter_reduce_(0, i, v, reduce={"max": "amax", "min": "amin"}[op],
+                            include_self=True)
+    return out[:n]
+
+
+def _scatter(target, idx, values, op):
+    # Looked up at call time: `cuda.scatter` imports this module.
+    from ..cuda.scatter import drop_scatter
+
+    return drop_scatter(target, idx, values, op)
+
+
 def scatter_set(target, idx, values):
     """target[idx] = values; out-of-range rows are dropped (mode="drop").
     Duplicate in-range indices: one of the values wins (as under XLA)."""
-    n = target.shape[0]
-    out = _with_dump_row(target)
-    i, v = _expand_idx(_drop_index(idx, n), values, out)
-    out.scatter_(0, i, v)
-    return out[:n]
+    return _scatter(target, idx, values, "set")
 
 
 def scatter_add(target, idx, values):
-    n = target.shape[0]
-    out = _with_dump_row(target)
-    i, v = _expand_idx(_drop_index(idx, n), values, out)
-    out.scatter_add_(0, i, v)
-    return out[:n]
-
-
-def _scatter_reduce(target, idx, values, reduce):
-    n = target.shape[0]
-    out = _with_dump_row(target)
-    i, v = _expand_idx(_drop_index(idx, n), values, out)
-    out.scatter_reduce_(0, i, v, reduce=reduce, include_self=True)
-    return out[:n]
+    return _scatter(target, idx, values, "add")
 
 
 def scatter_max(target, idx, values):
-    return _scatter_reduce(target, idx, values, "amax")
+    return _scatter(target, idx, values, "max")
 
 
 def scatter_min(target, idx, values):
-    return _scatter_reduce(target, idx, values, "amin")
+    return _scatter(target, idx, values, "min")
 
 
 def sort_multi(key, arrays):

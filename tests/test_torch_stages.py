@@ -22,6 +22,7 @@ from jello_tpu_torch.pipeline import coarse, drawobjs, flatten, ops, tiling
 from jello_tpu_torch.pipeline.pathtag import tag_monoid_scan
 from jello_tpu_torch.pipeline.render import geometry
 
+from . import scatter_cases
 from .torch_reference import (
     as_np,
     check_flatten_lines,
@@ -168,6 +169,25 @@ def test_torch_ops_scatter_drop_and_sort_stability():
     assert ops.trailing_zeros32(v).tolist() == [0, 1, 2, 31, 3]
     w = torch.tensor([ops.s32(0xF0000000)], dtype=torch.int32)
     assert ops.shr(w, 28).tolist() == [15]
+
+
+@pytest.mark.parametrize("idx_dtype", scatter_cases.IDX_DTYPES)
+@pytest.mark.parametrize("width", scatter_cases.WIDTHS)
+@pytest.mark.parametrize("op,dtype", scatter_cases.OP_DTYPES)
+def test_torch_ops_scatter_drop_contract(op, dtype, width, idx_dtype):
+    """`ops.scatter_*` on CPU tensors (kernel K's plain version) against
+    the drop contract entry by entry: negative and >= n indices dropped,
+    every entry dropped, every entry on one in-range target, and repeated
+    targets for add, max and min (a set's repeats keep one of the values);
+    int32 sums wrap, a float max keeps a NaN."""
+    fn = getattr(ops, f"scatter_{op}")
+    for name in scatter_cases.CASES:
+        target, idx, values = scatter_cases.case(name, op, dtype, width, idx_dtype)
+        want = scatter_cases.reference(target, idx, values, op)
+        t, i, v = scatter_cases.to_torch(target, idx, values)
+        got = fn(t, i, v)
+        assert torch.equal(t, torch.from_numpy(target)), "the target itself is left as it was"
+        scatter_cases.assert_held(got, want, op, idx, values)
 
 
 def _oracle_cbrt(x):

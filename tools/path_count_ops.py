@@ -4,6 +4,7 @@ on one NVIDIA GPU.
 
     python3 tools/path_count_ops.py [--configs motionmark_paths,tiger_text]
                                     [--seed N] [--frames 3] [--stage path_count]
+                                    [--kind FRAGMENT]
 
 For each benchmark configuration named (`benchmark/configs/<name>`), the
 scene its generator draws for the seed is settled by a fresh
@@ -15,7 +16,10 @@ benchmark's stage metrics read). `frames` frames of that class then run eagerly
 lacks) under `Profiler.device_trace`, and the stage's device operations
 (`xtrace.attribute`'s sites) are printed a frame: device ms and launches
 by function and call site and kernel kind, by function, by kind, and
-the stage's total. Run it from the root of a checkout: it renders with
+the stage's total. `--stage` takes a comma-separated list of stages, or
+`all`; `--kind` keeps only the operations whose kernel kind holds the
+fragment (`--stage all --kind scatter_gather`: torch's scatters in every
+stage, by call site). Run it from the root of a checkout: it renders with
 the `jello_tpu_torch` package it finds there, so one call itemizes two
 trees. Prints the card's name and power limit beside the numbers.
 """
@@ -59,7 +63,7 @@ def function_of(site):
     return f"{path}::{max(inner)[1]}" if inner else where
 
 
-def itemize(name, seed, frames, stage, smi):
+def itemize(name, seed, frames, stage, smi, kind_part=""):
     import torch
 
     import jello_tpu_torch as jt
@@ -105,8 +109,10 @@ def itemize(name, seed, frames, stage, smi):
                 raise
     (tab,) = attribute(logdir, frames).values()
     shutil.rmtree(logdir, ignore_errors=True)
+    stages = None if stage == "all" else set(stage.split(","))
     rows = [(function_of(src), src.split(" ")[0], kind, ms, n)
-            for (st, src, kind), (ms, n) in tab["sites"].items() if st == stage]
+            for (st, src, kind), (ms, n) in tab["sites"].items()
+            if (stages is None or st in stages) and kind_part in kind]
     total_ms, total_n = sum(row[3] for row in rows), sum(row[4] for row in rows)
     busy = tab["lines"]["all streams"][1]
     print(f"{name} (seed {seed}), {stage}: {total_ms:.3f} device ms and {total_n:g} "
@@ -136,6 +142,7 @@ def main():
     ap.add_argument("--seed", type=int, default=2 ** 31 + 7)
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--stage", default="path_count")
+    ap.add_argument("--kind", default="", help="keep only kernel kinds holding this fragment")
     args = ap.parse_args()
     import torch
 
@@ -143,7 +150,7 @@ def main():
         chip_smoke._fail("torch.cuda.is_available() is False")
     smi = chip_smoke._smi()
     for name in args.configs.split(","):
-        itemize(name, args.seed, args.frames, args.stage, smi)
+        itemize(name, args.seed, args.frames, args.stage, smi, args.kind)
     return 0
 
 
