@@ -33,7 +33,7 @@ from ..pipeline import ops
 from ..pipeline.coarse import classify_legacy_tiles
 from ..pipeline.fine_interp import OVF_BLEND_DEPTH, OVF_IMAGE_REGION, build_records, with_width
 from ..pipeline.flatten import expand_by_counts
-from ..pipeline.image_tap import image_tap
+from ..pipeline.image_tap import image_tap, runs_tap
 from ..pipeline.ops import I32
 from . import fine_interp as kinterp
 from . import fine_v2 as kfine
@@ -87,7 +87,7 @@ def fine_hybrid(cmds, counted, ramps, atlas, layout, caps):
     flags = {"area_rows_overflow": rows_overflow}
     fg_tab = None
     tap_region = None
-    if caps.get("_image_tap") and atlas is not None:
+    if runs_tap(caps, atlas):
         fg_tab, tap_region, flags["img_recs_overflow"] = image_tap(
             rec, cmds, atlas, layout, caps)
 

@@ -67,7 +67,7 @@ from ..pipeline.coarse import (
 )
 from ..pipeline.coverage import resolved_coverage
 from ..pipeline.fine_interp import build_records
-from ..pipeline.image_tap import image_tap
+from ..pipeline.image_tap import image_tap, runs_tap
 from ..pipeline.ops import F32, I32
 from ..pipeline.paint import gradient_fg
 from ..pmath import rdiv
@@ -250,7 +250,7 @@ def fine_v2(cmds, counted, ramps, atlas, layout, caps):
     rec = build_records(dict(cmds, area_row=area_row_rec, flags=cmds["flags"] | (ids << 8)),
                         caps)
     fg_tab = None
-    if caps.get("_image_tap") and atlas is not None:
+    if runs_tap(caps, atlas):
         fg_tab, flags["image_region_overflow"], flags["img_recs_overflow"] = image_tap(
             rec, cmds, atlas, layout, caps)
     compact = composite_records(rec, area, ramps, layout["base_color"], cmds["tile_start"],

@@ -44,10 +44,11 @@ raises; nothing falls back to the eager frame. `Programs` keeps a
 caller's programs by key and logs each build.
 
 A frame's stage clock (`profiler.stage_clock`) is captured with it: its
-nine stamps are kernel nodes of the graph, so every replay stamps its own
-stages. The whole frame is captured on the one side stream `capture`
-opens (no stage launches on a stream of its own), so each stamp follows
-the work of the stage before it. `graph_ops` reads a graph's nodes back.
+stamps (nine, and two of the image tap's in a frame that runs it) are
+kernel nodes of the graph, so every replay stamps its own stages. The
+whole frame is captured on the one side stream `capture` opens (no stage
+launches on a stream of its own), so each stamp follows the work of the
+stage before it. `graph_ops` reads a graph's nodes back.
 """
 
 from __future__ import annotations

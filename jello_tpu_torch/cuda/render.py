@@ -88,8 +88,8 @@ from ..gfx import premul32
 from ..pipeline.clips import MAX_CLIP_DEPTH
 from ..pipeline.fine_ref import assemble_image
 from ..pipeline.gradient import stops_table_or_empty
-from ..pipeline.image_tap import atlas_planar
-from ..pipeline.render import STAGES, pack_layout, render_frame, unpack_layout
+from ..pipeline.image_tap import atlas_planar, runs_tap
+from ..pipeline.render import NESTED, STAGES, pack_layout, render_frame, unpack_layout
 from ..profiler import device_result, stage_clock, stage_ms, stamp_buffer
 from ..renderer.atlas import build_image_atlas
 from ..renderer.estimate import (
@@ -116,10 +116,12 @@ OUTPUT_FIELDS = ("width_in_tiles", "height_in_tiles", "target_width", "target_he
 def frame_counts(stats) -> dict:
     """The counts a profiled call carries of the frame it returned, from
     the frame's stats as read with its flags (host ints): `lines` (euler,
-    simple and arc lines together), `cmds` and `max_tile_cmds` (the
-    deepest tile's commands)."""
+    simple and arc lines together), `cmds`, `max_tile_cmds` (the
+    deepest tile's commands) and `img_recs` (its image records, the rows
+    of the image tap's table)."""
     return {"lines": stats["euler_lines"] + stats["simple_lines"] + stats["arc_lines"],
-            "cmds": stats["cmds"], "max_tile_cmds": stats["max_cmds"]}
+            "cmds": stats["cmds"], "max_tile_cmds": stats["max_cmds"],
+            "img_recs": stats["img_recs"]}
 
 
 def walk_bounds(stats) -> dict:
@@ -271,9 +273,12 @@ def frame(scene, layout, ramps, atlas, caps, fine_impl):
     clock (on the card: a stamp at each stage's entry and one after the
     last, `profiler.stage_clock`) and `pack_flags` (the body of
     `tpu/render.py::_get_compiled`). Returns (fine output, packed flags,
-    stats and stamps, (flag keys, stat keys))."""
-    stamps = stamp_buffer(scene.device, len(STAGES) + 1)
-    with stage_clock(stamps, STAGES):
+    stats and stamps, (flag keys, stat keys)). A frame that runs the image
+    tap (an atlas on the tap's route, not rerouted) also stamps the tap's
+    entry and exit inside fine (`NESTED`)."""
+    nested = NESTED if fine_impl is not None and runs_tap(caps, atlas) else ()
+    stamps = stamp_buffer(scene.device, len(STAGES) + 1 + 2 * len(nested))
+    with stage_clock(stamps, STAGES, nested):
         fine_out, flags, stats = render_frame(scene, unpack_layout(layout), ramps, atlas, caps,
                                               fine_impl)
     packed, fkeys, skeys = pack_flags(flags, stats, stamps)
@@ -529,7 +534,7 @@ class Renderer:
         `span` that caused the work (with a profiler)."""
         self.last_stage_ms = None if stamps is None else stage_ms(stamps, STAGES)
         if span is not None and stamps is not None:
-            span.add(device_result(stamps, STAGES))
+            span.add(device_result(stamps, STAGES, NESTED))
 
     def _prepare(self, scene, params):
         """Resolve and upload (cached per scene revision and params), in
@@ -723,7 +728,7 @@ class Renderer:
                 continue
             if raised:
                 self.last_retries.append(raised)
-                caps = grow_caps(caps, flags)
+                caps = grow_caps(caps, flags, stats)
                 if own:
                     self._caps = caps
                 continue
@@ -799,10 +804,11 @@ class Renderer:
         self.last_flags, self.last_stats = flags, stats
         return flags
 
-    def _render_again(self, prepared, params, caps, flags, max_retries):
+    def _render_again(self, prepared, params, caps, flags, max_retries, stats=None):
         """An enqueued frame came back with `flags` raised at the class
-        `caps`: render it again, checked, from the same inputs. For the
-        shape the renderer holds, its class is grown if it is still the
+        `caps` (and `stats`, its counters): render it again, checked, from
+        the same inputs. For the shape the renderer holds, its class is
+        grown (`grow_caps`, with the frame's stats) if it is still the
         frame's (an earlier frame in flight, or a checked render, may
         have moved it since); a frame of a shape the renderer has left
         grows its own class for this call only. Returns the fine output."""
@@ -810,10 +816,10 @@ class Renderer:
         self.flags_history.append(raised)
         if prepared[0] != self._est_key:
             fine_out = self._render_checked(prepared, params, max_retries,
-                                            grow_caps(caps, flags))
+                                            grow_caps(caps, flags, stats))
         else:
             if self._caps == caps:
-                self._caps = grow_caps(caps, flags)
+                self._caps = grow_caps(caps, flags, stats)
             fine_out = self._render_checked(prepared, params, max_retries)
         self.last_retries.insert(0, raised)
         return fine_out
@@ -885,12 +891,12 @@ class Frame:
                 if stamps is not None:
                     self.stage_ms = stage_ms(stamps, STAGES)
                     if self._span is not None:
-                        self._span.add(device_result(stamps, STAGES))
+                        self._span.add(device_result(stamps, STAGES, NESTED))
                 if any(flags.values()):
                     premul, srgb, max_retries = self._present_args
                     with r._span("render_again"):
                         fine_out = r._render_again(self._prepared, self._params, self._caps,
-                                                   flags, max_retries)
+                                                   flags, max_retries, stats)
                         pixels = device_to_host(r._present(self._prepared, fine_out,
                                                            premul, srgb))
                     stats = r.last_stats

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiler import named_scope
 from . import ops
 from .coarse import CMD_IMAGE
 from .ops import F32, I32
@@ -171,21 +172,30 @@ def tap_records_plain(tap_rec, atlas, wit, grid):
     return fg.permute(1, 0, 2).reshape(IRC, 1024).contiguous(), (bad & g["valid"]).any()
 
 
+def runs_tap(caps, atlas) -> bool:
+    """Whether a frame's fine stage runs the tap: its routing takes it
+    (`_image_tap`) and the frame has an atlas."""
+    return bool(caps.get("_image_tap")) and atlas is not None
+
+
 def image_tap(rec, cmds, atlas, layout, caps):
     """Run the tap over the command stream's image records.
 
     rec: the packed [PC, 16] record table (`build_records` with image
     ranks in word 14); atlas: f32 [4, AHp, AWp] from `atlas_planar`.
     Returns (fg_tab [img_recs_cap, 1024], image_region_overflow,
-    img_recs_overflow); rows past the image count are zero."""
+    img_recs_overflow); rows past the image count are zero. The stage is
+    the `image_tap` span (`profiler.named_scope`), which the frame's stage
+    clock stamps inside fine (`pipeline.render.NESTED`)."""
     from ..cuda.image_tap import tap_records
     from .flatten import expand_by_counts
 
     grid = caps["tile_grid_cap"]
     IRC = caps.get("img_recs_cap", IMG_RECS_CAP_DEFAULT)
-    tile = cmds["tile"]
-    P = (cmds["kind"] == CMD_IMAGE) & (tile < grid) & (tile >= 0)
-    irec, _, ivalid, _, n_img = expand_by_counts(P.to(I32), IRC, land=True)
-    tap_rec = torch.where(ivalid[:, None], ops.gather_guarded(rec, irec), 0).contiguous()
-    fg_tab, region_ovf = tap_records(tap_rec, atlas, layout["width_in_tiles"], grid)
+    with named_scope("image_tap"):
+        tile = cmds["tile"]
+        P = (cmds["kind"] == CMD_IMAGE) & (tile < grid) & (tile >= 0)
+        irec, _, ivalid, _, n_img = expand_by_counts(P.to(I32), IRC, land=True)
+        tap_rec = torch.where(ivalid[:, None], ops.gather_guarded(rec, irec), 0).contiguous()
+        fg_tab, region_ovf = tap_records(tap_rec, atlas, layout["width_in_tiles"], grid)
     return fg_tab, region_ovf, n_img > IRC

@@ -11,7 +11,8 @@ Stage order: flatten -> draw_leaf -> clip_leaf -> binning
 + tile_alloc -> path_count -> path_tiling -> coarse -> fine, each in a
 `profiler.named_scope` span of its name (`STAGES`), which also stamps
 the frame's stage clock where the caller set one (`profiler.stage_clock`,
-`cuda/render.py::frame`).
+`cuda/render.py::frame`); the image tap is a span of its own inside fine
+(`NESTED`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ from . import clips, coarse, drawobjs, fine_ref, flatten, ops, tiling
 # stage clock stamps at each one's entry and after the last).
 STAGES = ("flatten", "draw_leaf", "clip_leaf", "tile_alloc", "path_count", "path_tiling",
           "coarse", "fine")
+# The spans inside a stage that the stage clock stamps at their own entry
+# and exit in a frame that runs them, as (stage, span) pairs: the image tap
+# (`image_tap.image_tap`) inside the fine stage.
+NESTED = (("fine", "image_tap"),)
 
 # The layout's integer fields, in the order `pack_layout` packs them
 # (`jello_tpu/pipeline/render.py:24-39`).

@@ -176,7 +176,8 @@ class NoDeviceEvents(RuntimeError):
 
 
 # The stage clock of the frame being enqueued on this thread: (stamp
-# buffer, {stage label: slot}), set by `stage_clock`.
+# buffer, {span label: (entry slot, exit slot or None)}), set by
+# `stage_clock`.
 _CLOCK = contextvars.ContextVar("jello_stage_clock", default=None)
 
 
@@ -201,15 +202,20 @@ def device_stamp(buf, slot: int):
 
 
 @contextlib.contextmanager
-def stage_clock(buf, labels):
+def stage_clock(buf, labels, nested=()):
     """While entered, the stage spans (`named_scope`) of `labels` stamp
-    into `buf` (len(labels) + 1 slots): slot k at the entry of labels[k],
-    the last slot at the exit of the last label. `buf` None stamps
-    nothing."""
+    into `buf`: slot k at the entry of labels[k], slot len(labels) at the
+    exit of the last label. `nested` holds (stage, label) pairs of spans
+    inside a stage that stamp their own entry and exit, the j-th into the
+    two slots from len(labels) + 1 + 2j; `buf` has a slot for each stamp.
+    `buf` None stamps nothing."""
     if buf is None:
         yield
         return
-    token = _CLOCK.set((buf, {label: k for k, label in enumerate(labels)}))
+    n = len(labels)
+    slots = {label: (k, n if k == n - 1 else None) for k, label in enumerate(labels)}
+    slots.update({label: (n + 1 + 2 * j, n + 2 + 2 * j) for j, (_, label) in enumerate(nested)})
+    token = _CLOCK.set((buf, slots))
     try:
         yield
     finally:
@@ -225,27 +231,35 @@ def named_scope(label: str):
     import torch
 
     clock = _CLOCK.get()
-    slot = None if clock is None else clock[1].get(label)
+    slots = None if clock is None else clock[1].get(label)
     with torch.profiler.record_function(label):
-        if slot is not None:
-            device_stamp(clock[0], slot)
+        if slots is not None:
+            device_stamp(clock[0], slots[0])
         yield
-        if slot is not None and slot == len(clock[1]) - 1:
-            device_stamp(clock[0], slot + 1)
+        if slots is not None and slots[1] is not None:
+            device_stamp(clock[0], slots[1])
 
 
 def stage_ms(stamps, labels) -> dict:
-    """{label: device ms} from a frame's stamps (len(labels) + 1 ints, ns):
-    each stage from its entry stamp to the next."""
+    """{label: device ms} from a frame's stamps (ints, ns; the stages'
+    len(labels) + 1 first): each stage from its entry stamp to the next."""
     return {label: (stamps[k + 1] - stamps[k]) / 1e6 for k, label in enumerate(labels)}
 
 
-def device_result(stamps, labels) -> ProfilerResult:
+def device_result(stamps, labels, nested=()) -> ProfilerResult:
     """A frame's stamps as a "device" span with one child a stage, each
-    lasting its device time; starts are the card's clock in seconds."""
-    return ProfilerResult("device", stamps[0] / 1e9, (stamps[-1] - stamps[0]) / 1e9, [
-        ProfilerResult(label, stamps[k] / 1e9, (stamps[k + 1] - stamps[k]) / 1e9)
-        for k, label in enumerate(labels)])
+    lasting its device time, and under a stage the spans of `nested`
+    (`stage_clock`'s pairs) whose two stamps the frame has; starts are
+    the card's clock in seconds."""
+    n = len(labels)
+    stages = [ProfilerResult(label, stamps[k] / 1e9, (stamps[k + 1] - stamps[k]) / 1e9)
+              for k, label in enumerate(labels)]
+    for j, (stage, label) in enumerate(nested):
+        s = n + 1 + 2 * j
+        if len(stamps) >= s + 2:
+            stages[labels.index(stage)].children.append(
+                ProfilerResult(label, stamps[s] / 1e9, (stamps[s + 1] - stamps[s]) / 1e9))
+    return ProfilerResult("device", stamps[0] / 1e9, (stamps[n] - stamps[0]) / 1e9, stages)
 
 
 # The prefix of the spans `source_spans` opens; `xtrace` reads the rest

@@ -13,7 +13,8 @@ build needs static shapes per compiled size class, so we:
 
 The port's own copy of `jello_tpu/renderer/estimate.py` (same text; only the imports
 stay inside `jello_tpu_torch`), so that the port imports nothing of
-`jello_tpu`.
+`jello_tpu`. One departure: `grow_caps` takes the frame's stats and grows
+the image-tap table to the frame's image records at once.
 """
 
 from __future__ import annotations
@@ -304,7 +305,12 @@ def _apply_expand_floors(caps: dict) -> None:
     )
 
 
-def calibrate_caps(caps: dict, stats: dict, margin: float = 1.15) -> dict:
+# The margin over a frame's measured use that calibration (and the
+# image-tap table's growth) leaves.
+MARGIN = 1.15
+
+
+def calibrate_caps(caps: dict, stats: dict, margin: float = MARGIN) -> dict:
     """Shrink the capacity class to measured actual use (+margin).
 
     `stats` holds the exact per-frame counters fetched from the device
@@ -407,8 +413,14 @@ GROW_ON_FLAG = {
 }
 
 
-def grow_caps(caps: dict, flags: dict) -> dict:
-    """Double the capacities implicated by raised overflow flags."""
+def grow_caps(caps: dict, flags: dict, stats: dict | None = None) -> dict:
+    """Double the capacities implicated by raised overflow flags.
+
+    The image-tap table grows at least to the frame's `img_recs` stat
+    (with `stats`, the frame's counters), rounded as `calibrate_caps`
+    rounds it: the stat counts the coarse stage's image commands before
+    the tap runs, so it is exact on the overflowing frame too, and a
+    scene of a million image records settles in one retry, not ten."""
     out = dict(caps)
     for flag, keys in GROW_ON_FLAG.items():
         if bool(flags.get(flag, False)):
@@ -419,6 +431,9 @@ def grow_caps(caps: dict, flags: dict) -> dict:
                     out[k] = min(out[k] * 2, 128)
                 else:
                     out[k] = out[k] * 2
+    if flags.get("img_recs_overflow") and stats and "img_recs" in stats:
+        need = _bucket(int(int(stats["img_recs"]) * MARGIN) + 1, 256, 256)
+        out["img_recs_cap"] = max(out.get("img_recs_cap", 0), need)
     # line_cap is the exact family sum (the members are already
     # bucketed). Re-inflating it to a power of two here doubled every
     # line-array pass after ANY retry — e.g. a legacy_overflow retry

@@ -305,7 +305,8 @@ def test_torch_stage_clock_of_a_replayed_frame_on_the_card(cuda, config, tmp_pat
     """A replayed frame of config 4 and 5: its stamps rise, its eight stage
     times come to 90-105% of its busy ms in a trace of the same frames, two
     frames in flight carry their own stamps, and the program's graph is the
-    graph of the frame without the clock plus nine stamps."""
+    graph of the frame without the clock plus nine stamps, and two more
+    where the frame runs the image tap (config 5)."""
     from jello_tpu_torch.cuda.program import graph_ops
 
     scene, params = GATE_SCENES[config]()
@@ -342,5 +343,5 @@ def test_torch_stage_clock_of_a_replayed_frame_on_the_card(cuda, config, tmp_pat
     extra = {k: n for k, n in extra.items() if n}
     assert len(extra) == 1, extra
     ((name, n),) = extra.items()
-    assert "stamp_kernel" in name and n == len(STAGES) + 1
+    assert "stamp_kernel" in name and n == len(STAGES) + 1 + (2 if config == 5 else 0)
     assert plain.last_stage_ms is None
