@@ -15,11 +15,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   2. build: compiles the CUDA kernels from jello_tpu_torch/csrc, one
      nvcc per source, all at once, and prints ptxas's registers, spills
      and static shared memory for kernels A, C, D, E (E's three bodies),
-     F, G, H (each of H's builds), I, J and K, and kernel A's persistent
-     grid;
+     F, G, H (each of H's builds), I, J, K and L, and kernel A's
+     persistent grid;
   3. config 3's real kernel inputs: one geometry pass of config 3 at its
      calibrated class on the renderer's route, with every call of the
-     kernel wrappers C, D, E, E', E'' and J recorded;
+     kernel wrappers C, D, E, E', E'', J and L recorded;
   4. kernel A (coverage) vs its plain version on config 3's coverage
      inputs (max abs diff <= 1e-5; the MSAA body's rows equal), each of
      its three modes timed beside its bound;
@@ -43,10 +43,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      then J (the per-line DDA table, `_kernel_j`) vs its plain version bit
      for bit (counts and row table on every line, P on every line with a
      crossing or a row) and timed: wrapper, bare C entry, plain version,
-     bound, device operations a call (one kernel, nothing else);
+     bound, device operations a call (one kernel, nothing else); then L
+     (flatten's per-slot tables, `_kernel_l`) vs its plain version bit for
+     bit on every table and timed the same way;
   7. config 5 (10,000 paths at 1920x1080: long fills, thin round-capped
      strokes, even-odd glyphs, gradients, image fills) at its calibrated
-     class: kernels C, D, E, E', E'' (now with stroke offsets), J and A
+     class: kernels C, D, E, E', E'' (now with stroke offsets), J, L and A
      held to their plain versions on this frame's recorded inputs as in 4
      and 6 and timed (D, E, E', E'', J as in 6 and A's three modes, beside
      their bounds),
@@ -549,10 +551,12 @@ class _PlainKernels:
         from jello_tpu_torch.cuda import lockstep as kwalk
         from jello_tpu_torch.cuda import scan as kscan
         from jello_tpu_torch.cuda import scatter as kscatter
+        from jello_tpu_torch.cuda import slot_tables as kslot
         from jello_tpu_torch.pipeline import coverage as plain_cov
         from jello_tpu_torch.pipeline import expand as px
         from jello_tpu_torch.pipeline import ops as plain_ops
         from jello_tpu_torch.pipeline import fine_interp as plain_int
+        from jello_tpu_torch.pipeline import flatten as plain_flatten
         from jello_tpu_torch.pipeline import image_tap as plain_tap
         from jello_tpu_torch.pipeline import land as plain_land
         from jello_tpu_torch.pipeline import lockstep as plain_walk
@@ -587,6 +591,7 @@ class _PlainKernels:
             (kscan, "column_scan", plain_ops.column_scan_plain),
             (kline, "line_tables", plain_tiling.line_tables_plain),
             (kscatter, "drop_scatter", plain_ops.drop_scatter_plain),
+            (kslot, "slot_tables", plain_flatten.slot_tables_plain),
         ]
         self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -853,6 +858,87 @@ def _kernel_j(calls, tag, smi, n_plain):
     return err, ms, plain_ms, bound, None, bare_ms
 
 
+def _kernel_l(calls, tag, smi, n_plain):
+    """Kernel L (flatten's per-slot tables) on one geometry pass's recorded
+    calls of `slot_tables`: each held to its plain version
+    (`flatten.slot_tables_plain` on the card) bit for bit on every table,
+    a NaN equal to a NaN; then the last call timed: the wrapper, the bare
+    C entry on tables allocated once (equal to the wrapper's), the plain
+    version (n_plain calls), the bound (the slots' monoid words, decoded tags,
+    style words, points and transforms read and every table written once
+    over 3.35 TB/s), and the device operations a call (more than one
+    kernel, or any memset or copy, fails). Returns the JSON line's
+    numbers: (max abs error, ms, plain ms, (bound ms, by), None, bare
+    ms)."""
+    import torch
+
+    from jello_tpu_torch.cuda import build
+    from jello_tpu_torch.cuda import slot_tables as kslot
+    from jello_tpu_torch.pipeline.flatten import slot_tables_plain
+
+    def bit_equal(g, w):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False
+        if g.dtype != torch.float32:
+            return torch.equal(g, w)
+        return bool(((g.view(torch.int32) == w.view(torch.int32))
+                     | (torch.isnan(g) & torch.isnan(w))).all())
+
+    if not calls:
+        _fail(f"{tag}: kernel L was not called in a geometry pass")
+    for args in calls:
+        got = kslot.slot_tables(*args)
+        want = slot_tables_plain(*args)
+        bad = [k for k in want if not bit_equal(got[k], want[k])]
+        if bad:
+            _fail(f"{tag}: kernel L differs from its plain version in {bad} ({args[4]} slots)")
+        N = args[4]
+        print(f"{tag}: kernel L equals its plain version bit for bit on every table: {N} "
+              f"slots, {int(got['counts2'][:N].sum())} A and {int(got['counts2'][N:].sum())} B "
+              f"work rows, {int(got['orow'][:, 2].sum())} simple lines, "
+              f"{int(got['arc_n'].sum())} arc lines")
+    args = calls[-1]
+    scene, layout, tags, mono, N, tag_lo, n_paths_cap = args
+    Ne = mono["path_idx"].shape[0]
+    stride = mono["path_idx"].stride(0)
+    lib = build.kernels()
+    outs = {k: torch.empty_like(v) for k, v in got.items()}
+    ins = ([scene.data_ptr(), tags.data_ptr()]
+           + [layout[k].data_ptr() for k in kslot.LAYOUT_KEYS]
+           + [mono[k].data_ptr() for k in kslot.MONO_KEYS])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        build.check("jello_slot_tables", lib.jello_slot_tables(
+            *ins, *[o.data_ptr() for o in outs.values()], stride, scene.shape[0], N, Ne,
+            tag_lo, n_paths_cap, stream))
+
+    bare()
+    got = kslot.slot_tables(*args)
+    if not all(bit_equal(outs[k], got[k]) for k in got):
+        _fail(f"{tag}: kernel L's bare entry differs from its wrapper")
+    # Bound: four monoid words, a decoded tag, two style words, eight point
+    # words and six transform words a slot read (an overcount: neighbours
+    # share styles and transforms), every table written once; ~400 float
+    # operations a slot.
+    nbytes = N * (4 * 4 + 4 + 2 * 4 + 8 * 4 + 6 * 4) + _nbytes(*outs.values())
+    bound = _bound(nbytes, N * 400)
+    ms = _time_ms(lambda: kslot.slot_tables(*args), 20)
+    bare_ms = _time_ms(bare, 20)
+    plain_ms = _time_ms(lambda: slot_tables_plain(*args), n_plain)
+    n_k, n_c = _device_ops(lambda: kslot.slot_tables(*args))
+    us = _device_us(bare)
+    print(f"kernel L, {tag}: {N} slots ({Ne} decoded): {ms:.4f} ms (the bare C entry "
+          f"{bare_ms:.4f} ms; device "
+          + ("; ".join(f"{k} {v:.1f} us" for k, v in us.items()) or "no event captured")
+          + f") vs plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]} "
+          f"({100 * bound[0] / bare_ms:.1f}% of the bare entry), {n_k:g} kernels and {n_c:g} "
+          f"memsets or copies a call, on {smi}")
+    if n_k > 1 or n_c > 0:
+        _fail(f"{tag}: kernel L: {n_k:g} kernels and {n_c:g} memsets or copies a call")
+    return 0.0, ms, plain_ms, bound, None, bare_ms
+
+
 def _scatter_rows_equal(got, want, idx, op):
     """Kernel K's output against the plain version's on the card: integer
     words bit for bit, float words by value (which of +0 and -0 a max
@@ -981,6 +1067,7 @@ def _counters():
     from jello_tpu_torch.cuda import lockstep as kwalk
     from jello_tpu_torch.cuda import scan as kscan
     from jello_tpu_torch.cuda import scatter as kscatter
+    from jello_tpu_torch.cuda import slot_tables as kslot
 
     return {
         "coverage_area": (kcov.coverage_rows, "launches"),
@@ -997,6 +1084,7 @@ def _counters():
         "column_scan": (kscan.column_scan, "launches"),
         "line_dda": (kline.line_tables, "launches"),
         "drop_scatter": (kscatter.drop_scatter, "launches"),
+        "slot_tables": (kslot.slot_tables, "launches"),
     }
 
 
@@ -1006,7 +1094,7 @@ def _sharded_kernels(path, aa, has_atlas):
     with "19b" A, B and G (fine_hybrid runs G even without a legacy tile)
     and F with an atlas; with "19a_fine_ref" nothing more."""
     out = {"monotone_land", "lockstep_walk", "expand_euler", "expand_crossings", "expand_rows",
-           "column_scan", "line_dda", "drop_scatter"}
+           "column_scan", "line_dda", "drop_scatter", "slot_tables"}
     coverage = "coverage_area" if aa == "area" else "coverage_msaa"
     if path == "19a":
         out |= {coverage, "fine_interp"}
@@ -1301,7 +1389,9 @@ def _attribution(tag, tab, med):
     outside = tab["stages"].get(OUTSIDE, (0.0, 0))[0]
     if quiet or not outside <= OUTSIDE_MAX * busy:
         _fail(f"{tag}: stages without a launch {quiet}; {outside:.3f} of {busy:.3f} busy "
-              f"ms outside the stages")
+              f"ms outside the stages, from " + "; ".join(
+                  f"{src} ({kind}) {ms:.3f} ms x{n:g}" for (st, src, kind), (ms, n)
+                  in sorted(tab["sites"].items(), key=lambda kv: -kv[1][0]) if st == OUTSIDE))
     if any(not src.startswith("pipeline/") for _, _, _, src, _ in scans):
         _fail(f"{tag}: an outer-dimension scan launch has no call site in pipeline/")
 
@@ -1322,6 +1412,7 @@ _KERNEL_NAMES = {
     "column_scan": ("colscan_apply",),
     "line_dda": ("line_dda_kernel",),
     "drop_scatter": ("drop_scatter_kernel",),
+    "slot_tables": ("slot_tables_kernel",),
 }
 
 
@@ -2056,6 +2147,7 @@ def main():
     from jello_tpu_torch.cuda import land as kland
     from jello_tpu_torch.cuda import line_dda as kline
     from jello_tpu_torch.cuda import lockstep as kwalk
+    from jello_tpu_torch.cuda import slot_tables as kslot
     from jello_tpu_torch.cuda.coverage import compute_area_rows, coverage_rows
     from jello_tpu_torch.cuda.fine_v2 import (
         assemble_compact,
@@ -2109,7 +2201,7 @@ def main():
     # (resident CTAs a multiprocessor times the multiprocessors, from
     # those registers and its shared memory).
     for src in ("coverage.cu", "land.cu", "lockstep.cu", "expand.cu", "image_tap.cu",
-                "fine_interp.cu", "scan.cu", "line_dda.cu", "scatter.cu"):
+                "fine_interp.cu", "scan.cu", "line_dda.cu", "scatter.cu", "slot_tables.cu"):
         for name, regs, st, ld, smem in _ptxas_summary(build.LOG[src]):
             print(f"ptxas, {src}: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B, static shared memory {smem} B")
@@ -2234,7 +2326,8 @@ def main():
     out = {}
     calls = _record_calls(
         [(kland, "monotone_land"), (kwalk, "lockstep_walk"), (kx, "expand_euler"),
-         (kx, "expand_crossings"), (kx, "expand_rows"), (kline, "line_tables")],
+         (kx, "expand_crossings"), (kx, "expand_rows"), (kline, "line_tables"),
+         (kslot, "slot_tables")],
         lambda: out.update(stages=geometry(scene_t, layout_t, caps)[0]))
     stages = out["stages"]
     cmds, counted = stages["cmds"], stages["counted"]
@@ -2353,7 +2446,7 @@ def main():
 
     geometry_wrappers = [(kland, "monotone_land"), (kwalk, "lockstep_walk"),
                          (kx, "expand_euler"), (kx, "expand_crossings"), (kx, "expand_rows"),
-                         (kline, "line_tables")]
+                         (kline, "line_tables"), (kslot, "slot_tables")]
     held3 = hold_geometry_kernels(calls, "config 3")
     res = {}
     # C, at all three call sites; timed at the sorted-run landing (K = 3).
@@ -2517,6 +2610,7 @@ def main():
 
     res.update(time_geometry_kernels(calls, held3, "config 3", 1))
     j3 = _kernel_j(calls["line_tables"], "config 3", smi, 5)
+    l3 = _kernel_l(calls["slot_tables"], "config 3", smi, 5)
     del calls, held3, got, warm
 
     # ---- 7. config 5: kernel F, and kernel B with the tap's table --------
@@ -2575,6 +2669,8 @@ def main():
     time_geometry_kernels(calls5, held5, "config 5", 0)
     res["J"] = _kernel_j(calls5["line_tables"], "config 5", smi, 3)
     res["J"] = (max(res["J"][0], j3[0]),) + res["J"][1:]
+    res["L"] = _kernel_l(calls5["slot_tables"], "config 5", smi, 3)
+    res["L"] = (max(res["L"][0], l3[0]),) + res["L"][1:]
     del calls5, held5, stream, rs, re_, bd, eo, lens
     area5, ids5, _ = compute_area_rows(cmds, counted, caps)
     rec5 = build_records(dict(cmds, area_row=ids5), caps)
@@ -3625,6 +3721,9 @@ def main():
         # ops.scatter_* calls of an eager frame there.
         dict(entry("drop_scatter", "scatter.cu", "", *res["K"][:6]), replaces=None,
              launches_a_replay=res["K"][6], calls_a_frame=res["K"][7]),
+        # Kernel L replaces no Pallas kernel (jello_tpu leaves flatten's
+        # per-slot chain to XLA); its numbers at config 5.
+        dict(entry("slot_tables", "slot_tables.cu", "", *res["L"]), replaces=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

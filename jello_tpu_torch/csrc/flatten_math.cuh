@@ -22,6 +22,7 @@ constexpr double kDerivThresh = 1e-6;
 constexpr double kDerivEps = 1e-6;
 constexpr float kSubdivLimit = 1.0f / 65536.0f;
 constexpr double kTangentThresh = 1e-6;
+constexpr double kRobustEpsilon = 2e-7;
 constexpr double kK1Thresh = 1e-3;
 constexpr double kDistThresh = 1e-3;
 constexpr float kTol = 0.25f;
@@ -36,6 +37,30 @@ struct Cubic {
 struct PQ {
   float px, py, qx, qy, t;
 };
+
+// cubic_start_tangent and cubic_end_tangent: the first chord from the
+// segment's start (end) longer than ROBUST_EPSILON squared, else the whole.
+__device__ __forceinline__ void cubic_start_tangent(const Cubic& P, float* tx, float* ty) {
+  const float* p = P.p;
+  const float d01x = p[2] - p[0], d01y = p[3] - p[1];
+  const float d02x = p[4] - p[0], d02y = p[5] - p[1];
+  const float d03x = p[6] - p[0], d03y = p[7] - p[1];
+  const bool use01 = d01x * d01x + d01y * d01y > F(kRobustEpsilon);
+  const bool use02 = d02x * d02x + d02y * d02y > F(kRobustEpsilon);
+  *tx = use01 ? d01x : (use02 ? d02x : d03x);
+  *ty = use01 ? d01y : (use02 ? d02y : d03y);
+}
+
+__device__ __forceinline__ void cubic_end_tangent(const Cubic& P, float* tx, float* ty) {
+  const float* p = P.p;
+  const float d23x = p[6] - p[4], d23y = p[7] - p[5];
+  const float d13x = p[6] - p[2], d13y = p[7] - p[3];
+  const float d03x = p[6] - p[0], d03y = p[7] - p[1];
+  const bool use23 = d23x * d23x + d23y * d23y > F(kRobustEpsilon);
+  const bool use13 = d13x * d13x + d13y * d13y > F(kRobustEpsilon);
+  *tx = use23 ? d23x : (use13 ? d13x : d03x);
+  *ty = use23 ? d23y : (use13 ? d13y : d03y);
+}
 
 __device__ __forceinline__ void eval_cubic_and_deriv(const Cubic& P, float t, float* px,
                                                      float* py, float* qx, float* qy) {

@@ -120,6 +120,13 @@ SIGNATURES = {
     # n, w, op (0 set, 1 int32 add, 2 int32 max, 3 int32 min, 4 float32
     # max), vec (1: vals and out aligned for w-word vectors), stream
     "jello_drop_scatter": [P, P, P, I, P, L, L, I, I, I, P],
+    # scene [S] i32; the layout's path_tag_base, path_data_base,
+    # style_base, transform_base, n_path_tags (0-dim i32 on the device);
+    # the monoid's path_idx, path_seg_offset, style_idx, trans_idx [Ne]
+    # i32 (one stride); tab2 [2N, 21] f32, counts2 [2N] i32, sa [4N, 15]
+    # f32, orow [N, 3] i32, tot4, tgt [N] i32, pmeta [N, 2] i32, arc_n [N]
+    # f32; the monoid's stride, S, N, Ne, tag_lo, n_paths_cap, stream
+    "jello_slot_tables": [P] * 18 + [L, L, I, I, I, I, P],
 }
 
 

@@ -3,9 +3,10 @@
 Counterpart of `jello_tpu/pipeline/flatten.py::flatten_stage` and its
 helpers (`decode_tag_stream`, `slot_geometry`, `expand_by_counts`,
 `euler_line_points`, `finalize_path_bbox`) on jello_tpu's accelerator
-route: the worklist marks land through kernel C, the adaptive
-subdivision walk is kernel D and the Euler lines come from kernel E (on
-CPU tensors, their plain versions).
+route: the per-slot tables come from kernel L, the worklist marks land
+through kernel C, the adaptive subdivision walk is kernel D and the
+Euler lines come from kernel E (on CPU tensors, their plain versions;
+`slot_tables_plain` is L's).
 
 One slot per path tag byte. Fills are flattened in device space with
 zero offset; the stroke families (offsets, caps, joins, round arcs)
@@ -382,52 +383,36 @@ def slot_geometry(tags, tags_next, pts_raw, pts_next_raw, seg_type0,
     }
 
 
-def flatten_stage(scene, layout, caps, shard=None):
-    """Run the flatten stage.
-
-    scene: int32 scene words; layout: dict of host ints (path_tag_base,
-    path_data_base, style_base, transform_base, n_path_tags); caps: the
-    capacity class (n_tag_slots, max_iters, work_a_cap, work_b_cap,
-    euler_line_cap, simple_line_cap, arc_line_cap, line_cap,
-    n_paths_cap). Returns the line soup, per-path bboxes/flags, the
-    actual-use counters and the overflow flag.
-
-    shard: for a tag-range shard of `cuda/sharded2.py`, {"tag_lo": the
-    host int first slot (a multiple of 4), "monoid_base": int32 [5], the
-    monoid deltas of the tags before it (`pathtag.tag_monoid_scan`)}: the
-    stage then flattens slots [tag_lo, tag_lo + n_tag_slots), decoding 4
-    slots more so that the last slot's successor is local
-    (`jello_tpu/pipeline/flatten.py:728-780`). Either way it returns the
-    raw per-path bbox accumulator `bb_acc` too, for the caller to combine
-    across shards by maximum before `finalize_path_bbox`."""
-    from ..cuda import expand as kx
-    from ..cuda.lockstep import lockstep_walk
-
+def slot_tables_plain(scene, layout, tags_e, mono, N, tag_lo, n_paths_cap):
+    """Plain version of kernel L (`cuda/slot_tables.py::slot_tables`, its
+    CPU route): flatten's per-slot tables. tags_e: the tag bytes of Ne
+    slots from tag slot `tag_lo` on (`decode_tag_stream`); mono: the tag
+    monoid's exclusive columns (`pathtag.tag_monoid_scan`) over them. For
+    each of the stage's N slots it reads its segment, style and
+    transform, and its successor's segment: slot i + 1's, or with Ne == N
+    slot 0's for the last (`jello_tpu/pipeline/flatten.py:728-780`).
+    Returns {"tab2": [2N, 21] f32, the Euler work rows of pass A then B;
+    "counts2": [2N] i32, act_a then act_b; "sa": [4N, 15] f32, the three
+    simple-line families' rows then the arc rows; "orow": [N, 3] i32, the
+    running simple-line counts; "tot4": [N] i32, those and the arc's
+    lines; "tgt": [N] i32, the path a path-marker slot sets (n_paths_cap
+    elsewhere); "pmeta": [N, 2] i32, its draw flags and transform index;
+    "arc_n": [N] f32}."""
     dev = scene.device
-    N = caps["n_tag_slots"]
-    IT = caps["max_iters"]
-    n_paths_cap = caps["n_paths_cap"]
-
-    # Slots decoded (_e): the stage's own, and under a shard the 4 past it.
-    if shard is None:
-        Ne, tag_lo, base = N, 0, None
-
+    Ne = mono["path_idx"].shape[0]
+    if Ne == N:
         def cur(a):
             return a
 
         def nxt(a):
             return torch.cat([a[1:], a[:1]])
     else:
-        Ne, tag_lo, base = N + 4, shard["tag_lo"], shard["monoid_base"]
-
         def cur(a):
             return a[:N]
 
         def nxt(a):
             return a[1:N + 1]
 
-    tags_e = decode_tag_stream(scene, layout["path_tag_base"] + tag_lo // 4, Ne)
-    mono = tag_monoid_scan(tags_e, base)
     tags = cur(tags_e)
     active = ops.iota(N, dev) + tag_lo < layout["n_path_tags"]
 
@@ -458,42 +443,12 @@ def flatten_stage(scene, layout, caps, shard=None):
 
     df = torch.where((style_flags & FLAGS_FILL_BIT) == 0, 0,
                      DRAW_INFO_FLAGS_FILL_RULE_BIT).to(I32)
-    pmeta = ops.scatter_set(
-        torch.zeros((n_paths_cap, 2), dtype=I32, device=dev), tgt_idx,
-        torch.stack([df, trans_idx], dim=1))
-    path_draw_flags = pmeta[:, 0]
-    path_trans_idx = pmeta[:, 1]
-
-    # One merged worklist over both Euler passes (A-items in slot order,
-    # then B-items), and one lockstep walk over it.
-    NWAB = caps["work_a_cap"] + caps["work_b_cap"]
     act_a32 = g["act_a"].to(I32)
     act_b32 = g["act_b"].to(I32)
     counts2 = torch.cat([act_a32, act_b32])
-    # jello_tpu's accelerator route (`flatten.py:900-954`): the worklist
-    # marks land through kernel C, the walk is kernel D and the Euler
-    # lines come from kernel E.
-    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB, land=True)
-    na = act_a32.sum()
-    nb = act_b32.sum()
-
     tab2 = torch.cat([torch.stack(g["tabA"], dim=1), torch.stack(g["tabB"], dim=1)])
-    rows = ops.gather_guarded(tab2, wl)
-    EC = caps["euler_line_cap"]
-    rec, count, not_done, lockstep_iters = lockstep_walk(rows, wl_valid, IT)
-    # e_total counts one dead slot per zero-count work row (the
-    # expansion's clamp): it sizes the stream; e_real is the lines.
-    e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = kx.expand_euler(
-        rows, rec, count.to(I32), EC, n_paths_cap)
-    e_real = count.sum().to(I32)
-    overflow_euler = not_done.any() | (nab > NWAB)
 
-    # Simple lines + arc lines: one merged per-slot expansion over the
-    # three simple-line families and the arcs, demuxed per output row.
-    SC = caps["simple_line_cap"]
-    AC = caps["arc_line_cap"]
     fpath = path_idx.to(F32)
-    s_counts = torch.cat([sl[0].to(I32) for sl in g["s_lines"]])
     zcol = torch.zeros(3 * N, dtype=F32, device=dev)
     stab = torch.stack(
         [torch.cat([g["s_lines"][k][c] for k in range(3)]) for c in range(1, 5)]
@@ -507,11 +462,81 @@ def flatten_stage(scene, layout, caps, shard=None):
     o2 = o1 + c012[1]
     o3 = o2 + c012[2]
     tot4 = o3 + arc_n.to(I32)
-    sa_slot, sa_w, sa_valid, _, sa_total = expand_by_counts(tot4, SC + AC)
-    orow = ops.gather_guarded(torch.stack([o1, o2, o3], dim=1), sa_slot)
+    return {"tab2": tab2, "counts2": counts2, "sa": torch.cat([stab, atab]),
+            "orow": torch.stack([o1, o2, o3], dim=1), "tot4": tot4, "tgt": tgt_idx,
+            "pmeta": torch.stack([df, trans_idx], dim=1), "arc_n": arc_n}
+
+
+def flatten_stage(scene, layout, caps, shard=None):
+    """Run the flatten stage.
+
+    scene: int32 scene words; layout: the unpacked layout
+    (`pipeline.render.unpack_layout`: 0-dim int32 path_tag_base,
+    path_data_base, style_base, transform_base, n_path_tags); caps: the
+    capacity class (n_tag_slots, max_iters, work_a_cap, work_b_cap,
+    euler_line_cap, simple_line_cap, arc_line_cap, line_cap,
+    n_paths_cap). Returns the line soup, per-path bboxes/flags, the
+    actual-use counters and the overflow flag.
+
+    shard: for a tag-range shard of `cuda/sharded2.py`, {"tag_lo": the
+    host int first slot (a multiple of 4), "monoid_base": int32 [5], the
+    monoid deltas of the tags before it (`pathtag.tag_monoid_scan`)}: the
+    stage then flattens slots [tag_lo, tag_lo + n_tag_slots), decoding 4
+    slots more so that the last slot's successor is local
+    (`jello_tpu/pipeline/flatten.py:728-780`). Either way it returns the
+    raw per-path bbox accumulator `bb_acc` too, for the caller to combine
+    across shards by maximum before `finalize_path_bbox`."""
+    from ..cuda import expand as kx
+    from ..cuda.lockstep import lockstep_walk
+    from ..cuda.slot_tables import slot_tables
+
+    dev = scene.device
+    N = caps["n_tag_slots"]
+    IT = caps["max_iters"]
+    n_paths_cap = caps["n_paths_cap"]
+
+    # Slots decoded (_e): the stage's own, and under a shard the 4 past it.
+    Ne, tag_lo, base = (N, 0, None) if shard is None else (
+        N + 4, shard["tag_lo"], shard["monoid_base"])
+    tags_e = decode_tag_stream(scene, layout["path_tag_base"] + tag_lo // 4, Ne)
+    mono = tag_monoid_scan(tags_e, base)
+    st = slot_tables(scene, layout, tags_e, mono, N, tag_lo, n_paths_cap)
+
+    pmeta = ops.scatter_set(
+        torch.zeros((n_paths_cap, 2), dtype=I32, device=dev), st["tgt"], st["pmeta"])
+    path_draw_flags = pmeta[:, 0]
+    path_trans_idx = pmeta[:, 1]
+
+    # One merged worklist over both Euler passes (A-items in slot order,
+    # then B-items), and one lockstep walk over it.
+    NWAB = caps["work_a_cap"] + caps["work_b_cap"]
+    counts2 = st["counts2"]
+    # jello_tpu's accelerator route (`flatten.py:900-954`): the worklist
+    # marks land through kernel C, the walk is kernel D and the Euler
+    # lines come from kernel E.
+    wl, _, wl_valid, _, nab = expand_by_counts(counts2, NWAB, land=True)
+    na = counts2[:N].sum()
+    nb = counts2[N:].sum()
+
+    rows = ops.gather_guarded(st["tab2"], wl)
+    EC = caps["euler_line_cap"]
+    rec, count, not_done, lockstep_iters = lockstep_walk(rows, wl_valid, IT)
+    # e_total counts one dead slot per zero-count work row (the
+    # expansion's clamp): it sizes the stream; e_real is the lines.
+    e_x0, e_y0, e_x1, e_y1, e_path, e_valid, e_total = kx.expand_euler(
+        rows, rec, count.to(I32), EC, n_paths_cap)
+    e_real = count.sum().to(I32)
+    overflow_euler = not_done.any() | (nab > NWAB)
+
+    # Simple lines + arc lines: one merged per-slot expansion over the
+    # three simple-line families and the arcs, demuxed per output row.
+    SC = caps["simple_line_cap"]
+    AC = caps["arc_line_cap"]
+    sa_slot, sa_w, sa_valid, _, sa_total = expand_by_counts(st["tot4"], SC + AC)
+    orow = ops.gather_guarded(st["orow"], sa_slot)
     fam = ((sa_w >= orow[:, 0]).to(I32) + (sa_w >= orow[:, 1]).to(I32)
            + (sa_w >= orow[:, 2]).to(I32))
-    sarow = ops.gather_guarded(torch.cat([stab, atab]), fam * N + sa_slot)
+    sarow = ops.gather_guarded(st["sa"], fam * N + sa_slot)
     is_arc = fam == 3
     a_bx, a_by, a_ex, a_ey = sarow[:, 0], sarow[:, 1], sarow[:, 2], sarow[:, 3]
     a_cx, a_cy, a_theta, a_n = sarow[:, 4], sarow[:, 5], sarow[:, 6], sarow[:, 7]
@@ -575,7 +600,7 @@ def flatten_stage(scene, layout, caps, shard=None):
         "n_lines": e_total + sa_total,
         "n_work_a": na, "n_work_b": nb,
         "e_total": e_total, "e_real": e_real,
-        "s_total": s_counts.sum(), "a_total": arc_n.to(I32).sum(),
+        "s_total": st["orow"][:, 2].sum(), "a_total": st["arc_n"].to(I32).sum(),
         "lockstep_iters": lockstep_iters,
         "path_bbox": finalize_path_bbox(bb_acc),
         "bb_acc": bb_acc,

@@ -122,25 +122,26 @@ def geometry(scene, layout, caps):
         cmds = coarse.build_commands(layout, dm, tag, dtab, draw_bbox, paths, counted,
                                      fl["path_draw_flags"], caps)
         cmds["dtab"] = dtab
+        # Exact per-frame counters of the commands, read by
+        # renderer.estimate.calibrate_caps: img_recs sizes the image-tap
+        # table (the predicate of its compaction), legacy_tiles the
+        # interpreter's grid (the classification fine_hybrid uses). Inside
+        # the coarse span, where the stage clock counts them too.
+        tile = cmds["tile"]
+        img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
+                    & (tile >= 0)).sum()
+        # A clip-free frame (`_coarse_dense`, routed on n_clips == 0) whose
+        # images ride the tap has no legacy tile.
+        if not caps.get("_coarse_dense") or not caps.get("_image_tap"):
+            legacy_tiles = coarse.classify_legacy_tiles(cmds, caps)[0].sum()
+        else:
+            legacy_tiles = torch.zeros((), dtype=torch.int64, device=tile.device)
     flags = {
         "flatten_overflow": fl["overflow"],
         "tiles_overflow": paths["overflow"],
         "segs_overflow": counted["overflow"],
         "pairs_overflow": cmds["overflow"],
     }
-    # Exact per-frame counters read by renderer.estimate.calibrate_caps.
-    # img_recs sizes the image-tap table (the predicate of its compaction),
-    # legacy_tiles the interpreter's grid (the classification fine_hybrid
-    # uses).
-    tile = cmds["tile"]
-    img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
-                & (tile >= 0)).sum()
-    # A clip-free frame (`_coarse_dense`, routed on n_clips == 0) whose
-    # images ride the tap has no legacy tile.
-    if not caps.get("_coarse_dense") or not caps.get("_image_tap"):
-        legacy_tiles = coarse.classify_legacy_tiles(cmds, caps)[0].sum()
-    else:
-        legacy_tiles = torch.zeros((), dtype=torch.int64, device=tile.device)
     stats = {
         "legacy_tiles": legacy_tiles,
         "img_recs": img_recs,
