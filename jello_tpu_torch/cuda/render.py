@@ -117,11 +117,14 @@ def frame_counts(stats) -> dict:
     """The counts a profiled call carries of the frame it returned, from
     the frame's stats as read with its flags (host ints): `lines` (euler,
     simple and arc lines together), `cmds`, `max_tile_cmds` (the
-    deepest tile's commands) and `img_recs` (its image records, the rows
-    of the image tap's table)."""
+    deepest tile's commands), `img_recs` (its image records, the rows
+    of the image tap's table), `grad_recs` (its linear, radial and sweep
+    gradient records) and `clips` (the layout's clip draw objects, a
+    BeginClip and its EndClip each)."""
     return {"lines": stats["euler_lines"] + stats["simple_lines"] + stats["arc_lines"],
             "cmds": stats["cmds"], "max_tile_cmds": stats["max_cmds"],
-            "img_recs": stats["img_recs"]}
+            "img_recs": stats["img_recs"], "grad_recs": stats["grad_recs"],
+            "clips": stats["clips"]}
 
 
 def walk_bounds(stats) -> dict:

@@ -76,6 +76,15 @@ def unpack_layout(packed: torch.Tensor) -> dict:
     return ld
 
 
+# The command kinds (`coarse.CMD_*`) a frame counts, as bits: bit k is
+# set where kind k is an image record, bit 8 + k where it is a gradient
+# record (linear, radial, sweep). Shifted right by a record's kind and
+# masked with 0x101, a word holds the record's image bit in its low byte
+# and its gradient bit in the next (kind 0, no record, sets neither).
+RECORD_BITS = (1 << coarse.CMD_IMAGE) | sum(
+    1 << (8 + k) for k in (coarse.CMD_LIN_GRAD, coarse.CMD_RAD_GRAD, coarse.CMD_SWEEP_GRAD))
+
+
 def draw_stages(scene, layout, fl, caps):
     """The stages between flatten and path_count, on flatten's per-path
     outputs (`path_bbox`, `path_draw_flags`, `path_trans_idx`): draw_leaf,
@@ -125,11 +134,16 @@ def geometry(scene, layout, caps):
         # Exact per-frame counters of the commands, read by
         # renderer.estimate.calibrate_caps: img_recs sizes the image-tap
         # table (the predicate of its compaction), legacy_tiles the
-        # interpreter's grid (the classification fine_hybrid uses). Inside
-        # the coarse span, where the stage clock counts them too.
+        # interpreter's grid (the classification fine_hybrid uses);
+        # grad_recs, the gradient records, rides in the same reduction.
+        # Inside the coarse span, where the stage clock counts them too.
         tile = cmds["tile"]
-        img_recs = ((cmds["kind"] == coarse.CMD_IMAGE) & (tile < caps["tile_grid_cap"])
-                    & (tile >= 0)).sum()
+        kind = torch.where((tile < caps["tile_grid_cap"]) & (tile >= 0), cmds["kind"], 0)
+        hits = (RECORD_BITS >> kind) & 0x101
+        # The words' first two bytes (little-endian, on the card and the
+        # host), summed as columns: both counts in one reduction.
+        img_recs, grad_recs = hits.view(torch.uint8).view(-1, 4)[:, :2].sum(
+            0, dtype=torch.int32).unbind()
         # A clip-free frame (`_coarse_dense`, routed on n_clips == 0) whose
         # images ride the tap has no legacy tile.
         if not caps.get("_coarse_dense") or not caps.get("_image_tap"):
@@ -145,6 +159,10 @@ def geometry(scene, layout, caps):
     stats = {
         "legacy_tiles": legacy_tiles,
         "img_recs": img_recs,
+        "grad_recs": grad_recs,
+        # The layout's clip draw objects (a BeginClip and its EndClip
+        # each), read back with the stats: a view, no device operation.
+        "clips": layout["n_clips"],
         "work_a": fl["n_work_a"],
         "work_b": fl["n_work_b"],
         "euler_lines": fl["e_real"],
